@@ -1,7 +1,9 @@
-// Masked multi-head attention for Hopper (sm_90a), bound to Python with a
-// plain C interface (ctypes) by asr2pass_tpu_torch/ops/attention.py.
+// float32 masked multi-head attention for Hopper (sm_90a), bound to Python
+// with a plain C interface (ctypes) by asr2pass_tpu_torch/ops/attention.py.
+// bfloat16 inputs go to the tensor-core kernel of csrc/attention_sm90.cu.
 //
-// Replaces the three Pallas TPU kernels of asr2pass_tpu/ops/attention.py:
+// Replaces, for float32 inputs, the three Pallas TPU kernels of
+// asr2pass_tpu/ops/attention.py:
 //   _mhss_kernel (mh_flash_attention, :129)  unsplit [B,T,D] / [B,T,2D]
 //                                            projections, heads in d_k
 //                                            column blocks, merged output
@@ -27,10 +29,9 @@
 // online softmax (fp32 running max m, sum l and accumulator), so the
 // [B,H,Tq,Tk] score tensor never reaches device memory and shared memory
 // stays at 75 KB per block (three blocks per SM at d=128). The products run
-// on the CUDA cores in fp32 for both input types: this is the simple,
-// correct first version. Tensor-core products (mma/wgmma), TMA tile loads
-// and a deeper pipeline are the work of later changes.
-#include <cuda_bf16.h>
+// on the CUDA cores in true fp32 (no TF32): the recognizer's card-vs-CPU
+// check needs fp32 products. Register tiling or 3xTF32 on the tensor cores
+// is later work.
 #include <cuda_runtime.h>
 #include <math.h>
 
@@ -49,18 +50,11 @@ struct Strides {
 };
 
 __device__ __forceinline__ float to_float(float x) { return x; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
 
 template <typename T>
 __device__ __forceinline__ T from_float(float x);
 template <>
 __device__ __forceinline__ float from_float<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
 
 template <int D>
 constexpr size_t smem_floats() {
@@ -280,12 +274,11 @@ extern "C" int asr2pass_attention_f32(const void* q, const void* k,
                          d_head, strides, scale, stream);
 }
 
-extern "C" int asr2pass_attention_bf16(const void* q, const void* k,
-                                       const void* v, const void* kv_mask,
-                                       const void* q_mask, void* out,
-                                       int batch, int heads, int tq, int tk,
-                                       int d_head, const long long* strides,
-                                       float scale, void* stream) {
-  return dispatch<__nv_bfloat16>(q, k, v, kv_mask, q_mask, out, batch, heads,
-                                 tq, tk, d_head, strides, scale, stream);
+// Dynamic shared memory of one block for a head dim (0 if out of range).
+extern "C" int asr2pass_attention_f32_smem(int d_head) {
+  if (d_head < 1 || d_head > 256) return 0;
+  if (d_head <= 32) return static_cast<int>(smem_floats<32>() * sizeof(float));
+  if (d_head <= 64) return static_cast<int>(smem_floats<64>() * sizeof(float));
+  if (d_head <= 128) return static_cast<int>(smem_floats<128>() * sizeof(float));
+  return static_cast<int>(smem_floats<256>() * sizeof(float));
 }

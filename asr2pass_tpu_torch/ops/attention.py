@@ -18,10 +18,13 @@ Pallas TPU kernels there; each entry point below keeps its JAX signature:
       (attention.py:158-189,295-337): split-head, T > MAX_T_SS_SPLIT,
       fully masked rows come out as 0.
 
-On a CUDA tensor all three launch ONE kernel, csrc/attention.cu, which
-reads Q, K, V and writes the output through (batch, head, row) strides, so
-the unsplit layout needs no head split, merge or copy. What bounds it and
-how it is built is described at the top of that file. On a CPU tensor
+On a CUDA tensor all three launch one kernel per dtype: float32 the
+CUDA-core kernel of csrc/attention.cu, bfloat16 the tensor-core (wgmma,
+TMA) kernel of csrc/attention_sm90.cu. Both read Q, K, V and write the
+output through (batch, head, row) strides, so the unsplit layout needs
+no head split, merge or copy (the bf16 kernel copies only a view that
+TMA cannot address, see plan_tma). What bounds each and how it is
+designed is described at the top of its source. On a CPU tensor
 each entry point runs its plain version (einsum, masked fp32 softmax,
 einsum: the XLA-path semantics of asr2pass_tpu/models/layers.py:258-267).
 A CUDA tensor launches the kernel or raises; nothing falls back.
@@ -30,8 +33,8 @@ Masking contract of all three (attention.py:34,69,189): masked scores are
 the finite -1e30, never -inf, and the divide is by max(l, 1e-30), so a row
 with no valid key (a batch-bucket padding row of length 0) is finite.
 
-The kernel is compiled by nvcc from the checkout at first use into
-BUILD_DIR (git-ignored) and loaded with ctypes; see build().
+The kernels are compiled by nvcc from the checkout at first use into one
+library in BUILD_DIR (git-ignored) and loaded with ctypes; see build().
 """
 from __future__ import annotations
 
@@ -42,6 +45,7 @@ import os
 import shutil
 import subprocess
 from pathlib import Path
+from typing import NamedTuple
 
 import torch
 
@@ -55,12 +59,17 @@ MIN_T = 256
 MAX_T_SS = 2048
 MAX_T_SS_SPLIT = 4096
 # largest head dim of the gates (attention.py:390,404,415) and of the CUDA
-# kernel, which runs any d_head up to it (csrc/attention.cu)
+# kernels, which run any d_head up to it
 MAX_D_HEAD = 256
 
 _PKG = Path(__file__).resolve().parents[1]
-SOURCE = _PKG / "csrc" / "attention.cu"
+CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
+# the C symbol of the kernel for each input dtype, and its source
+KERNELS = {
+    torch.float32: ("asr2pass_attention_f32", "csrc/attention.cu"),
+    torch.bfloat16: ("asr2pass_attention_bf16", "csrc/attention_sm90.cu"),
+}
 _lib = None
 
 
@@ -72,30 +81,55 @@ def _nvcc() -> str:
     path = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
     if not os.path.exists(path):
         raise RuntimeError(
-            "nvcc not found: the attention kernel is compiled from "
-            f"{SOURCE} on a machine with the CUDA toolkit")
+            "nvcc not found: the attention kernels are compiled from "
+            f"{CSRC} on a machine with the CUDA toolkit")
     return path
 
 
+def sources() -> list:
+    return sorted(CSRC.glob("*.cu"))
+
+
 def build() -> Path:
-    """Compile csrc/attention.cu for sm_90a into BUILD_DIR, once per
-    source content, and return the shared library's path. nvcc's ptxas
-    report (registers, shared memory, spills) is kept beside it as
-    a .log file."""
-    tag = hashlib.sha1(SOURCE.read_bytes()).hexdigest()[:12]
-    lib = BUILD_DIR / f"libattention_{tag}.so"
+    """Compile every csrc/*.cu for sm_90a into one shared library in
+    BUILD_DIR, once per content of all sources, and return its path.
+    Each source is compiled by its own nvcc, all started together, then
+    linked. nvcc's ptxas reports (registers, shared memory, spills) are
+    kept beside the library as a .log file."""
+    srcs = sources()
+    digest = hashlib.sha1()
+    for src in srcs:
+        digest.update(src.name.encode() + b"\0" + src.read_bytes())
+    lib = BUILD_DIR / f"libattention_{digest.hexdigest()[:12]}.so"
     if lib.exists():
         return lib
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = BUILD_DIR / f".{lib.name}.{os.getpid()}.tmp"
-    cmd = [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a",
-           "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
-           "-Xptxas", "-v", "-o", str(tmp), str(SOURCE)]
-    res = subprocess.run(cmd, capture_output=True, text=True)
+    nvcc = _nvcc()
+    arch = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+            "-Xcompiler", "-fPIC"]
+    tag = f"{lib.stem}.{os.getpid()}"
+    objs = [BUILD_DIR / f".{tag}.{src.stem}.o" for src in srcs]
+    procs = [subprocess.Popen(
+        [nvcc, *arch, "-Xptxas", "-v", "-c", "-o", str(obj), str(src)],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for src, obj in zip(srcs, objs)]
+    log, failed = [], []
+    for src, proc in zip(srcs, procs):
+        out = proc.communicate()[0]
+        log.append(f"== {src.name}\n{out}")
+        if proc.returncode != 0:
+            failed.append(src.name)
+    if failed:
+        raise RuntimeError(f"nvcc failed on {failed}:\n" + "\n".join(log))
+    tmp = BUILD_DIR / f".{tag}.so"
+    res = subprocess.run([nvcc, *arch, "-shared", "-o", str(tmp),
+                          *map(str, objs)], capture_output=True, text=True)
+    for obj in objs:
+        obj.unlink(missing_ok=True)
     if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({res.returncode}):\n"
+        raise RuntimeError(f"nvcc link failed ({res.returncode}):\n"
                            f"{res.stdout}\n{res.stderr}")
-    lib.with_suffix(".log").write_text(res.stdout + res.stderr)
+    lib.with_suffix(".log").write_text("\n".join(log))
     os.replace(tmp, lib)   # atomic: a concurrent process never sees a half-written file
     return lib
 
@@ -104,63 +138,188 @@ def _library():
     global _lib
     if _lib is None:
         lib = ctypes.CDLL(str(build()))
-        for name in ("asr2pass_attention_f32", "asr2pass_attention_bf16"):
+        for name, _ in KERNELS.values():
             fn = getattr(lib, name)
             fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 5
                            + [ctypes.POINTER(ctypes.c_longlong),
                               ctypes.c_float, ctypes.c_void_p])
             fn.restype = ctypes.c_int
+            smem = getattr(lib, f"{name}_smem")
+            smem.argtypes = [ctypes.c_int]
+            smem.restype = ctypes.c_int
         _lib = lib
     return _lib
 
 
-def _launch(q, k, v, kv_mask, q_mask, out, heads: int, d_head: int,
-            strides) -> None:
-    """One launch of the CUDA kernel. q/k/v/out are views whose last
-    (column) stride is 1; `strides` holds (batch, head, row) element
-    strides for q, k, v and out."""
-    dtype = q.dtype
-    if dtype not in (torch.float32, torch.bfloat16):
+def smem_bytes(dtype, d_head: int) -> int:
+    """Dynamic shared memory of one block of dtype's kernel at d_head, as
+    the kernel's source computes it."""
+    return getattr(_library(), f"{kernel_symbol(dtype)}_smem")(d_head)
+
+
+def kernel_symbol(dtype) -> str:
+    """The C function that takes this input dtype: the CUDA-core fp32
+    kernel (csrc/attention.cu) or the tensor-core bf16 kernel
+    (csrc/attention_sm90.cu)."""
+    if dtype not in KERNELS:
         raise TypeError(f"attention kernel takes float32 or bfloat16, "
                         f"got {dtype}")
-    for t in (k, v, out):
-        if t.dtype != dtype or t.device != q.device:
+    return KERNELS[dtype][0]
+
+
+def check_operands(q, k, v, out, kv_mask, q_mask) -> None:
+    """Raise on what the kernels do not take. q/k/v/out are [B,H,T,d]
+    views; kv_mask [B,Tk]; q_mask [B,>=Tq] or None."""
+    kernel_symbol(q.dtype)
+    for x in (k, v, out):
+        if x.dtype != q.dtype or x.device != q.device:
             raise TypeError("q, k, v and out must share dtype and device")
-    for t in (q, k, v, out):
-        if t.stride(-1) != 1:
+    for x in (q, k, v, out):
+        if x.stride(-1) != 1:
             raise ValueError("attention kernel needs unit column stride")
-    if not 1 <= d_head <= MAX_D_HEAD:
-        raise ValueError(f"attention kernel has no head dim {d_head} "
+    b, h, tq, d = q.shape
+    tk = k.shape[2]
+    if not 1 <= d <= MAX_D_HEAD:
+        raise ValueError(f"attention kernel has no head dim {d} "
                          f"(takes 1 to {MAX_D_HEAD})")
-    b, tq, tk = out.shape[0], q.shape[-2], k.shape[-2]
+    if (k.shape != v.shape or tuple(k.shape[:2]) != (b, h)
+            or k.shape[3] != d or tuple(out.shape) != (b, h, tq, d)):
+        raise ValueError(f"q {tuple(q.shape)}, k {tuple(k.shape)}, v "
+                         f"{tuple(v.shape)} and out {tuple(out.shape)} are "
+                         "not [B,H,Tq,d], [B,H,Tk,d] and [B,H,Tq,d]")
     if tuple(kv_mask.shape) != (b, tk):
         raise ValueError(f"kv_mask {tuple(kv_mask.shape)} != {(b, tk)}")
     if q_mask is not None and (q_mask.shape[0] != b
                                or q_mask.shape[1] < tq):
         raise ValueError(f"q_mask {tuple(q_mask.shape)} does not cover "
                          f"{(b, tq)}")
-    kv_mask = kv_mask.to(device=q.device, dtype=torch.float32).contiguous()
+
+
+# ---------------------------------------------------------------------------
+# layout planning for the bf16 kernel's TMA loads
+# ---------------------------------------------------------------------------
+
+TMA_ALIGN = 16   # bytes: TMA's rule for base addresses and strides
+
+
+def tma_ready(x) -> bool:
+    """Can the bf16 kernel read this [B,H,T,d] view in place? TMA needs a
+    16-byte-aligned base, a unit column stride, d a multiple of 8 and
+    every other stride (of a dim longer than 1) a positive multiple of 8
+    elements."""
+    per = TMA_ALIGN // x.element_size()
+    shape, st = x.shape, x.stride()
+    if st[-1] != 1 or shape[-1] % per or x.data_ptr() % TMA_ALIGN:
+        return False
+    return all(n == 1 or (s > 0 and s % per == 0)
+               for n, s in zip(shape[:-1], st[:-1]))
+
+
+class TmaPlan(NamedTuple):
+    q: torch.Tensor
+    k: torch.Tensor
+    v: torch.Tensor
+    out: torch.Tensor      # what the kernel writes: out itself, or a padded buffer
+    copied: tuple          # names of the operands that were copied
+
+
+def plan_tma(q, k, v, out) -> TmaPlan:
+    """Layout preparation for the bf16 kernel: views it can read in place
+    pass through; a view with an unaligned base or stride is copied
+    contiguous; a head dim that is not a multiple of 8 pads q, k, v and
+    the output buffer with zero columns (zeros add nothing to q.k, and
+    the output's extra columns are dropped). The copy is a fresh
+    allocation even where the view is contiguous already (a contiguous
+    view can start at an unaligned offset). The main path (d_head 128,
+    slices of a fused projection) copies nothing."""
+    d = q.shape[-1]
+    per = TMA_ALIGN // q.element_size()
+    dp = -(-d // per) * per
+    if dp != d:
+        def padded(x):
+            y = x.new_zeros(*x.shape[:-1], dp)
+            y[..., :d] = x
+            return y
+        buf = out.new_empty(*out.shape[:-1], dp)
+        return TmaPlan(padded(q), padded(k), padded(v), buf,
+                       ("q", "k", "v", "out"))
+    ops, copied = [], []
+    for name, x in (("q", q), ("k", k), ("v", v)):
+        if not tma_ready(x):
+            x = x.clone(memory_format=torch.contiguous_format)
+            copied.append(name)
+        ops.append(x)
+    if not tma_ready(out):
+        copied.append("out")
+        return TmaPlan(*ops, out.new_empty(out.shape), tuple(copied))
+    return TmaPlan(*ops, out, tuple(copied))
+
+
+def _strides(x) -> tuple:
+    """(batch, head, row) element strides of a [B,H,T,d] view; a dim of
+    length 1 is never stepped, so it gets the view's span (positive, a
+    multiple of 8, past every real stride)."""
+    shape, st = x.shape, x.stride()
+    if shape[0] > 1 and shape[1] > 1 and shape[2] > 1:
+        return st[:3]
+    span = 1 + sum((n - 1) * s for n, s in zip(shape, st))
+    span = -(-span // 8) * 8
+    return tuple(s if n > 1 else span for n, s in zip(shape[:3], st[:3]))
+
+
+def _attend(q, k, v, kv_mask, q_mask, out) -> None:
+    """One launch of the kernel for q's dtype, writing out. q/k/v/out are
+    [B,H,T,d] views (the unsplit layout is a view too: head stride d_k,
+    row stride D or 2D)."""
+    check_operands(q, k, v, out, kv_mask, q_mask)
+    fn = getattr(_library(), kernel_symbol(q.dtype))
+    b, h, tq, d = q.shape
+    scale = 1.0 / math.sqrt(d)
+    target = out
+    if q.dtype == torch.bfloat16:
+        q, k, v, target, _ = plan_tma(q, k, v, out)
+    kv_mask = _f32_on(kv_mask, q.device)
     if q_mask is not None:
-        q_mask = q_mask[:, :tq].to(device=q.device,
-                                   dtype=torch.float32).contiguous()
-    lib = _library()
-    fn = (lib.asr2pass_attention_f32 if dtype == torch.float32
-          else lib.asr2pass_attention_bf16)
-    st = (ctypes.c_longlong * 12)(*[int(s) for s in strides])
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                 kv_mask.data_ptr(),
-                 None if q_mask is None else q_mask.data_ptr(),
-                 out.data_ptr(), b, heads, tq, tk, d_head, st,
-                 1.0 / math.sqrt(d_head), stream)
+        q_mask = _f32_on(q_mask if q_mask.shape[1] == tq else q_mask[:, :tq],
+                         q.device)
+    st = (ctypes.c_longlong * 12)(*_strides(q), *_strides(k), *_strides(v),
+                                  *_strides(target))
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), kv_mask.data_ptr(),
+            None if q_mask is None else q_mask.data_ptr(), target.data_ptr(),
+            b, h, tq, k.shape[2], q.shape[-1], st, scale)
+    if q.device.index == torch.cuda.current_device():
+        err = fn(*args, torch.cuda.current_stream().cuda_stream)
+    else:   # the kernel launches on the current device
+        with torch.cuda.device(q.device):
+            err = fn(*args, torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"attention kernel launch failed: CUDA error "
                            f"{err}")
+    if target is not out:
+        out.copy_(target[..., :d])
 
 
 def _unit_cols(x):
     return x if x.stride(-1) == 1 else x.contiguous()
+
+
+def _f32_on(mask, device):
+    """mask as a contiguous float32 tensor on device (no op when it is)."""
+    if (mask.dtype == torch.float32 and mask.device == device
+            and mask.is_contiguous()):
+        return mask
+    return mask.to(device=device, dtype=torch.float32).contiguous()
+
+
+def _head_view(x, heads: int, d: int, col: int = 0):
+    """Columns col..col+d of x [B,T,>=col+d] (unit column stride) as a
+    [B,H,T,d/H] view, heads being column blocks: no split, no copy. One
+    as_strided, where a slice, an unflatten and a transpose would take
+    several times its host time on every launch."""
+    dk = d // heads
+    return x.as_strided((x.shape[0], heads, x.shape[1], dk),
+                        (x.stride(0), dk, x.stride(1), 1),
+                        x.storage_offset() + col)
 
 
 # ---------------------------------------------------------------------------
@@ -177,12 +336,14 @@ def _merge_heads(x):
     return x.transpose(1, 2).reshape(b, t, h * dk)
 
 
-def attention_plain(q, k, v, kv_mask, q_mask=None, att_mask=None):
+def attention_plain(q, k, v, kv_mask, q_mask=None, att_mask=None,
+                    return_weights=False):
     """q [B,H,Tq,d], k/v [B,H,Tk,d], kv_mask [B,Tk] (>0 valid): fp32
     scores, -1e30 where masked, fp32 softmax cast to the input dtype,
     context; rows whose q_mask is 0 are zeroed when q_mask is given.
     att_mask ([B,Tq,Tk] or [Tq,Tk]) is the layers' extra mask, which only
-    this plain branch takes."""
+    this plain branch takes. With return_weights, (context, the fp32
+    softmax weights [B,H,Tq,Tk])."""
     d = q.shape[-1]
     s = torch.einsum("bhtd,bhsd->bhts", q.float(), k.float()) / math.sqrt(d)
     neg = torch.tensor(_NEG, dtype=s.dtype, device=s.device)
@@ -190,11 +351,11 @@ def attention_plain(q, k, v, kv_mask, q_mask=None, att_mask=None):
     if att_mask is not None:
         am = att_mask if att_mask.dim() == 3 else att_mask[None]
         s = torch.where(am[:, None, :, :] > 0, s, neg)
-    att = torch.softmax(s, dim=-1).to(q.dtype)
-    out = torch.einsum("bhts,bhsd->bhtd", att, v)
+    p = torch.softmax(s, dim=-1)
+    out = torch.einsum("bhts,bhsd->bhtd", p.to(q.dtype), v)
     if q_mask is not None:
         out = out * (q_mask[:, None, :q.shape[2], None] > 0).to(out.dtype)
-    return out
+    return (out, p) if return_weights else out
 
 
 def mh_attention_plain(q, kv, kv_mask, heads: int):
@@ -207,9 +368,55 @@ def mh_attention_plain(q, kv, kv_mask, heads: int):
     return _merge_heads(ctx)
 
 
+# bf16 limit of the kernel against the plain version evaluated in fp32:
+#   |kernel - plain32| <= 2^-8 |plain32| + 2^-6 sqrt(sum_j p_j^2 v_j^2) + 1e-6
+# The first term is the rounding of the bf16 output: bf16 keeps 8
+# significant bits, so rounding moves a value by up to 2^-8 of itself.
+# The second covers rounding P to bf16 before the P.V product, as the TPU
+# kernels do (attention.py:67,96,184): each p_j picks up a relative error
+# of up to 2^-8, roughly independent across j, so the output's error has
+# a standard deviation of at most about 2^-8/sqrt(3) times
+# sqrt(sum_j p_j^2 v_j^2); 2^-6 is about 7 of those. A correct kernel
+# that stores bf16 can read close to the whole limit where |plain32| is
+# large against the second term (the fp32 result rounded once reads up
+# to about half of it on random data).
+BF16_REL, BF16_P, BF16_ABS = 2.0 ** -8, 2.0 ** -6, 1e-6
+
+
+def bf16_reference(q, k, v, kv_mask, q_mask=None):
+    """The plain version evaluated in fp32 on q/k/v's values, and the
+    bf16 limit of each output element (formula above). Split-head
+    [B,H,T,d] layout, semantics of attention_plain."""
+    vf = v.float()
+    ref, p = attention_plain(q.float(), k.float(), vf, kv_mask, q_mask,
+                             return_weights=True)
+    spread = torch.einsum("bhts,bhsd->bhtd", p * p, vf * vf).sqrt()
+    return ref, BF16_REL * ref.abs() + BF16_P * spread + BF16_ABS
+
+
+def mh_bf16_reference(q, kv, kv_mask, heads: int):
+    """bf16_reference for mh_flash_attention's unsplit layout; both in
+    the merged [B,Tq,D] layout."""
+    d = q.shape[-1]
+    ref, limit = bf16_reference(_split_heads(q, heads),
+                                _split_heads(kv[..., :d], heads),
+                                _split_heads(kv[..., d:], heads), kv_mask)
+    return _merge_heads(ref), _merge_heads(limit)
+
+
 # ---------------------------------------------------------------------------
 # entry points
 # ---------------------------------------------------------------------------
+
+def _dtype_name(dtype) -> str:
+    return str(dtype).removeprefix("torch.")
+
+
+def _count(fn, dtype) -> None:
+    """One launch of fn's kernel in dtype: the only place counts move."""
+    key = _dtype_name(dtype)
+    fn.launches_by_dtype[key] = fn.launches_by_dtype.get(key, 0) + 1
+
 
 def mh_flash_attention(q, kv, kv_mask, heads: int):
     """q [B,Tq,D]; kv [B,Tk,2D] (K then V columns); kv_mask [B,Tk] (>0
@@ -219,7 +426,6 @@ def mh_flash_attention(q, kv, kv_mask, heads: int):
     if not q.is_cuda:
         return mh_attention_plain(q, kv, kv_mask, heads)
     b, tq, d = q.shape
-    dk = d // heads
     if d % heads or kv.shape[0] != b or kv.shape[2] != 2 * d:
         raise ValueError(f"q {tuple(q.shape)} and kv {tuple(kv.shape)} "
                          f"are not [B,Tq,D] and [B,Tk,2D] with {heads} "
@@ -228,27 +434,21 @@ def mh_flash_attention(q, kv, kv_mask, heads: int):
     out = torch.empty((b, tq, d), dtype=q.dtype, device=q.device)
     if b == 0 or tq == 0:
         return out
-    k, v = kv[..., :d], kv[..., d:]
-    _launch(q, k, v, kv_mask, None, out, heads, dk,
-            (q.stride(0), dk, q.stride(1), k.stride(0), dk, k.stride(1),
-             v.stride(0), dk, v.stride(1), out.stride(0), dk, out.stride(1)))
-    mh_flash_attention.launches += 1
+    _attend(_head_view(q, heads, d), _head_view(kv, heads, d),
+            _head_view(kv, heads, d, d), kv_mask, None,
+            _head_view(out, heads, d))
+    _count(mh_flash_attention, q.dtype)
     return out
 
 
 def _split_launch(q, k, v, kv_mask, q_mask):
-    b, h, tq, d = q.shape
-    if k.shape != v.shape or k.shape[:2] != (b, h) or k.shape[3] != d:
-        raise ValueError(f"q {tuple(q.shape)}, k {tuple(k.shape)} and v "
-                         f"{tuple(v.shape)} are not [B,H,Tq,d] and "
-                         "[B,H,Tk,d]")
+    """The kernel on split-head views: (output, whether it launched); an
+    empty output launches nothing."""
     q, k, v = _unit_cols(q), _unit_cols(k), _unit_cols(v)
-    out = torch.empty((b, h, tq, d), dtype=q.dtype, device=q.device)
-    if b == 0 or h == 0 or tq == 0:
+    out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    if q.numel() == 0:
         return out, False
-    _launch(q, k, v, kv_mask, q_mask, out, h, d,
-            (*q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
-             *out.stride()[:3]))
+    _attend(q, k, v, kv_mask, q_mask, out)
     return out, True
 
 
@@ -258,7 +458,8 @@ def _attention_ss(q, k, v, kv_mask, q_mask=None):
     if not q.is_cuda:
         return attention_plain(q, k, v, kv_mask, q_mask)
     out, launched = _split_launch(q, k, v, kv_mask, q_mask)
-    _attention_ss.launches += launched
+    if launched:
+        _count(_attention_ss, q.dtype)
     return out
 
 
@@ -268,7 +469,8 @@ def _attention_flash(q, k, v, mask):
     if not q.is_cuda:
         return attention_plain(q, k, v, mask, mask)
     out, launched = _split_launch(q, k, v, mask, mask)
-    _attention_flash.launches += launched
+    if launched:
+        _count(_attention_flash, q.dtype)
     return out
 
 
@@ -288,17 +490,26 @@ def cross_flash_attention(q, k, v, kv_mask):
 
 
 KERNEL_ENTRY_POINTS = (mh_flash_attention, _attention_ss, _attention_flash)
-for _fn in KERNEL_ENTRY_POINTS:
-    _fn.launches = 0   # launches of the CUDA kernel, added where it launches
 
 
 def launch_counts() -> dict:
-    return {fn.__name__: fn.launches for fn in KERNEL_ENTRY_POINTS}
+    """Launches of the CUDA kernels per entry point, both dtypes."""
+    return {fn.__name__: sum(fn.launches_by_dtype.values())
+            for fn in KERNEL_ENTRY_POINTS}
+
+
+def launch_counts_by_dtype() -> dict:
+    """Launches per entry point and input dtype: {name: {dtype: n}}."""
+    return {fn.__name__: {_dtype_name(dt): fn.launches_by_dtype.get(
+        _dtype_name(dt), 0) for dt in KERNELS} for fn in KERNEL_ENTRY_POINTS}
 
 
 def reset_launch_counts() -> None:
     for fn in KERNEL_ENTRY_POINTS:
-        fn.launches = 0
+        fn.launches_by_dtype = {}
+
+
+reset_launch_counts()
 
 
 # ---------------------------------------------------------------------------

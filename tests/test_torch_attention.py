@@ -152,3 +152,236 @@ def test_cpu_tensors_launch_nothing():
     assert tatt.launch_counts() == {"mh_flash_attention": 0,
                                     "_attention_ss": 0,
                                     "_attention_flash": 0}
+
+
+# ---------------------------------------------------------------------------
+# the bf16 limit (ops/attention.py bf16_reference) against the Pallas kernels
+# in bf16: they round P to bf16 before the P.V product (per 128-key block in
+# _attention_flash), as the card's tensor-core kernel does, so their share
+# of the limit predicts the card's reading
+# ---------------------------------------------------------------------------
+
+def _bf16(x):
+    """numpy fp32 -> (jax bf16 array, torch bf16 tensor) of equal values."""
+    xj = jnp.asarray(x, jnp.bfloat16)
+    return xj, torch.from_numpy(np.array(xj.astype(jnp.float32))).bfloat16()
+
+
+@pytest.mark.parametrize("entry,t_len", [("mh_flash_attention", 512),
+                                         ("_attention_ss", 512),
+                                         ("_attention_flash", 640)])
+def test_bf16_limit_holds_for_pallas_kernels(entry, t_len):
+    """The Pallas kernel in bf16 (interpret mode) is within the bf16 limit
+    of the port's plain version in fp32, and the plain result with each
+    row's last valid key dropped fails it by 10 times or more."""
+    b, h, d = 2, 2, 128
+    rng = np.random.default_rng(7)
+    lens = [t_len, t_len // 3]
+    mask = ragged_mask(lens, t_len)
+    drop = mask.copy()
+    drop[[0, 1], [n - 1 for n in lens]] = 0
+    tm, td = t(mask), t(drop)
+    if entry == "mh_flash_attention":
+        (qj, qt), (kvj, kvt) = (_bf16(_rand(rng, b, t_len, n * h * d))
+                                for n in (1, 2))
+        got = jatt.mh_flash_attention(qj, kvj, jnp.asarray(mask), h,
+                                      interpret=True)
+        ref, limit = tatt.mh_bf16_reference(qt, kvt, tm, h)
+        control = tatt.mh_attention_plain(qt.float(), kvt.float(), td, h)
+    else:
+        (qj, qt), (kj, kt), (vj, vt) = (_bf16(_rand(rng, b, h, t_len, d))
+                                        for _ in range(3))
+        mj = jnp.asarray(mask)
+        got = (jatt._attention_ss(qj, kj, vj, mj, q_mask=mj, interpret=True)
+               if entry == "_attention_ss"
+               else jatt._attention_flash(qj, kj, vj, mj, interpret=True))
+        ref, limit = tatt.bf16_reference(qt, kt, vt, tm, tm)
+        control = tatt.attention_plain(qt.float(), kt.float(), vt.float(),
+                                       td, tm)
+    got = torch.from_numpy(np.array(got.astype(jnp.float32)))
+    share = ((got - ref).abs() / limit).max().item()
+    control_share = ((control.bfloat16().float() - ref).abs()
+                     / limit).max().item()
+    assert share <= 1.0, share
+    assert control_share >= 10.0, control_share
+
+
+def test_attention_plain_returns_its_fp32_weights():
+    """With return_weights the plain version also gives the fp32 softmax
+    weights it used: rows sum to 1, masked keys get 0, and the context is
+    the one it returns without them."""
+    rng = np.random.default_rng(3)
+    q, k, v = (t(_rand(rng, 2, 2, 5, 8)).bfloat16() for _ in range(3))
+    mask = t(ragged_mask([5, 3], 5))
+    out, p = tatt.attention_plain(q, k, v, mask, mask, return_weights=True)
+    assert p.dtype == torch.float32 and p.shape == (2, 2, 5, 5)
+    torch.testing.assert_close(p.sum(-1), torch.ones(2, 2, 5))
+    assert (p[1, :, :, 3:] == 0).all()
+    assert torch.equal(out, tatt.attention_plain(q, k, v, mask, mask))
+
+
+def test_bf16_limit_terms():
+    """The limit is 2^-8 |plain| + 2^-6 sqrt(sum_j p_j^2 v_j^2) + 1e-6
+    with p the plain version's fp32 weights: one valid key gives p = 1,
+    so the limit is (2^-8 + 2^-6) |v| + 1e-6; a masked-out query row
+    (q_mask 0) has reference 0."""
+    v = torch.tensor([[[[2.0, -4.0], [7.0, 7.0]]]])
+    q = torch.zeros(1, 1, 3, 2)
+    mask = torch.tensor([[1.0, 0.0]])
+    ref, limit = tatt.bf16_reference(q, v, v, mask, torch.tensor(
+        [[1.0, 1.0, 0.0]]))
+    want = (2.0 ** -8 + 2.0 ** -6) * torch.tensor([2.0, 4.0]) + 1e-6
+    torch.testing.assert_close(ref[0, 0, :2], torch.tensor([[2.0, -4.0]] * 2))
+    torch.testing.assert_close(limit[0, 0, 0], want)
+    assert (ref[0, 0, 2] == 0).all()
+
+
+# ---------------------------------------------------------------------------
+# around the kernels, on the CPU: routing, layout planning, input checks
+# ---------------------------------------------------------------------------
+
+def test_dtype_routes_to_its_kernel():
+    """float32 goes to the CUDA-core kernel, bfloat16 to the tensor-core
+    one; each named source is in the package, and build() compiles every
+    csrc/*.cu into one library."""
+    assert tatt.kernel_symbol(torch.float32) == "asr2pass_attention_f32"
+    assert tatt.kernel_symbol(torch.bfloat16) == "asr2pass_attention_bf16"
+    for dtype in (torch.float16, torch.float64, torch.int8):
+        with pytest.raises(TypeError, match="float32 or bfloat16"):
+            tatt.kernel_symbol(dtype)
+    names = {p.name for p in tatt.sources()}
+    assert names == {"attention.cu", "attention_sm90.cu"}
+    for symbol, src in tatt.KERNELS.values():
+        text = (tatt.CSRC.parent / src).read_text()
+        assert f'extern "C" int {symbol}(' in text
+    assert "asr2pass_attention_bf16" not in (tatt.CSRC / "attention.cu"
+                                             ).read_text()
+
+
+def _fused_views(b, t_len, h, d, extra=0, offset=0):
+    qkv = torch.zeros(b, t_len, 3 * h * d + extra,
+                      dtype=torch.bfloat16)[..., offset:offset + 3 * h * d]
+    return tuple(a.unflatten(-1, (h, d)).transpose(1, 2)
+                 for a in qkv.split(h * d, dim=-1))
+
+
+def test_tma_plan_reads_aligned_views_in_place():
+    """Split-head views of a fused [B,T,3*H*d] projection and the unsplit
+    layout's [B,H,T,d_k] views (head stride d_k) need no copy."""
+    q, k, v = _fused_views(2, 300, 4, 128)
+    out = torch.empty(q.shape, dtype=q.dtype)
+    plan = tatt.plan_tma(q, k, v, out)
+    assert plan.copied == ()
+    assert all(a.data_ptr() == b.data_ptr()
+               for a, b in zip(plan, (q, k, v, out)))
+    qkv = torch.zeros(2, 300, 3 * 512, dtype=torch.bfloat16)
+    heads = [tatt._split_heads(x, 4) for x in qkv.split(512, dim=-1)]
+    assert heads[0].stride() == (300 * 1536, 128, 1536, 1)
+    assert tatt.plan_tma(*heads, out).copied == ()
+
+
+@pytest.mark.parametrize("case", ["d20", "odd_base", "odd_row_stride",
+                                  "expanded", "odd_base_contiguous"])
+def test_tma_plan_copies_what_tma_cannot_read(case):
+    """A head dim that is not a multiple of 8 pads q, k, v and the output
+    buffer with zero columns; an unaligned base or stride, or a stride of
+    0, gets a contiguous copy of that operand only, also where the view
+    is contiguous already but starts one element off alignment."""
+    q, k, v = _fused_views(2, 64, 2, 32)
+    out = torch.empty(q.shape, dtype=q.dtype)
+    if case == "d20":
+        q, k, v = (torch.randn(2, 2, 64, 20).bfloat16() for _ in range(3))
+        plan = tatt.plan_tma(q, k, v, torch.empty_like(q))
+        assert plan.copied == ("q", "k", "v", "out")
+        assert plan.q.shape[-1] == plan.out.shape[-1] == 24
+        assert torch.equal(plan.q[..., :20], q)
+        assert (plan.k[..., 20:] == 0).all()
+        return
+    if case == "odd_base":
+        q = _fused_views(2, 64, 2, 32, extra=1, offset=1)[0]
+    elif case == "odd_base_contiguous":
+        q = torch.arange(1 + 2 * 2 * 64 * 32, dtype=torch.bfloat16)[
+            1:].view(2, 2, 64, 32)
+        assert q.is_contiguous()
+    elif case == "odd_row_stride":
+        q = torch.zeros(2, 64, 2 * 32 + 1, dtype=torch.bfloat16)[
+            ..., :64].unflatten(-1, (2, 32)).transpose(1, 2)
+    else:
+        k = k[:, :, :1].expand(-1, -1, 64, -1)
+    assert not tatt.tma_ready(q if case != "expanded" else k)
+    plan = tatt.plan_tma(q, k, v, out)
+    assert plan.copied == (("q",) if case != "expanded" else ("k",))
+    name = plan.copied[0]
+    copy = getattr(plan, name)
+    assert copy.is_contiguous() and tatt.tma_ready(copy)
+    assert copy.data_ptr() % tatt.TMA_ALIGN == 0
+    assert torch.equal(copy, q if name == "q" else k)
+
+
+def test_kernel_strides_of_length_one_dims():
+    """A dim of length 1 is never stepped; it is handed to the kernels
+    with the view's span, a positive multiple of 8 past every stride."""
+    x = torch.empty(1, 1, 100, 40)
+    st = tatt._strides(x)
+    assert st[2] == 40 and st[0] == st[1] and st[0] % 8 == 0
+    assert st[0] >= 100 * 40
+
+
+@pytest.mark.parametrize("bad,exc,match", [
+    ("float16", TypeError, "float32 or bfloat16"),
+    ("mixed_dtype", TypeError, "share dtype"),
+    ("column_stride", ValueError, "unit column stride"),
+    ("head_dim", ValueError, "head dim"),
+    ("kv_shape", ValueError, "not"),
+    ("out_shape", ValueError, "not"),
+    ("kv_mask", ValueError, "kv_mask"),
+    ("q_mask", ValueError, "q_mask"),
+])
+def test_unsupported_input_is_refused(bad, exc, match):
+    """check_operands, the gate in front of every launch, raises on what
+    the kernels do not take (a CUDA tensor never falls back)."""
+    q = torch.zeros(2, 2, 64, 32, dtype=torch.bfloat16)
+    k, v, out = q.clone(), q.clone(), q.clone()
+    kv_mask, q_mask = torch.ones(2, 64), None
+    if bad == "float16":
+        q, k, v, out = (x.half() for x in (q, k, v, out))
+    elif bad == "mixed_dtype":
+        k = k.float()
+    elif bad == "column_stride":
+        v = torch.zeros(2, 2, 64, 64, dtype=torch.bfloat16)[..., ::2]
+    elif bad == "head_dim":
+        q, k, v, out = (torch.zeros(2, 2, 64, 257, dtype=torch.bfloat16)
+                        for _ in range(4))
+    elif bad == "kv_shape":
+        k = k[:, :, :, :16]
+    elif bad == "out_shape":
+        out = out[:, :1]
+    elif bad == "kv_mask":
+        kv_mask = torch.ones(2, 63)
+    else:
+        q_mask = torch.ones(2, 32)
+    with pytest.raises(exc, match=match):
+        tatt.check_operands(q, k, v, out, kv_mask, q_mask)
+
+
+def test_launch_counts_by_dtype_start_at_zero():
+    """Counts per entry point and dtype; CPU tensors add nothing."""
+    tatt.reset_launch_counts()
+    qh = torch.randn(1, 2, 300, 32).bfloat16()
+    tatt.flash_attention(qh, qh, qh, torch.ones(1, 300))
+    assert tatt.launch_counts_by_dtype() == {
+        name: {"float32": 0, "bfloat16": 0}
+        for name in ("mh_flash_attention", "_attention_ss",
+                     "_attention_flash")}
+
+
+def test_head_view_is_the_split_of_the_column_blocks():
+    """The kernels' [B,H,T,d_k] views of the unsplit layout equal the
+    plain version's head split of the same columns and share storage."""
+    qkv = torch.arange(2 * 5 * 3 * 8, dtype=torch.float32).view(2, 5, 24)
+    q, kv = qkv[..., :8], qkv[..., 8:]
+    for view, ref in [(tatt._head_view(q, 2, 8), q),
+                      (tatt._head_view(kv, 2, 8), kv[..., :8]),
+                      (tatt._head_view(kv, 2, 8, 8), kv[..., 8:])]:
+        assert torch.equal(view, tatt._split_heads(ref, 2))
+        assert view.data_ptr() == ref.data_ptr()
