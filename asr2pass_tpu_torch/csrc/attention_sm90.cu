@@ -3,8 +3,8 @@
 // (ctypes) by asr2pass_tpu_torch/ops/attention.py, which also builds it.
 //
 // Replaces, for bfloat16 inputs, the three Pallas TPU kernels of
-// asr2pass_tpu/ops/attention.py (the float32 path stays on the CUDA-core
-// kernel of csrc/attention.cu):
+// asr2pass_tpu/ops/attention.py (float32 inputs go to the 3xTF32 kernel
+// of csrc/attention_f32_sm90.cu; both include csrc/tma.cuh):
 //   _mhss_kernel (mh_flash_attention, :129)  unsplit [B,T,D] / [B,T,2D]
 //                                            projections, heads in d_k
 //                                            column blocks, merged output
@@ -54,14 +54,10 @@
 // product inside one warpgroup (a third, register-donating warpgroup via
 // setmaxnreg) timed slower on the H100 at every main-path shape: ptxas
 // serialised its wgmmas (C7513), so it was not kept (PERF.md).
-#include <cuda.h>
 #include <cuda_bf16.h>
-#include <cuda_runtime.h>
 #include <math.h>
-#include <stdint.h>
 
-#include <atomic>
-#include <mutex>
+#include "tma.cuh"
 
 namespace {
 
@@ -71,6 +67,7 @@ constexpr int kThreads = 128 * kConsumers + 32;  // + one producer warp
 constexpr int kStages = 2;                 // K/V shared-memory ring
 constexpr float kNeg = -1e30f;             // masked score (attention.py:34)
 constexpr float kLog2e = 1.4426950408889634f;
+constexpr CUtensorMapDataType kBf16 = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
 
 template <int D>
 struct Cfg {
@@ -93,103 +90,6 @@ struct Cfg {
   static_assert(D % PW == 0 && PW % 16 == 0, "head dim");
   static_assert(OFF_K % 1024 == 0 && KV_BYTES % 1024 == 0, "alignment");
 };
-
-struct Strides {
-  long long b, h, t;  // elements between batches, heads and rows
-};
-
-// where the row, head and batch coordinates sit in a tensor map's dims
-struct Perm {
-  int row, head, batch;
-};
-
-// ---------------------------------------------------------------------------
-// PTX helpers
-// ---------------------------------------------------------------------------
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(bar), "r"(count)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(bar)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(
-                   bar),
-               "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done = 0;
-  while (!done) {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-  }
-}
-
-// one TMA tile load of a 4-D tensor map into shared memory, completion
-// reported to `bar` as transaction bytes
-__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
-                                         uint32_t bar, int col, int row,
-                                         int head, int batch, Perm p) {
-  const int c1 = p.row == 1 ? row : (p.head == 1 ? head : batch);
-  const int c2 = p.row == 2 ? row : (p.head == 2 ? head : batch);
-  const int c3 = p.row == 3 ? row : (p.head == 3 ? head : batch);
-  asm volatile(
-      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::"
-      "bytes [%0], [%1, {%2, %3, %4, %5}], [%6];" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(col), "r"(c1), "r"(c2),
-      "r"(c3), "r"(bar)
-      : "memory");
-}
-
-// wgmma shared-memory matrix descriptor: start address, leading and
-// stride byte offsets (16-byte units), swizzle layout in bits 62-63
-__device__ __forceinline__ uint64_t make_desc(uint32_t addr, uint32_t lbo,
-                                              uint32_t sbo, uint64_t swizzle) {
-  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
-         (static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16) |
-         (static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32) | (swizzle << 62);
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_wait_all() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory");
-}
-
-// keep the compiler from moving reads or writes of accumulator registers
-// across the asynchronous wgmma that owns them
-template <int R>
-__device__ __forceinline__ void fence_regs(float (&d)[R]) {
-#pragma unroll
-  for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i])::"memory");
-}
-template <int R>
-__device__ __forceinline__ void fence_regs(uint32_t (&a)[R][4]) {
-#pragma unroll
-  for (int i = 0; i < R; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(a[i][j])::"memory");
-}
 
 // wgmma m64nNk16, bf16 in, fp32 accumulate. _ss: A and B from shared
 // memory, both K-major; scale_d = 0 overwrites d. _rs: A from registers
@@ -595,145 +495,13 @@ attention_kernel_sm90(const __grid_constant__ CUtensorMap map_q,
 }
 
 // ---------------------------------------------------------------------------
-// host side: tensor maps and launch
+// host side: launch (the tensor maps are made in tma.cuh)
 // ---------------------------------------------------------------------------
 
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
-                                void*, const cuuint64_t*, const cuuint64_t*,
-                                const cuuint32_t*, const cuuint32_t*,
-                                CUtensorMapInterleave, CUtensorMapSwizzle,
-                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled through the runtime's driver entry point, so the
-// library needs no -lcuda
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult res;
-#if CUDART_VERSION >= 12050
-    cudaError_t err = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &res);
-#else
-    cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
-                                              cudaEnableDefault, &res);
-#endif
-    if (err == cudaSuccess && res == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiled>(p);
-  }
-  return fn;
-}
-
-// A 4-D map of one operand: column (extent d, unit stride), then row,
-// head and batch sorted by stride (TMA takes strides in multiples of 16
-// bytes). The box is `panel` columns by `box_rows` rows of one head of
-// one batch; out-of-range elements are filled with zeros.
-int encode_map(CUtensorMap* map, Perm* perm, const void* ptr, int d,
-               int rows, int heads, int batch, Strides st, int panel,
-               int box_rows, CUtensorMapSwizzle swizzle) {
-  EncodeTiled encode = encode_tiled();
-  if (encode == nullptr) return static_cast<int>(cudaErrorNotSupported);
-  struct Dim {
-    long long extent, stride;
-    int box, which;
-  } dims[3] = {{rows, st.t, box_rows, 0}, {heads, st.h, 1, 1},
-               {batch, st.b, 1, 2}};
-  for (int i = 1; i < 3; ++i)
-    for (int j = i; j > 0 && dims[j].stride < dims[j - 1].stride; --j) {
-      Dim tmp = dims[j];
-      dims[j] = dims[j - 1];
-      dims[j - 1] = tmp;
-    }
-  if (reinterpret_cast<uintptr_t>(ptr) % 16 != 0 || d % 8 != 0)
-    return static_cast<int>(cudaErrorInvalidValue);
-  cuuint64_t gdim[4] = {static_cast<cuuint64_t>(d), 0, 0, 0};
-  cuuint64_t gstride[3];
-  cuuint32_t box[4] = {static_cast<cuuint32_t>(panel), 0, 0, 0};
-  cuuint32_t estride[4] = {1, 1, 1, 1};
-  int pos[3];
-  for (int i = 0; i < 3; ++i) {
-    if (dims[i].stride <= 0 || dims[i].stride % 8 != 0)
-      return static_cast<int>(cudaErrorInvalidValue);
-    gdim[i + 1] = static_cast<cuuint64_t>(dims[i].extent);
-    gstride[i] = static_cast<cuuint64_t>(dims[i].stride) * 2;
-    box[i + 1] = static_cast<cuuint32_t>(dims[i].box);
-    pos[dims[i].which] = i + 1;
-  }
-  *perm = Perm{pos[0], pos[1], pos[2]};
-  CUresult res = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
-                        const_cast<void*>(ptr), gdim, gstride, box, estride,
-                        CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
-                        CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return res == CUDA_SUCCESS ? 0 : static_cast<int>(cudaErrorInvalidValue);
-}
-
-// The parameters a tensor map is made from: equal keys give equal maps.
-struct MapKey {
-  const void* ptr;
-  long long d, rows, heads, batch, sb, sh, st, panel, box_rows, swizzle;
-  bool operator==(const MapKey& o) const {
-    return ptr == o.ptr && d == o.d && rows == o.rows && heads == o.heads &&
-           batch == o.batch && sb == o.sb && sh == o.sh && st == o.st &&
-           panel == o.panel && box_rows == o.box_rows && swizzle == o.swizzle;
-  }
-};
-
-// Encoded maps by key, direct-mapped: a model's layers reuse the same
-// buffers, shapes and strides, so most launches encode no map (an encode
-// is host time on every call otherwise).
-constexpr int kMapCache = 256;
-struct MapSlot {
-  bool used = false;
-  MapKey key;
-  CUtensorMap map;
-  Perm perm;
-};
-MapSlot map_cache[kMapCache];
-std::mutex map_cache_mutex;
-
-// encode_map through the cache
-int make_map(CUtensorMap* map, Perm* perm, const void* ptr, int d, int rows,
-             int heads, int batch, Strides st, int panel, int box_rows,
-             CUtensorMapSwizzle swizzle) {
-  const MapKey key{ptr,  d,    rows,  heads, batch,    st.b,
-                   st.h, st.t, panel, box_rows, static_cast<long long>(swizzle)};
-  uint64_t hash = reinterpret_cast<uintptr_t>(ptr) >> 4;
-  for (long long x : {key.d, key.rows, key.heads, key.batch, key.sb, key.sh,
-                      key.st, key.panel, key.box_rows})
-    hash = (hash ^ static_cast<uint64_t>(x)) * 0x100000001b3ull;
-  MapSlot& slot = map_cache[(hash ^ (hash >> 29)) % kMapCache];
-  std::lock_guard<std::mutex> lock(map_cache_mutex);
-  if (slot.used && slot.key == key) {
-    *map = slot.map;
-    *perm = slot.perm;
-    return 0;
-  }
-  const int err = encode_map(map, perm, ptr, d, rows, heads, batch, st, panel,
-                             box_rows, swizzle);
-  if (err == 0) {
-    slot.used = true;
-    slot.key = key;
-    slot.map = *map;
-    slot.perm = *perm;
-  }
-  return err;
-}
-
-// Opt the instantiation in to its dynamic shared memory, once per device.
 template <int D>
-cudaError_t set_smem_once() {
+cudaError_t set_smem_bf16() {
   static std::atomic<uint64_t> done{0};
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return err;
-  const uint64_t bit = 1ull << (dev % 64);
-  if (done.load(std::memory_order_acquire) & bit) return cudaSuccess;
-  err = cudaFuncSetAttribute(attention_kernel_sm90<D>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             Cfg<D>::SMEM);
-  if (err == cudaSuccess) done.fetch_or(bit, std::memory_order_release);
-  return err;
+  return set_smem_once(attention_kernel_sm90<D>, Cfg<D>::SMEM, done);
 }
 
 template <int D>
@@ -746,13 +514,13 @@ int launch(const void* q, const void* k, const void* v, const float* kv_mask,
       C::RB == 128 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B;
   CUtensorMap mq, mk, mv;
   Perm pq, pk, pv;
-  int err = make_map(&mq, &pq, q, d, tq, heads, batch, sq, C::PW, kRows, swizzle);
+  int err = make_map(&mq, &pq, kBf16, q, d, tq, heads, batch, sq, C::PW, kRows, swizzle);
   if (err == 0)
-    err = make_map(&mk, &pk, k, d, tk, heads, batch, sk, C::PW, C::BK, swizzle);
+    err = make_map(&mk, &pk, kBf16, k, d, tk, heads, batch, sk, C::PW, C::BK, swizzle);
   if (err == 0)
-    err = make_map(&mv, &pv, v, d, tk, heads, batch, sv, C::PW, C::BK, swizzle);
+    err = make_map(&mv, &pv, kBf16, v, d, tk, heads, batch, sv, C::PW, C::BK, swizzle);
   if (err != 0) return err;
-  const cudaError_t cerr = set_smem_once<D>();
+  const cudaError_t cerr = set_smem_bf16<D>();
   if (cerr != cudaSuccess) return static_cast<int>(cerr);
   const dim3 grid((tq + kRows - 1) / kRows, heads, batch);
   attention_kernel_sm90<D><<<grid, kThreads, C::SMEM, stream>>>(
@@ -763,7 +531,7 @@ int launch(const void* q, const void* k, const void* v, const float* kv_mask,
 
 }  // namespace
 
-// Same C signature as asr2pass_attention_f32 (csrc/attention.cu).
+// Same C signature as asr2pass_attention_f32 (csrc/attention_f32_sm90.cu).
 // strides: 12 element strides, (batch, head, row) for q, k, v and out;
 // d_head: a multiple of 8 up to 256, every stride a multiple of 8 and
 // q, k, v 16-byte aligned (TMA's rules), out 4-byte aligned.

@@ -18,15 +18,16 @@ Pallas TPU kernels there; each entry point below keeps its JAX signature:
       (attention.py:158-189,295-337): split-head, T > MAX_T_SS_SPLIT,
       fully masked rows come out as 0.
 
-On a CUDA tensor all three launch one kernel per dtype: float32 the
-CUDA-core kernel of csrc/attention.cu, bfloat16 the tensor-core (wgmma,
-TMA) kernel of csrc/attention_sm90.cu. Both read Q, K, V and write the
-output through (batch, head, row) strides, so the unsplit layout needs
-no head split, merge or copy (the bf16 kernel copies only a view that
-TMA cannot address, see plan_tma). What bounds each and how it is
-designed is described at the top of its source. On a CPU tensor
-each entry point runs its plain version (einsum, masked fp32 softmax,
-einsum: the XLA-path semantics of asr2pass_tpu/models/layers.py:258-267).
+On a CUDA tensor all three launch one tensor-core kernel (wgmma fed by
+TMA) per dtype: float32 the 3xTF32 kernel of csrc/attention_f32_sm90.cu,
+bfloat16 the kernel of csrc/attention_sm90.cu; both take their tensor
+maps from csrc/tma.cuh. Both read Q, K, V and write the output through
+(batch, head, row) strides, so the unsplit layout needs no head split,
+merge or copy (a view that TMA cannot address is copied, see plan_tma).
+What bounds each and how it is designed is described at the top of its
+source. On a CPU tensor each entry point runs its plain version (einsum,
+masked fp32 softmax, einsum: the XLA-path semantics of
+asr2pass_tpu/models/layers.py:258-267).
 A CUDA tensor launches the kernel or raises; nothing falls back.
 
 Masking contract of all three (attention.py:34,69,189): masked scores are
@@ -67,7 +68,7 @@ CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 # the C symbol of the kernel for each input dtype, and its source
 KERNELS = {
-    torch.float32: ("asr2pass_attention_f32", "csrc/attention.cu"),
+    torch.float32: ("asr2pass_attention_f32", "csrc/attention_f32_sm90.cu"),
     torch.bfloat16: ("asr2pass_attention_bf16", "csrc/attention_sm90.cu"),
 }
 _lib = None
@@ -87,19 +88,21 @@ def _nvcc() -> str:
 
 
 def sources() -> list:
-    return sorted(CSRC.glob("*.cu"))
+    """The kernel sources (csrc/*.cu) and the header they share
+    (csrc/*.cuh)."""
+    return sorted([*CSRC.glob("*.cu"), *CSRC.glob("*.cuh")])
 
 
 def build() -> Path:
     """Compile every csrc/*.cu for sm_90a into one shared library in
-    BUILD_DIR, once per content of all sources, and return its path.
-    Each source is compiled by its own nvcc, all started together, then
-    linked. nvcc's ptxas reports (registers, shared memory, spills) are
-    kept beside the library as a .log file."""
-    srcs = sources()
+    BUILD_DIR, once per content of all sources and headers, and return
+    its path. Each .cu is compiled by its own nvcc, all started together,
+    then linked. nvcc's ptxas reports (registers, shared memory, spills)
+    are kept beside the library as a .log file."""
     digest = hashlib.sha1()
-    for src in srcs:
+    for src in sources():
         digest.update(src.name.encode() + b"\0" + src.read_bytes())
+    srcs = [src for src in sources() if src.suffix == ".cu"]
     lib = BUILD_DIR / f"libattention_{digest.hexdigest()[:12]}.so"
     if lib.exists():
         return lib
@@ -158,8 +161,8 @@ def smem_bytes(dtype, d_head: int) -> int:
 
 
 def kernel_symbol(dtype) -> str:
-    """The C function that takes this input dtype: the CUDA-core fp32
-    kernel (csrc/attention.cu) or the tensor-core bf16 kernel
+    """The C function that takes this input dtype: the 3xTF32 fp32
+    kernel (csrc/attention_f32_sm90.cu) or the bf16 kernel
     (csrc/attention_sm90.cu)."""
     if dtype not in KERNELS:
         raise TypeError(f"attention kernel takes float32 or bfloat16, "
@@ -196,17 +199,17 @@ def check_operands(q, k, v, out, kv_mask, q_mask) -> None:
 
 
 # ---------------------------------------------------------------------------
-# layout planning for the bf16 kernel's TMA loads
+# layout planning for the kernels' TMA loads
 # ---------------------------------------------------------------------------
 
 TMA_ALIGN = 16   # bytes: TMA's rule for base addresses and strides
 
 
 def tma_ready(x) -> bool:
-    """Can the bf16 kernel read this [B,H,T,d] view in place? TMA needs a
-    16-byte-aligned base, a unit column stride, d a multiple of 8 and
-    every other stride (of a dim longer than 1) a positive multiple of 8
-    elements."""
+    """Can the kernels read this [B,H,T,d] view in place? TMA needs a
+    16-byte-aligned base, a unit column stride, d a multiple of 16 bytes
+    (8 bf16 or 4 fp32 elements) and every other stride (of a dim longer
+    than 1) a positive multiple of 16 bytes."""
     per = TMA_ALIGN // x.element_size()
     shape, st = x.shape, x.stride()
     if st[-1] != 1 or shape[-1] % per or x.data_ptr() % TMA_ALIGN:
@@ -224,9 +227,10 @@ class TmaPlan(NamedTuple):
 
 
 def plan_tma(q, k, v, out) -> TmaPlan:
-    """Layout preparation for the bf16 kernel: views it can read in place
-    pass through; a view with an unaligned base or stride is copied
-    contiguous; a head dim that is not a multiple of 8 pads q, k, v and
+    """Layout preparation for the kernels (either dtype, in elements of
+    its size): views they can read in place pass through; a view with an
+    unaligned base or stride is copied contiguous; a head dim that is not
+    a multiple of 16 bytes (8 bf16, 4 fp32 elements) pads q, k, v and
     the output buffer with zero columns (zeros add nothing to q.k, and
     the output's extra columns are dropped). The copy is a fresh
     allocation even where the view is contiguous already (a contiguous
@@ -275,9 +279,7 @@ def _attend(q, k, v, kv_mask, q_mask, out) -> None:
     fn = getattr(_library(), kernel_symbol(q.dtype))
     b, h, tq, d = q.shape
     scale = 1.0 / math.sqrt(d)
-    target = out
-    if q.dtype == torch.bfloat16:
-        q, k, v, target, _ = plan_tma(q, k, v, out)
+    q, k, v, target, _ = plan_tma(q, k, v, out)
     kv_mask = _f32_on(kv_mask, q.device)
     if q_mask is not None:
         q_mask = _f32_on(q_mask if q_mask.shape[1] == tq else q_mask[:, :tq],
@@ -337,14 +339,18 @@ def _merge_heads(x):
 
 
 def attention_plain(q, k, v, kv_mask, q_mask=None, att_mask=None,
-                    return_weights=False):
+                    return_weights=False, operand_round=None):
     """q [B,H,Tq,d], k/v [B,H,Tk,d], kv_mask [B,Tk] (>0 valid): fp32
     scores, -1e30 where masked, fp32 softmax cast to the input dtype,
     context; rows whose q_mask is 0 are zeroed when q_mask is given.
     att_mask ([B,Tq,Tk] or [Tq,Tk]) is the layers' extra mask, which only
     this plain branch takes. With return_weights, (context, the fp32
-    softmax weights [B,H,Tq,Tk])."""
+    softmax weights [B,H,Tq,Tk]). operand_round, where given, is applied
+    to q, k, v and the softmax weights before the two products (the TF32
+    control of the fp32 checks rounds them once to TF32)."""
     d = q.shape[-1]
+    if operand_round is not None:
+        q, k, v = (operand_round(x.float()).to(x.dtype) for x in (q, k, v))
     s = torch.einsum("bhtd,bhsd->bhts", q.float(), k.float()) / math.sqrt(d)
     neg = torch.tensor(_NEG, dtype=s.dtype, device=s.device)
     s = torch.where(kv_mask[:, None, None, :] > 0, s, neg)
@@ -352,21 +358,30 @@ def attention_plain(q, k, v, kv_mask, q_mask=None, att_mask=None,
         am = att_mask if att_mask.dim() == 3 else att_mask[None]
         s = torch.where(am[:, None, :, :] > 0, s, neg)
     p = torch.softmax(s, dim=-1)
-    out = torch.einsum("bhts,bhsd->bhtd", p.to(q.dtype), v)
+    pv = p if operand_round is None else operand_round(p)
+    out = torch.einsum("bhts,bhsd->bhtd", pv.to(q.dtype), v)
     if q_mask is not None:
         out = out * (q_mask[:, None, :q.shape[2], None] > 0).to(out.dtype)
     return (out, p) if return_weights else out
 
 
-def mh_attention_plain(q, kv, kv_mask, heads: int):
+def mh_attention_plain(q, kv, kv_mask, heads: int, operand_round=None):
     """Plain version of mh_flash_attention: split heads from the column
     layout, attend, merge."""
     d = q.shape[-1]
     ctx = attention_plain(_split_heads(q, heads),
                           _split_heads(kv[..., :d], heads),
-                          _split_heads(kv[..., d:], heads), kv_mask)
+                          _split_heads(kv[..., d:], heads), kv_mask,
+                          operand_round=operand_round)
     return _merge_heads(ctx)
 
+
+# fp32 tolerance (atol, rtol) of the kernel against the plain version:
+# |kernel - plain| <= 1e-4 + 1e-4 |plain|, fp32 arithmetic summed in
+# another order over up to 5120 keys, the kernel's products in 3xTF32
+# (about 22 significant bits). A single TF32 product per operand pair
+# does not hold it (tests/test_torch_attention.py, chip_smoke.py).
+FP32_TOL = (1e-4, 1e-4)
 
 # bf16 limit of the kernel against the plain version evaluated in fp32:
 #   |kernel - plain32| <= 2^-8 |plain32| + 2^-6 sqrt(sum_j p_j^2 v_j^2) + 1e-6
@@ -402,6 +417,24 @@ def mh_bf16_reference(q, kv, kv_mask, heads: int):
                                 _split_heads(kv[..., :d], heads),
                                 _split_heads(kv[..., d:], heads), kv_mask)
     return _merge_heads(ref), _merge_heads(limit)
+
+
+def tf32_split(x):
+    """x (float32) as hi + lo, both TF32 values (float32 with the low 13
+    mantissa bits zero): hi = x rounded to TF32, lo = x - hi rounded to
+    TF32, each to nearest with ties away from zero, as cvt.rna.tf32.f32
+    and the fp32 kernel's to_tf32 round (csrc/attention_f32_sm90.cu, the
+    same integer form). Adding half of
+    the dropped part's weight to the bit pattern rounds the magnitude, so
+    signs, zeros, subnormals and the carry into the exponent come out
+    right; values past the largest TF32 value round to +-inf. NaN stays
+    NaN. For the tests and chip_smoke.py's controls; the main path does
+    not call it."""
+    def rna(y):
+        bits = ((y.view(torch.int32) + 0x1000) & ~0x1FFF).view(torch.float32)
+        return torch.where(torch.isnan(y), y, bits)
+    hi = rna(x)
+    return hi, rna(x - hi)
 
 
 # ---------------------------------------------------------------------------

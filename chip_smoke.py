@@ -6,16 +6,20 @@
 Phases, each of which fails the run if it fails:
   1. build    compile the attention kernels from asr2pass_tpu_torch/csrc
               with nvcc (at first use, into asr2pass_tpu_torch/_build):
-              csrc/attention.cu (fp32, CUDA cores) and
-              csrc/attention_sm90.cu (bf16, wgmma + TMA); print each
-              instantiation's registers, spills and shared memory
+              csrc/attention_f32_sm90.cu (fp32, 3xTF32 wgmma + TMA) and
+              csrc/attention_sm90.cu (bf16, wgmma + TMA), both including
+              csrc/tma.cuh; print each instantiation's registers, spills
+              and shared memory
   2. kernels  hold each kernel entry point against its plain PyTorch version
               on the card at main-path shapes, fp32 and bf16, each with a
-              length-0 row, and a dropped-key control that the tolerance
-              must reject; time kernel, plain version and (as a yardstick
-              only) torch's scaled_dot_product_attention on the same work,
-              each as back-to-back calls (ms), on the device alone
-              (device_ms) and on the host's clock (host_ms)
+              length-0 row, a dropped-key control that the tolerance must
+              reject and, in fp32, a TF32 control (q, k, v and P cut to
+              TF32, one product each) that it must reject too; time
+              kernel, plain version and (as a yardstick only) torch's
+              scaled_dot_product_attention on the same work, each as
+              back-to-back calls (ms), on the device alone (device_ms) and
+              on the host's clock (host_ms); print which kernel SDPA runs
+              in fp32
   3. main     build paraformer_large (timestamp head) from a seeded
               generator, save it as a model dir, load it with
               load_offline_bundle and answer three OfflineRecognizer.
@@ -55,22 +59,31 @@ REPLACES = {
     "_attention_ss": "asr2pass_tpu/ops/attention.py:261",
     "_attention_flash": "asr2pass_tpu/ops/attention.py:314",
 }
-# published H100 SXM peaks (NVIDIA data sheet, dense, 700 W): fp32 on the
-# CUDA cores (the fp32 path keeps TF32 off), bf16 on the tensor cores
-PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}
+# published H100 SXM peaks (NVIDIA data sheet, dense, 700 W). fp32 work
+# that keeps fp32 accuracy runs on the tensor cores as 3xTF32, three TF32
+# products for each fp32 one (the fp32 kernel, and SDPA's mem-efficient
+# kernel in fp32): 494.7 TFLOP/s / 3. The bound at the CUDA cores' 67
+# TFLOP/s (the route of the earlier fp32 kernel) is printed beside it as
+# bound_simt_ms. bf16 on the tensor cores.
+PEAK_FLOPS = {"float32": 494.7e12 / 3, "bfloat16": 989e12}
+PEAK_SIMT_FP32 = 67e12
 PEAK_BYTES = 3.35e12
 # kernel vs its plain version evaluated in fp32 on the same input values.
-# fp32: |kernel - plain| <= 1e-4 + 1e-4 * |plain|, the same fp32 arithmetic
-# summed in another order over up to 5120 keys. bf16: the limit of
-# asr2pass_tpu_torch/ops/attention.py's bf16_reference, 2^-8 |plain| +
-# 2^-6 sqrt(sum_j p_j^2 v_j^2) + 1e-6: the rounding of the output and of P
-# before the P.V product, which the TPU kernels round too. The gate is the
-# limit itself (share <= 1); the share against the same limit with a first
-# term of 2^-7 |plain| is printed beside it, not gated.
-# Each case also holds a negative control to the same check: the plain
+# fp32: ops/attention.py's FP32_TOL, |kernel - plain| <= 1e-4 + 1e-4 *
+# |plain|: fp32 summed in another order over up to 5120 keys, the products
+# in 3xTF32. bf16: the limit of ops/attention.py's bf16_reference, 2^-8
+# |plain| + 2^-6 sqrt(sum_j p_j^2 v_j^2) + 1e-6: the rounding of the output
+# and of P before the P.V product, which the TPU kernels round too. The
+# gate is the limit itself (share <= 1).
+# Each case also holds negative controls to the same check: the plain
 # result with each row's last valid key dropped (an off-by-one at the
-# ragged edge) must fail it, in bf16 by CONTROL_BF16 times or more.
-FP32_TOL = (1e-4, 1e-4)
+# ragged edge) must fail it, in bf16 by CONTROL_BF16 times or more. In
+# fp32 the TF32 control must fail it too: the plain result with q, k, v
+# and P cut to TF32 as one TF32 wgmma reads an unsplit fp32 operand (its
+# low 13 bits ignored, i.e. truncated), where the kernel takes three
+# products of rounded parts. The same with round-to-nearest (tf32_split's
+# hi) is printed beside it, not gated: over long rows its error averages
+# out and it can read under 1 (PERF.md).
 CONTROL_BF16 = 10.0
 # card vs CPU on one 15 s segment, front-end included: logits within
 # CPU_TOL of their range, CMVN features within FEATS_TOL. Both are fp32
@@ -151,12 +164,12 @@ def ptxas_usage(log: str) -> list:
     out, name = [], None
     for ln in log.splitlines():
         m = re.search(r"Function properties for \S*?(attention_kernel"
-                      r"(?:_sm90)?)I(f)?Li(\d+)E", ln)
+                      r"(_f32)?_sm90)ILi(\d+)E", ln)
         if m:
             kernel, fp32, d = m.group(1), m.group(2), int(m.group(3))
             smem = att.smem_bytes(torch.float32 if fp32 else torch.bfloat16,
                                   d)
-            name = f"{kernel}<{'float, ' if fp32 else ''}{d}> smem {smem} B"
+            name = f"{kernel}<{d}> smem {smem} B"
             stats = []
         elif name and ("spill" in ln or "registers" in ln):
             stats.append(ln.split(":", 1)[-1].strip())
@@ -253,8 +266,8 @@ def kernel_case(name, shape, dtype, gen):
         mask = _mask(lens, tk)
         run = lambda: att.mh_flash_attention(q, kv, mask, h)
         plain = lambda: att.mh_attention_plain(q, kv, mask, h)
-        plain32 = lambda kv_mask: att.mh_attention_plain(
-            q.float(), kv.float(), kv_mask, h)
+        plain32 = lambda kv_mask, rnd=None: att.mh_attention_plain(
+            q.float(), kv.float(), kv_mask, h, operand_round=rnd)
         reference = lambda: att.mh_bf16_reference(q, kv, mask, h)
         qh = q.unflatten(-1, (h, dk)).transpose(1, 2)
         kh = kv[..., :d].unflatten(-1, (h, dk)).transpose(1, 2)
@@ -276,8 +289,9 @@ def kernel_case(name, shape, dtype, gen):
         run = lambda: fn(qh, kh, vh, mask) if name == "_attention_flash" \
             else fn(qh, kh, vh, mask, mask)
         plain = lambda: att.attention_plain(qh, kh, vh, mask, mask)
-        plain32 = lambda kv_mask: att.attention_plain(
-            qh.float(), kh.float(), vh.float(), kv_mask, mask)
+        plain32 = lambda kv_mask, rnd=None: att.attention_plain(
+            qh.float(), kh.float(), vh.float(), kv_mask, mask,
+            operand_round=rnd)
         reference = lambda: att.bf16_reference(qh, kh, vh, mask, mask)
         zero_rows = lens == 0
         # rows whose query mask is 0 come out as 0: only valid x valid
@@ -289,13 +303,20 @@ def kernel_case(name, shape, dtype, gen):
         tol = "bf16_reference"
     else:
         ref = plain32(mask)
-        limit = FP32_TOL[0] + FP32_TOL[1] * ref.abs()
-        tol = str(FP32_TOL)
+        limit = att.FP32_TOL[0] + att.FP32_TOL[1] * ref.abs()
+        tol = str(att.FP32_TOL)
     # negative control: each row's last valid key dropped
     drop = mask.clone()
     rows = torch.nonzero(lens > 0).flatten()
     drop[rows, lens[rows] - 1] = 0
     control = plain32(drop).to(dt)
+    # fp32: the TF32 controls, one TF32 product where the kernel takes
+    # three, with the operands truncated (gated) or rounded (printed)
+    tf32 = tf32_rna = None
+    if dtype == "float32":
+        tf32 = plain32(mask, lambda x: (x.view(torch.int32) & ~0x1FFF)
+                       .view(torch.float32))
+        tf32_rna = plain32(mask, lambda x: att.tf32_split(x)[0])
     torch.cuda.synchronize()
     if not torch.isfinite(got).all():
         fail(f"{name} {shape} {dtype}: non-finite output")
@@ -307,11 +328,9 @@ def kernel_case(name, shape, dtype, gen):
     # the share read by the fp32 result rounded once to the output dtype:
     # what any kernel that stores in that dtype reads at least
     rounded_ratio = _tol_ratio(ref.to(dt), ref, limit)
-    # bf16: the share of the limit with its first term doubled to 2^-7
-    # |plain32| (the store's rounding covered twice), printed beside the
-    # gate, not a gate
-    rel7_ratio = (_tol_ratio(got, ref, limit + att.BF16_REL * ref.abs())
-                  if dtype == "bfloat16" else None)
+    tf32_ratio = None if tf32 is None else _tol_ratio(tf32, ref, limit)
+    tf32_rna_ratio = (None if tf32_rna is None
+                      else _tol_ratio(tf32_rna, ref, limit))
     control_min = CONTROL_BF16 if dtype == "bfloat16" else 1.0
     if not ratio <= 1:
         fail(f"{name} {shape} {dtype}: max |kernel - plain| {err:.3e}, "
@@ -320,7 +339,10 @@ def kernel_case(name, shape, dtype, gen):
         fail(f"{name} {shape} {dtype}: the dropped-key control reads "
              f"{control_ratio:.3f} of tolerance {tol}, not over "
              f"{control_min}")
-    del ref, limit, control
+    if tf32_ratio is not None and not tf32_ratio > 1:
+        fail(f"{name} {shape} {dtype}: the TF32 control reads "
+             f"{tf32_ratio:.3f} of tolerance {tol}, not over 1")
+    del ref, limit, control, tf32, tf32_rna
     # the plain version as it runs on these tensors (bf16 probabilities
     # and output in bf16): printed for reference, not a gate
     plain_err = (got.float() - plain().float()).abs().max().item()
@@ -342,11 +364,14 @@ def kernel_case(name, shape, dtype, gen):
         "tolerance": tol,
         "tol_ratio": ratio, "control_tol_ratio": control_ratio,
         "rounded_once_tol_ratio": rounded_ratio,
-        "tol_ratio_rel_2e-7": rel7_ratio,
+        "tf32_control_tol_ratio": tf32_ratio,
+        "tf32_rna_control_tol_ratio": tf32_rna_ratio,
         "max_abs_err_vs_plain_in_dtype": plain_err,
         **times,
         "bound_ms": max(t_flops, t_bytes) * 1e3,
         "bound_by": "operations" if t_flops >= t_bytes else "bytes",
+        "bound_simt_ms": (max(flops / PEAK_SIMT_FP32, t_bytes) * 1e3
+                          if dtype == "float32" else None),
         "flops": flops, "bytes": nbytes,
     }
 
@@ -367,14 +392,19 @@ def kernel_phase(gen):
                 for dt in ("float32", "bfloat16") for s in shapes]
         results[name] = runs
         for r in runs:
-            rel7 = r["tol_ratio_rel_2e-7"]
-            rel7 = "" if rel7 is None else \
-                f", {rel7:.3f} with a first term of 2^-7"
+            tf32 = r["tf32_control_tol_ratio"]
+            tf32 = "" if tf32 is None else (
+                f"; TF32 control {tf32:.3f} (rounded to nearest "
+                f"{r['tf32_rna_control_tol_ratio']:.3f}, not gated)")
+            simt = r["bound_simt_ms"]
+            simt = "" if simt is None else \
+                f" (at the CUDA cores' fp32 rate {simt:.4f})"
             print(f"kernel {name} {r['shape']} {r['dtype']}: "
                   f"max_abs_err {r['max_abs_err']:.3e} "
                   f"({r['tol_ratio']:.3f} of tolerance, fp32 result "
-                  f"rounded once {r['rounded_once_tol_ratio']:.3f}{rel7}; "
-                  f"dropped-key control {r['control_tol_ratio']:.1f}; "
+                  f"rounded once {r['rounded_once_tol_ratio']:.3f}; "
+                  f"dropped-key control {r['control_tol_ratio']:.1f}"
+                  f"{tf32}; "
                   f"vs the plain version in {r['dtype']} "
                   f"{r['max_abs_err_vs_plain_in_dtype']:.3e}), "
                   f"ms back to back / device / host: kernel "
@@ -384,8 +414,32 @@ def kernel_phase(gen):
                   f"sdpa {r['library_ms']:.4f} / "
                   f"{r['library_device_ms']:.4f} / "
                   f"{r['library_host_ms']:.4f}; bound {r['bound_ms']:.4f} "
-                  f"by {r['bound_by']}", flush=True)
+                  f"by {r['bound_by']}{simt}", flush=True)
+    sdpa_route()
     return results
+
+
+def sdpa_route() -> None:
+    """Print, once, the kernels that torch's scaled_dot_product_attention
+    runs for fp32 with a boolean mask, as the kernel phase calls it: the
+    route of the yardstick."""
+    import torch
+    import torch.nn.functional as F
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    q = torch.randn(2, 4, 1024, 128, device="cuda")
+    mask = torch.ones(2, 1, 1, 1024, dtype=torch.bool, device="cuda")
+    F.scaled_dot_product_attention(q, q, q, attn_mask=mask)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        F.scaled_dot_product_attention(q, q, q, attn_mask=mask)
+        torch.cuda.synchronize()
+    names = [e.key for e in prof.key_averages()
+             if e.device_type == DeviceType.CUDA and e.device_time_total > 0]
+    route = " | ".join(n[:120] for n in names) or \
+        "not measured (the trace holds no kernel)"
+    print(f"kernel: sdpa fp32 route: {route}", flush=True)
 
 
 # ---------------------------------------------------------------------------
@@ -652,14 +706,15 @@ def main() -> int:
         launches, speed = main_path(os.path.join(tmp, "model"), gen, card)
 
     # one entry per CUDA kernel and entry point: the fp32 kernel
-    # (attention.cu) and the bf16 kernel (attention_sm90.cu), each at the
+    # (attention_f32_sm90.cu) and the bf16 kernel (attention_sm90.cu), each at the
     # entry point's first main-path shape, its other shapes as variants;
     # launches are the main-path run's in that dtype
     line = []
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms", "device_ms", "host_ms", "plain_device_ms",
             "plain_host_ms", "library_device_ms", "library_host_ms",
-            "tol_ratio_rel_2e-7")
+            "bound_simt_ms", "tf32_control_tol_ratio",
+            "tf32_rna_control_tol_ratio")
     for dt, (_, source) in att.KERNELS.items():
         dtype = str(dt).removeprefix("torch.")
         source = f"asr2pass_tpu_torch/{source}"

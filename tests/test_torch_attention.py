@@ -237,74 +237,195 @@ def test_bf16_limit_terms():
 
 
 # ---------------------------------------------------------------------------
+# the fp32 kernel's 3xTF32 arithmetic (ops/attention.py tf32_split), modelled
+# on the CPU: each operand split as hi + lo, both rounded to TF32, and each
+# product taken as lo.hi + hi.lo + hi.hi in fp32
+# ---------------------------------------------------------------------------
+
+def _f32(*bits):
+    return torch.from_numpy(np.array(bits, dtype=np.uint32).view(np.float32))
+
+
+def _bits(x):
+    return [int(b) for b in x.numpy().view(np.uint32)]
+
+
+@pytest.mark.parametrize("x,hi,lo", [
+    (0x3F800000, 0x3F800000, 0x00000000),    # 1.0: exact, lo +0
+    (0x3F801000, 0x3F802000, 0xBA000000),    # tie, even kept bit: away
+    (0x3F803000, 0x3F804000, 0xBA000000),    # tie, odd kept bit: away
+    (0xBF801000, 0xBF802000, 0x3A000000),    # negative tie: away from 0
+    (0x3F800FFF, 0x3F800000, 0x3A000000),    # below the tie: down
+    (0x3FFFF000, 0x40000000, 0xBA000000),    # carry into the exponent
+    (0x00000000, 0x00000000, 0x00000000),    # +0
+    (0x80000000, 0x80000000, 0x00000000),    # -0 keeps its sign
+    (0x00000001, 0x00000000, 0x00000000),    # smallest subnormal: lost
+    (0x00001000, 0x00002000, 0x80002000),    # subnormal tie: away
+    (0x007FF000, 0x00800000, 0x80002000),    # subnormal up to the normals
+    (0x7F7FEFFF, 0x7F7FE000, 0x79800000),    # largest that keeps hi finite
+    (0x7F7FFFFF, 0x7F800000, 0xFF800000),    # largest finite: hi +inf
+    (0xFF7FFFFF, 0xFF800000, 0x7F800000),    # and its negative: -inf
+])
+def test_tf32_split_pins_rounding(x, hi, lo):
+    """tf32_split rounds as cvt.rna.tf32.f32: to nearest, ties away from
+    zero, low 13 bits zero; lo is the rounded remainder."""
+    got_hi, got_lo = tatt.tf32_split(_f32(x))
+    assert _bits(got_hi) == [hi] and _bits(got_lo) == [lo]
+    if hi & 0x7F800000 != 0x7F800000:
+        assert (hi | lo) & 0x1FFF == 0
+
+
+def test_tf32_split_keeps_22_bits_and_nan():
+    """hi + lo is x to about 2^-22 of |x| on normal values; NaN stays
+    NaN and inf stays inf in hi."""
+    x = torch.from_numpy(np.random.default_rng(11).standard_normal(
+        100000).astype(np.float32))
+    hi, lo = tatt.tf32_split(x)
+    rel = ((hi.double() + lo.double() - x.double()).abs()
+           / x.double().abs()).max().item()
+    assert rel <= 2.0 ** -21, rel
+    nan, inf = _f32(0x7FC00000, 0x7F800000)
+    assert torch.isnan(tatt.tf32_split(nan)[0]).all()
+    assert torch.isinf(tatt.tf32_split(inf)[0]).all()
+
+
+def _three_tf32(a, b):
+    """a @ b with both operands split and three products, small first."""
+    (ah, al), (bh, bl) = tatt.tf32_split(a), tatt.tf32_split(b)
+    return al @ bh + ah @ bl + ah @ bh
+
+
+def _attention_3xtf32(q, k, v, mask):
+    """The fp32 kernel's arithmetic: both products in 3xTF32, the
+    softmax in fp32, masked rows (q_mask = mask) zeroed."""
+    s = _three_tf32(q, k.transpose(-1, -2)) / np.sqrt(q.shape[-1])
+    s = torch.where(mask[:, None, None, :] > 0, s, torch.tensor(-1e30))
+    p = torch.softmax(s, dim=-1)
+    return _three_tf32(p, v) * (mask[:, None, :, None] > 0)
+
+
+def test_3xtf32_holds_fp32_tol_and_one_tf32_product_does_not():
+    """At a main-path-like size (d 128, Tk 1024, 2 heads, a length-0
+    row), the 3xTF32 model reads at most 0.1 of FP32_TOL against the
+    plain version, and the same attention with q, k, v and P rounded once
+    to TF32 (one product each, the TF32 control) reads over 1."""
+    rng = np.random.default_rng(12)
+    b, h, t_len, d = 2, 2, 1024, 128
+    q, k, v = (t(_rand(rng, b, h, t_len, d)) for _ in range(3))
+    mask = t(ragged_mask([t_len, 0], t_len))
+    ref = tatt.attention_plain(q, k, v, mask, mask)
+    atol, rtol = tatt.FP32_TOL
+    limit = atol + rtol * ref.abs()
+    share = ((_attention_3xtf32(q, k, v, mask) - ref).abs() / limit).max()
+    one = tatt.attention_plain(q, k, v, mask, mask,
+                               operand_round=lambda x: tatt.tf32_split(x)[0])
+    one_share = ((one - ref).abs() / limit).max()
+    assert share <= 0.1, share
+    assert one_share > 1.0, one_share
+
+
+def test_tma_ready_fp32_counts_16_bytes_as_4_elements():
+    """In fp32 TMA's 16-byte rules are 4 elements: d and the strides
+    multiples of 4, the base 16-byte aligned."""
+    base = torch.zeros(2, 64, 3 * 64 + 8)
+    ok = base[..., :128].unflatten(-1, (2, 64)).transpose(1, 2)
+    assert tatt.tma_ready(ok)
+    assert not tatt.tma_ready(torch.zeros(2, 64, 2 * 64 + 2)[
+        ..., :128].unflatten(-1, (2, 64)).transpose(1, 2))
+    assert not tatt.tma_ready(base[..., 2:130].unflatten(-1, (2, 64))
+                              .transpose(1, 2))
+    assert tatt.tma_ready(base[..., 4:132].unflatten(-1, (2, 64))
+                          .transpose(1, 2))
+    assert not tatt.tma_ready(torch.zeros(2, 2, 64, 6))
+
+
+# ---------------------------------------------------------------------------
 # around the kernels, on the CPU: routing, layout planning, input checks
 # ---------------------------------------------------------------------------
 
 def test_dtype_routes_to_its_kernel():
-    """float32 goes to the CUDA-core kernel, bfloat16 to the tensor-core
-    one; each named source is in the package, and build() compiles every
-    csrc/*.cu into one library."""
+    """float32 goes to the 3xTF32 kernel, bfloat16 to the bf16 one; each
+    named source is in the package, build() compiles every csrc/*.cu into
+    one library and hashes the shared header with them, and the tensor-map
+    code lives once, in tma.cuh, which both kernels include."""
     assert tatt.kernel_symbol(torch.float32) == "asr2pass_attention_f32"
     assert tatt.kernel_symbol(torch.bfloat16) == "asr2pass_attention_bf16"
     for dtype in (torch.float16, torch.float64, torch.int8):
         with pytest.raises(TypeError, match="float32 or bfloat16"):
             tatt.kernel_symbol(dtype)
     names = {p.name for p in tatt.sources()}
-    assert names == {"attention.cu", "attention_sm90.cu"}
+    assert names == {"attention_f32_sm90.cu", "attention_sm90.cu", "tma.cuh"}
     for symbol, src in tatt.KERNELS.values():
         text = (tatt.CSRC.parent / src).read_text()
         assert f'extern "C" int {symbol}(' in text
-    assert "asr2pass_attention_bf16" not in (tatt.CSRC / "attention.cu"
-                                             ).read_text()
+        assert '#include "tma.cuh"' in text
+        assert "cuTensorMapEncodeTiled" not in text
+    assert "cuTensorMapEncodeTiled" in (tatt.CSRC / "tma.cuh").read_text()
+    f32 = (tatt.CSRC / "attention_f32_sm90.cu").read_text()
+    assert "asr2pass_attention_bf16" not in f32
+    assert "0x1000u) & 0xFFFFE000u" in f32 and ".tf32.tf32" in f32
 
 
-def _fused_views(b, t_len, h, d, extra=0, offset=0):
+def _fused_views(b, t_len, h, d, extra=0, offset=0, dtype=torch.bfloat16):
     qkv = torch.zeros(b, t_len, 3 * h * d + extra,
-                      dtype=torch.bfloat16)[..., offset:offset + 3 * h * d]
+                      dtype=dtype)[..., offset:offset + 3 * h * d]
     return tuple(a.unflatten(-1, (h, d)).transpose(1, 2)
                  for a in qkv.split(h * d, dim=-1))
 
 
 def test_tma_plan_reads_aligned_views_in_place():
     """Split-head views of a fused [B,T,3*H*d] projection and the unsplit
-    layout's [B,H,T,d_k] views (head stride d_k) need no copy."""
-    q, k, v = _fused_views(2, 300, 4, 128)
-    out = torch.empty(q.shape, dtype=q.dtype)
-    plan = tatt.plan_tma(q, k, v, out)
-    assert plan.copied == ()
-    assert all(a.data_ptr() == b.data_ptr()
-               for a, b in zip(plan, (q, k, v, out)))
-    qkv = torch.zeros(2, 300, 3 * 512, dtype=torch.bfloat16)
-    heads = [tatt._split_heads(x, 4) for x in qkv.split(512, dim=-1)]
-    assert heads[0].stride() == (300 * 1536, 128, 1536, 1)
-    assert tatt.plan_tma(*heads, out).copied == ()
+    layout's [B,H,T,d_k] views (head stride d_k) need no copy, in bf16
+    and in fp32."""
+    for dtype in (torch.bfloat16, torch.float32):
+        q, k, v = _fused_views(2, 300, 4, 128, dtype=dtype)
+        out = torch.empty(q.shape, dtype=q.dtype)
+        plan = tatt.plan_tma(q, k, v, out)
+        assert plan.copied == ()
+        assert all(a.data_ptr() == b.data_ptr()
+                   for a, b in zip(plan, (q, k, v, out)))
+        qkv = torch.zeros(2, 300, 3 * 512, dtype=dtype)
+        heads = [tatt._split_heads(x, 4) for x in qkv.split(512, dim=-1)]
+        assert heads[0].stride() == (300 * 1536, 128, 1536, 1)
+        assert tatt.plan_tma(*heads, out).copied == ()
 
 
-@pytest.mark.parametrize("case", ["d20", "odd_base", "odd_row_stride",
-                                  "expanded", "odd_base_contiguous"])
+_PLAN_CASES = ["d20", "odd_base", "odd_row_stride", "expanded",
+               "odd_base_contiguous"]
+
+
+@pytest.mark.parametrize("case", _PLAN_CASES
+                         + [f"{c}_float32" for c in _PLAN_CASES])
 def test_tma_plan_copies_what_tma_cannot_read(case):
-    """A head dim that is not a multiple of 8 pads q, k, v and the output
-    buffer with zero columns; an unaligned base or stride, or a stride of
-    0, gets a contiguous copy of that operand only, also where the view
-    is contiguous already but starts one element off alignment."""
-    q, k, v = _fused_views(2, 64, 2, 32)
+    """A head dim that is not a multiple of 16 bytes (8 bf16, 4 fp32
+    elements) pads q, k, v and the output buffer with zero columns; an
+    unaligned base or stride, or a stride of 0, gets a contiguous copy of
+    that operand only, also where the view is contiguous already but
+    starts one element off alignment. Cases without a suffix are bf16;
+    in fp32 the pad case takes d 18 (20 is a multiple of 4) and the odd
+    row stride is 2 elements off (8 bytes)."""
+    dtype = torch.float32 if case.endswith("_float32") else torch.bfloat16
+    case = case.removesuffix("_float32")
+    q, k, v = _fused_views(2, 64, 2, 32, dtype=dtype)
     out = torch.empty(q.shape, dtype=q.dtype)
     if case == "d20":
-        q, k, v = (torch.randn(2, 2, 64, 20).bfloat16() for _ in range(3))
+        d, dp = (20, 24) if dtype == torch.bfloat16 else (18, 20)
+        q, k, v = (torch.randn(2, 2, 64, d).to(dtype) for _ in range(3))
         plan = tatt.plan_tma(q, k, v, torch.empty_like(q))
         assert plan.copied == ("q", "k", "v", "out")
-        assert plan.q.shape[-1] == plan.out.shape[-1] == 24
-        assert torch.equal(plan.q[..., :20], q)
-        assert (plan.k[..., 20:] == 0).all()
+        assert plan.q.shape[-1] == plan.out.shape[-1] == dp
+        assert torch.equal(plan.q[..., :d], q)
+        assert (plan.k[..., d:] == 0).all()
         return
     if case == "odd_base":
-        q = _fused_views(2, 64, 2, 32, extra=1, offset=1)[0]
+        q = _fused_views(2, 64, 2, 32, extra=1, offset=1, dtype=dtype)[0]
     elif case == "odd_base_contiguous":
-        q = torch.arange(1 + 2 * 2 * 64 * 32, dtype=torch.bfloat16)[
+        q = torch.arange(1 + 2 * 2 * 64 * 32, dtype=dtype)[
             1:].view(2, 2, 64, 32)
         assert q.is_contiguous()
     elif case == "odd_row_stride":
-        q = torch.zeros(2, 64, 2 * 32 + 1, dtype=torch.bfloat16)[
+        extra = 1 if dtype == torch.bfloat16 else 2
+        q = torch.zeros(2, 64, 2 * 32 + extra, dtype=dtype)[
             ..., :64].unflatten(-1, (2, 32)).transpose(1, 2)
     else:
         k = k[:, :, :1].expand(-1, -1, 64, -1)

@@ -1,5 +1,5 @@
-"""The CUDA attention kernels (asr2pass_tpu_torch/csrc/attention.cu for
-float32, csrc/attention_sm90.cu for bfloat16) against the plain PyTorch
+"""The CUDA attention kernels (asr2pass_tpu_torch/csrc/attention_f32_sm90.cu
+for float32, csrc/attention_sm90.cu for bfloat16) against the plain PyTorch
 versions on the card. Skipped without a card.
 
 Imports nothing of JAX, so it also runs where JAX is not installed:
@@ -7,8 +7,8 @@ Imports nothing of JAX, so it also runs where JAX is not installed:
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py
 
 The reference is the plain version evaluated in fp32 on the same input
-values. fp32: |kernel - plain| <= 1e-4 + 1e-4 * |plain| (the same fp32
-arithmetic summed in another order over up to a few thousand keys).
+values. fp32: |kernel - plain| <= 1e-4 + 1e-4 * |plain| (ops/attention.py
+FP32_TOL: fp32 summed in another order, the products in 3xTF32).
 bf16: the limit of ops/attention.py's bf16_reference, 2^-8 |plain| +
 2^-6 sqrt(sum_j p_j^2 v_j^2) + 1e-6 (the rounding of the bf16 output, and
 of P to bf16 before the P.V product, as the TPU kernels round it).
@@ -21,7 +21,7 @@ from asr2pass_tpu_torch.ops import attention as att
 
 pytestmark = pytest.mark.cuda
 
-TOL = (1e-4, 1e-4)    # fp32 (atol, rtol)
+TOL = att.FP32_TOL    # fp32 (atol, rtol)
 
 
 @pytest.fixture
@@ -167,6 +167,38 @@ def test_tolerance_rejects_a_dropped_key(dev, dtype):
     assert share > (10.0 if dtype == torch.bfloat16 else 1.0), share
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_kernel_masks_with_holes(dev, dtype):
+    """Masks that are not prefixes: valid keys scattered, the last valid
+    key mid-row (the fp32 kernel skips the tiles after it), a row with no
+    valid key (every tile runs and V is averaged over all keys)."""
+    gen = torch.Generator(device=dev).manual_seed(7)
+    t_len = 700
+    qh, kh, vh = _fused(3, t_len, 2, 64, gen, dev, dtype)
+    mask = (torch.rand(3, t_len, generator=gen, device=dev) > 0.5).float()
+    mask[0, 333:] = 0
+    mask[2] = 0
+    got = att.cross_flash_attention(qh, kh, vh, mask)
+    _check(got, _reference("split", qh, kh, vh, mask), dtype)
+
+
+def test_fp32_tolerance_rejects_one_tf32_product(dev):
+    """The TF32 control: the plain result with q, k, v and P rounded once
+    to TF32 fails the fp32 check that the 3xTF32 kernel passes."""
+    gen = torch.Generator(device=dev).manual_seed(6)
+    h, d, t_len, lens = 4, 128, 1024, [1024, 0]
+    qh, kh, vh = _fused(2, t_len, h, d, gen, dev, torch.float32)
+    mask = _mask(lens, t_len, dev)
+    ref, limit = _reference("split", qh, kh, vh, mask, mask)
+    got = att._attention_ss(qh, kh, vh, mask, mask)
+    control = att.attention_plain(
+        qh, kh, vh, mask, mask,
+        operand_round=lambda x: att.tf32_split(x)[0])
+    torch.cuda.synchronize()
+    assert _within(got, ref, limit)[0]
+    assert _share(control, ref, limit) > 1.0
+
+
 def _fused(b, t, h, d, gen, dev, dtype):
     """Split-head q, k, v views of one fused [B,T,3*H*d] projection."""
     qkv = torch.randn(b, t, 3 * h * d, generator=gen, device=dev,
@@ -175,23 +207,25 @@ def _fused(b, t, h, d, gen, dev, dtype):
                  for a in qkv.split(h * d, dim=-1))
 
 
-@pytest.mark.parametrize("d_head", [16, 20, 48, 96, 128, 256])
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d_head", [16, 18, 20, 48, 96, 128, 256])
 @pytest.mark.parametrize("entry", ["mh_flash_attention", "_attention_ss",
                                    "_attention_flash"])
-def test_bf16_kernel_every_entry_point(dev, entry, d_head):
-    """The tensor-core kernel at every entry point and head dim (20 is not
-    a multiple of 8: the padded copy), with Tq and Tk off the 128-row and
-    128/64-key tiles (Tk = 257) and a length-0 row, exact zeros where a
-    q_mask is given; the unsplit layout as slices of a fused [B,T,3D]."""
+def test_kernel_every_entry_point(dev, entry, d_head, dt):
+    """Both tensor-core kernels at every entry point and head dim (18 is
+    a multiple of neither 8 nor 4, 20 not of 8: the padded copy), with Tq
+    and Tk off the 128/64-row and 128/64/32-key tiles (Tk = 257) and a
+    length-0 row, exact zeros where a q_mask is given; the unsplit layout
+    as slices of a fused [B,T,3D]."""
     gen = torch.Generator(device=dev).manual_seed(4)
-    dt = torch.bfloat16
+    name = str(dt).removeprefix("torch.")
     fn = getattr(att, entry)
     for tq, tk, lens in [(257, 257, [257, 0]), (300, 300, [0, 123]),
                          (130, 257, [200, 257])]:
         if entry == "_attention_flash" and tq != tk:
             continue
         mask = _mask(lens, tk, dev)
-        before = att.launch_counts_by_dtype()[entry]["bfloat16"]
+        before = att.launch_counts_by_dtype()[entry][name]
         if entry == "mh_flash_attention":
             heads, d = 2, 2 * d_head
             if tq == tk:
@@ -215,24 +249,25 @@ def test_bf16_kernel_every_entry_point(dev, entry, d_head):
             _check(got, _reference("split", qh, kh, vh, mask, q_mask), dt)
             for i, n in enumerate(lens):
                 assert (got[i, :, min(n, tq):] == 0).all()
-        assert att.launch_counts_by_dtype()[entry]["bfloat16"] == before + 1
+        assert att.launch_counts_by_dtype()[entry][name] == before + 1
 
 
 def test_bf16_kernel_copies_only_what_tma_cannot_read(dev):
     """Aligned views of a fused projection are read in place; a view
-    whose base is off by one element is copied and still right."""
+    whose base is off by one element is copied and still right; in bf16
+    and in fp32."""
     gen = torch.Generator(device=dev).manual_seed(5)
-    qh, kh, vh = _fused(2, 300, 4, 128, gen, dev, torch.bfloat16)
-    out = torch.empty(qh.shape, dtype=qh.dtype, device=dev)
-    assert att.plan_tma(qh, kh, vh, out).copied == ()
-    raw = torch.randn(2, 300, 4 * 128 + 1, generator=gen, device=dev,
-                      dtype=torch.bfloat16)
-    q_odd = raw[..., 1:].unflatten(-1, (4, 128)).transpose(1, 2)
-    assert att.plan_tma(q_odd, kh, vh, out).copied == ("q",)
-    mask = _mask([300, 77], 300, dev)
-    got = att._attention_ss(q_odd, kh, vh, mask, mask)
-    _check(got, _reference("split", q_odd, kh, vh, mask, mask),
-           torch.bfloat16)
+    for dt in (torch.bfloat16, torch.float32):
+        qh, kh, vh = _fused(2, 300, 4, 128, gen, dev, dt)
+        out = torch.empty(qh.shape, dtype=qh.dtype, device=dev)
+        assert att.plan_tma(qh, kh, vh, out).copied == ()
+        raw = torch.randn(2, 300, 4 * 128 + 1, generator=gen, device=dev,
+                          dtype=dt)
+        q_odd = raw[..., 1:].unflatten(-1, (4, 128)).transpose(1, 2)
+        assert att.plan_tma(q_odd, kh, vh, out).copied == ("q",)
+        mask = _mask([300, 77], 300, dev)
+        got = att._attention_ss(q_odd, kh, vh, mask, mask)
+        _check(got, _reference("split", q_odd, kh, vh, mask, mask), dt)
 
 
 def test_unsupported_input_raises(dev):
