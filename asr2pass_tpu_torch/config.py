@@ -1,10 +1,11 @@
-"""Configuration dataclasses of the offline Paraformer (port copy).
+"""Configuration dataclasses of the Paraformer, FSMN-VAD and
+CT-Transformer punctuation models (port copy).
 
 Counterpart of asr2pass_tpu/config.py, of which this keeps what the
-offline Paraformer path needs: the front-end, encoder, decoder and
-predictor configs, the reference-layout config.yaml loader and the
-paraformer_large / paraformer_tiny presets. Same fields, same defaults,
-same yaml keys, so one model directory serves both packages.
+offline and 2pass paths need: the front-end, encoder, decoder,
+predictor, VAD and punctuation configs, the reference-layout config.yaml
+loaders and the presets. Same fields, same defaults, same yaml keys, so
+one model directory serves both packages.
 """
 from __future__ import annotations
 
@@ -138,6 +139,62 @@ class ParaformerConfig:
         )
 
 
+@dataclass(frozen=True)
+class VadConfig:
+    """FSMN-VAD NN + decision options (e2e-vad.h:79-138 defaults)."""
+
+    frontend: FrontendConfig = field(
+        default_factory=lambda: FrontendConfig(lfr_m=5, lfr_n=1)
+    )
+    input_dim: int = 400            # 80 * lfr_m(5)
+    proj_dim: int = 128
+    fsmn_layers: int = 4
+    lorder: int = 20                # left context of FSMN (cache 19 + current)
+    rorder: int = 0
+    hidden_dim: int = 250
+    output_dim: int = 248
+    cache_frames: int = 19          # per-layer streaming cache [128, 19]
+    # decision options
+    sample_rate: int = 16000
+    detect_mode: int = 1
+    max_end_silence_time: int = 800
+    max_start_silence_time: int = 3000
+    window_size_ms: int = 200
+    sil_to_speech_time_thres: int = 150
+    speech_to_sil_time_thres: int = 150
+    speech_2_noise_ratio: float = 1.0
+    do_extend: int = 1
+    lookback_time_start_point: int = 200
+    lookahead_time_end_point: int = 100
+    max_single_segment_time: int = 15000
+    snr_thres: float = -100.0
+    noise_frame_num_used_for_snr: int = 100
+    decibel_thres: float = -100.0
+    speech_noise_thres: float = 0.6
+    fe_prior_thres: float = 1e-4
+    sil_pdf_ids: Sequence[int] = (0,)
+    frame_in_ms: int = 10
+    frame_length_ms: int = 25
+
+
+@dataclass(frozen=True)
+class PuncConfig:
+    """CT-Transformer punctuation restoration."""
+
+    vocab_size: int = 272727
+    embed_dim: int = 256
+    att_dim: int = 256
+    num_blocks: int = 4
+    attention_heads: int = 8
+    linear_units: int = 1024
+    kernel_size: int = 11
+    sanm_shift: int = 0
+    num_classes: int = 6            # _  ，  。  ？  、  ！ (com-define.h:125-136)
+    token_len: int = 20             # mini-batch window (ct-transformer.cpp:46)
+    cache_pop_trigger_limit: int = 200
+
+
+
 
 def _merge(cls, node: Optional[dict], **extra):
     if node is None:
@@ -201,6 +258,91 @@ def load_paraformer_yaml(path: str) -> ParaformerConfig:
         lang=cfg.get("lang", "zh"),
     )
 
+def load_punc_yaml(path: str) -> PuncConfig:
+    """Punc model-dir config.yaml -> PuncConfig.
+
+    Reads the dims the reference consumes when building the punc session
+    (ct-transformer.cpp:31-54 parses the same yaml family): encoder_conf
+    attention_heads/linear_units/num_blocks/kernel_size/output_size,
+    vocab from an embedded token_list, num_classes from punc_list.
+    Absent keys keep the CT-Transformer defaults."""
+    with open(path) as f:
+        node = yaml.safe_load(f) or {}
+    return punc_cfg_from_node(node)
+
+
+def punc_cfg_from_node(node: dict) -> PuncConfig:
+    enc = node.get("encoder_conf") or {}
+    kw = {}
+    for k in ("attention_heads", "linear_units", "num_blocks",
+              "kernel_size"):
+        if k in enc:
+            kw[k] = int(enc[k])
+    if "sanm_shfit" in enc:            # FunASR spelling (sic)
+        kw["sanm_shift"] = int(enc["sanm_shfit"])
+    elif "sanm_shift" in enc:
+        kw["sanm_shift"] = int(enc["sanm_shift"])
+    d = enc.get("output_size")
+    if d:
+        kw["att_dim"] = int(d)
+        kw["embed_dim"] = int(d)
+    tl = node.get("token_list")
+    if isinstance(tl, list):
+        kw["vocab_size"] = len(tl)
+    elif node.get("vocab_size"):
+        kw["vocab_size"] = int(node["vocab_size"])
+    pl = node.get("punc_list")
+    if isinstance(pl, list) and pl:
+        kw["num_classes"] = len(pl)
+    return PuncConfig(**kw)
+
+
+def load_vad_yaml(path: str) -> VadConfig:
+    """VAD model-dir config.yaml -> VadConfig.
+
+    Reads the keys the reference consumes (fsmn-vad.cpp:31-47):
+    frontend_conf{fs, n_mels, frame_length, frame_shift, window, lfr_*}
+    and model_conf{max_end_silence_time, max_single_segment_time,
+    speech_noise_thres, ...}; sil_pdf_ids and the NN dims when present.
+    Unlisted keys keep the e2e-vad.h defaults."""
+    with open(path) as f:
+        node = yaml.safe_load(f) or {}
+    fe = node.get("frontend_conf") or {}
+    mc = node.get("model_conf") or {}
+    enc = node.get("encoder_conf") or {}
+    frontend = FrontendConfig(
+        fs=fe.get("fs", 16000), window=fe.get("window", "hamming"),
+        n_mels=fe.get("n_mels", 80),
+        frame_length_ms=fe.get("frame_length", 25),
+        frame_shift_ms=fe.get("frame_shift", 10),
+        lfr_m=fe.get("lfr_m", 5), lfr_n=fe.get("lfr_n", 1),
+        dither=fe.get("dither", 0.0))
+    kw = {}
+    for k in ("detect_mode", "max_end_silence_time",
+              "max_start_silence_time", "window_size_ms",
+              "sil_to_speech_time_thres", "speech_to_sil_time_thres",
+              "speech_2_noise_ratio", "do_extend",
+              "lookback_time_start_point", "lookahead_time_end_point",
+              "max_single_segment_time", "snr_thres",
+              "noise_frame_num_used_for_snr", "decibel_thres",
+              "speech_noise_thres"):
+        if k in mc:
+            kw[k] = mc[k]
+    if "sil_pdf_ids" in mc:
+        kw["sil_pdf_ids"] = tuple(int(i) for i in mc["sil_pdf_ids"])
+    for yk, ck in (("proj_dim", "proj_dim"),
+                   ("linear_dim", "hidden_dim"),
+                   ("output_dim", "output_dim"),
+                   ("fsmn_layers", "fsmn_layers"),
+                   ("lorder", "lorder"), ("rorder", "rorder")):
+        if yk in enc:
+            kw[ck] = int(enc[yk])
+    if "lorder" in kw:
+        kw.setdefault("cache_frames", kw["lorder"] - 1)
+    return VadConfig(frontend=frontend,
+                     input_dim=frontend.n_mels * frontend.lfr_m,
+                     sample_rate=frontend.fs, **kw)
+
 
 # ---------------------------------------------------------------------------
 # Canonical model presets (sizes match the published FunASR model family the
@@ -216,6 +358,14 @@ def paraformer_large(vocab_size: int = 8404, timestamp: bool = False,
     )
 
 
+def paraformer_large_online(vocab_size: int = 8404) -> ParaformerConfig:
+    return ParaformerConfig(
+        encoder=EncoderConfig(num_blocks=50),
+        decoder=DecoderConfig(num_blocks=16),
+        vocab_size=vocab_size,
+    )
+
+
 def paraformer_tiny(vocab_size: int = 64) -> ParaformerConfig:
     """Small config for unit tests / CI on CPU."""
     return ParaformerConfig(
@@ -227,3 +377,12 @@ def paraformer_tiny(vocab_size: int = 64) -> ParaformerConfig:
         predictor=PredictorConfig(idim=64),
         vocab_size=vocab_size,
     )
+
+
+def vad_default() -> VadConfig:
+    return VadConfig()
+
+
+def punc_tiny(vocab_size: int = 128) -> PuncConfig:
+    return PuncConfig(vocab_size=vocab_size, embed_dim=32, att_dim=32,
+                      num_blocks=2, attention_heads=2, linear_units=64)

@@ -9,8 +9,8 @@ im; power = re^2 + im^2; logmel = log(power @ M [256, 80]).
 
 These products must stay true fp32: the log turns reduced-precision
 mantissa error into audible CER loss. On the card that needs TF32 off
-(torch.backends.cuda.matmul.allow_tf32 = False), which the offline
-recognizer sets where it is built (runtime/offline_asr.py).
+(torch.backends.cuda.matmul.allow_tf32 = False), which every entry
+point that builds a model sets (utils.fp32_products).
 """
 from __future__ import annotations
 

@@ -9,12 +9,14 @@ alphas the timestamps are read from.
 
 The JAX package runs the two integrate passes as lax.scan (XLA, not
 Pallas); here they are Python loops over T with the same per-step
-arithmetic, so fires are exact when fed the same alphas.
+arithmetic, so fires are exact when fed the same alphas. The streaming
+pass carries (integrate, frame) across chunks in a CifState, so
+streaming equals offline when fed the same alphas.
 """
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import torch
 import torch.nn.functional as F
@@ -102,19 +104,35 @@ def upsampled_alphas(params, enc, cfg: PredictorConfig, mask=None,
     return a
 
 
+class CifState(NamedTuple):
+    """Streaming carry across chunks."""
+
+    integrate: torch.Tensor  # [B]
+    frame: torch.Tensor      # [B, D] weighted accumulation since last fire
+
+
+def zero_state(batch: int, d: int, device=None) -> CifState:
+    return CifState(
+        integrate=torch.zeros(batch, dtype=torch.float32, device=device),
+        frame=torch.zeros(batch, d, dtype=torch.float32, device=device))
+
+
 def fire(hidden, alphas, threshold: float,
+         state: Optional[CifState] = None,
          max_tokens: Optional[int] = None):
     """Integrate-and-fire. hidden [B, T, D], alphas [B, T] (zero where
-    masked). Returns (frames [B, max_tokens, D] fired embeddings packed
-    to the front, counts [B], fires [B, T] bool).
+    masked), state: the carry of the previous chunk (default zeros).
+    Returns (frames [B, max_tokens, D] fired embeddings packed to the
+    front, counts [B], fires [B, T] bool, new_state).
 
     max_tokens bounds the token buffer (default T); fires past it land in
     a guard slot that is dropped, and counts saturate at max_tokens."""
     b, t, d = hidden.shape
     if max_tokens is None:
         max_tokens = t
-    integ = torch.zeros(b, dtype=torch.float32, device=hidden.device)
-    frame = torch.zeros(b, d, dtype=torch.float32, device=hidden.device)
+    if state is None:
+        state = zero_state(b, d, hidden.device)
+    integ, frame = state.integrate, state.frame
     fires, frames = [], []
     for i in range(t):
         alpha, h = alphas[:, i], hidden[:, i]
@@ -141,7 +159,8 @@ def fire(hidden, alphas, threshold: float,
                       (frames * fires[..., None]).to(packed.dtype),
                       accumulate=True)
     counts = fires.long().sum(dim=1).clamp_max(max_tokens)
-    return packed[:, :max_tokens], counts, fires
+    return (packed[:, :max_tokens], counts, fires,
+            CifState(integrate=integ, frame=frame))
 
 
 def fire_offline(hidden, alphas, threshold: float, tail_threshold: float,
@@ -164,7 +183,9 @@ def fire_offline(hidden, alphas, threshold: float, tail_threshold: float,
         valid = (torch.arange(t + 1, device=hidden.device)[None, :]
                  < tail_pos[:, None])
         hidden_ext = hidden_ext * valid[..., None].to(hidden_ext.dtype)
-    return fire(hidden_ext, alphas_ext, threshold, max_tokens=max_tokens)
+    frames, counts, fires, _ = fire(hidden_ext, alphas_ext, threshold,
+                                    max_tokens=max_tokens)
+    return frames, counts, fires
 
 
 def peaks_from_alphas(us_alphas, threshold: float = 1.0):

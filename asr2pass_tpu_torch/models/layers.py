@@ -81,6 +81,18 @@ class Fsmn(nn.Module):
                                           generator, device))
 
 
+class Embedding(nn.Module):
+    """Token table [vocab, d] ~ N(0, 1) * 0.02 (embedding_init's)."""
+
+    def __init__(self, vocab: int, d: int, generator=None, device=None):
+        super().__init__()
+        table = torch.empty((vocab, d), device=device)
+        self.table = nn.Parameter(table.normal_(generator=generator) * 0.02)
+
+    def forward(self, ids):
+        return embedding(self, ids)
+
+
 class SanmAttention(nn.Module):
     def __init__(self, d_in: int, d: int, heads: int, kernel: int,
                  generator=None, device=None):
@@ -153,6 +165,10 @@ def layer_norm(p, x, eps: float = 1e-5):
     return y.to(x.dtype)
 
 
+def embedding(p, ids):
+    return p.table[ids]
+
+
 def sinusoidal_posenc(start: int, length: int, depth: int,
                       device=None) -> torch.Tensor:
     """Positions start+1 .. start+length (1-based), layout [sin | cos]
@@ -194,6 +210,30 @@ def fsmn_apply(p, x, mask=None, left: Optional[int] = None):
     if mask is not None:
         out = out * mask[..., None].to(out.dtype)
     return out
+
+
+def fsmn_apply_cached(p, x, cache, valid_len=None):
+    """Causal FSMN step with a streaming cache. x: [B, T, D] right-padded,
+    cache: [B, lorder, D], the last lorder valid frames of the stream.
+    Returns (out, new_cache). With valid_len [B] the cache advances by
+    exactly valid_len frames, so padding never reaches the state."""
+    kernel = p.taps.shape[0]
+    taps = p.taps.to(x.dtype)
+    lorder = kernel - 1
+    t = x.shape[1]
+    ext = torch.cat([cache.to(x.dtype), x], dim=1)
+    out = torch.zeros_like(x)
+    for k in range(kernel):
+        out = out + ext[:, k: k + t, :] * taps[k]
+    out = x + out
+    if lorder == 0:
+        return out, cache
+    if valid_len is None:
+        return out, ext[:, -lorder:, :]
+    # cache rows = ext[valid_len + i] for i in [0, lorder)
+    idx = valid_len.long()[:, None] + torch.arange(lorder,
+                                                   device=x.device)[None, :]
+    return out, torch.take_along_dim(ext, idx[..., None], dim=1)
 
 
 def _ones_mask(x):

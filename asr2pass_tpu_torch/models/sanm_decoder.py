@@ -1,7 +1,8 @@
-"""Paraformer parallel decoder, offline pass, in FunASR block order.
+"""Paraformer parallel decoder in FunASR block order, offline and
+streaming.
 
-Counterpart of asr2pass_tpu/models/sanm_decoder.py (`apply`; the
-streaming pass comes with the streaming slice). Non-autoregressive: the
+Counterpart of asr2pass_tpu/models/sanm_decoder.py (`apply`,
+`init_caches`, `apply_streaming`). Non-autoregressive: the
 CIF acoustic embeddings [B, U, D] are refined by N blocks and projected
 to vocab logits in one parallel pass. Block math (FunASR
 DecoderLayerSANM):
@@ -12,12 +13,14 @@ DecoderLayerSANM):
     x = x + cross_attn(norm3(x), enc)
 
 then the `decoders3` tail block (norm1 -> ffn, NO residual), the optional
-hotword cross block, and after_norm -> output projection.
+hotword cross block, and after_norm -> output projection. The streaming
+pass carries each block's FSMN cache, one [L, B, kernel-1, D] tensor.
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
+import torch
 from torch import nn
 
 from asr2pass_tpu_torch.config import DecoderConfig
@@ -31,6 +34,7 @@ from asr2pass_tpu_torch.models.layers import (
     dense,
     ffn,
     fsmn_apply,
+    fsmn_apply_cached,
     layer_norm,
 )
 
@@ -82,16 +86,24 @@ def _fsmn_left(params, cfg: Optional[DecoderConfig]) -> int:
     return (kernel - 1) // 2 + cfg.sanm_shift
 
 
-def _block(layer, x, enc, enc_mask, mask, heads, fsmn_left=None):
+def _block(layer, x, enc, enc_mask, mask, heads, cache=None,
+           fsmn_left=None, valid_len=None):
     # FunASR DecoderLayerSANM: ffn first, one residual spanning ffn+fsmn
     h = ffn(layer.ffn, layer_norm(layer.ln1, x))
     h = layer_norm(layer.ln2, h)
-    x = x + fsmn_apply(layer.fsmn, h, mask, left=fsmn_left)
+    if cache is not None:
+        if mask is not None:
+            h = h * mask[..., None].to(h.dtype)
+        m, new_cache = fsmn_apply_cached(layer.fsmn, h, cache, valid_len)
+    else:
+        new_cache = None
+        m = fsmn_apply(layer.fsmn, h, mask, left=fsmn_left)
+    x = x + m
     x = x + cross_attention(layer.cross, layer_norm(layer.ln3, x), enc,
                             heads, enc_mask)
     if mask is not None:
         x = x * mask[..., None].to(x.dtype)
-    return x
+    return x, new_cache
 
 
 def _tail_and_head(params, x, mask, hw_emb, hw_mask, heads):
@@ -117,5 +129,29 @@ def apply(params, ac_embeds, enc, enc_mask=None, mask=None, hw_emb=None,
     left = _fsmn_left(params, cfg)
     x = ac_embeds
     for layer in params.blocks:
-        x = _block(layer, x, enc, enc_mask, mask, heads, fsmn_left=left)
+        x, _ = _block(layer, x, enc, enc_mask, mask, heads, fsmn_left=left)
     return _tail_and_head(params, x, mask, hw_emb, hw_mask, heads)
+
+
+def init_caches(params, batch: int) -> torch.Tensor:
+    """Zero FSMN caches [L, B, kernel-1, D] on the params' device."""
+    kernel, d = params.blocks[0].fsmn.taps.shape
+    return torch.zeros(len(params.blocks), batch, kernel - 1, d,
+                       dtype=torch.float32,
+                       device=params.blocks[0].fsmn.taps.device)
+
+
+def apply_streaming(params, ac_embeds, enc, caches, enc_mask=None,
+                    mask=None, valid_len=None, hw_emb=None, hw_mask=None,
+                    heads: int = 4) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Chunk pass with the FSMN cache carry [L, B, kernel-1, D]: the
+    causal offline pass when the chunks are concatenated. valid_len [B]
+    is the true token count of each stream of a padded chunk."""
+    x = ac_embeds
+    new_caches = []
+    for layer, cache in zip(params.blocks, caches):
+        x, nc = _block(layer, x, enc, enc_mask, mask, heads, cache=cache,
+                       valid_len=valid_len)
+        new_caches.append(nc)
+    return (_tail_and_head(params, x, mask, hw_emb, hw_mask, heads),
+            torch.stack(new_caches))

@@ -1,16 +1,20 @@
 """Model directories: weights.npz + config.yaml + am.mvn + tokens.json.
 
 Counterpart of asr2pass_tpu/runtime/model_zoo.py (save_params,
-load_params, save_offline_bundle, load_offline_bundle). Both packages
-read and write the same directory: weights.npz holds the JAX parameter
-tree flattened with '/'-joined keys, with the uniform layer stacks
-(encoder/rest, decoder/blocks) stored STACKED on a leading layer axis.
+load_params, save_offline_bundle, load_offline_bundle, load_punc_dir)
+and of the VAD-dir reading of asr2pass_tpu/tools/transcribe.py. Both
+packages read and write the same directories: weights.npz holds the JAX
+parameter tree flattened with '/'-joined keys, with the uniform layer
+stacks (encoder/rest, decoder/blocks) stored STACKED on a leading layer
+axis, and lists (the FSMN-VAD's blocks) as one key per entry.
 
 params_from_jax / params_to_jax are the only place that knows that
 layout: they map between the JAX tree and this package's state dict,
 whose keys are the same names joined with '.', with each stack unstacked
 into an nn.ModuleList ('encoder/rest/att/qkv/w' [L, ...] <->
-'encoder.rest.<i>.att.qkv.w').
+'encoder.rest.<i>.att.qkv.w') and each list entry one ModuleList item
+('blocks/0/taps' <-> 'blocks.0.taps'). The Paraformer and the
+CT-Transformer share the encoder's stack; the VAD has none.
 """
 from __future__ import annotations
 
@@ -26,6 +30,7 @@ from torch import nn
 
 from asr2pass_tpu_torch import config as cfg_mod
 from asr2pass_tpu_torch.frontend.audio import parse_kaldi_cmvn, write_kaldi_cmvn
+from asr2pass_tpu_torch.text.punc_tokenizer import PuncTokenizer
 from asr2pass_tpu_torch.text.vocab import Vocab
 
 # JAX subtrees stored with a leading layer axis (one ModuleList here)
@@ -62,22 +67,23 @@ def save_params(path: str, params: Any):
     np.savez(path, **flat)
 
 
+def _listify(node):
+    """Dicts whose keys are all integers become lists."""
+    if not isinstance(node, dict):
+        return node
+    keys = list(node.keys())
+    if keys and all(k.isdigit() for k in keys):
+        return [_listify(node[str(i)]) for i in range(len(keys))]
+    return {k: _listify(v) for k, v in node.items()}
+
+
 def load_params(path: str) -> Any:
     """npz -> the nested tree of numpy arrays; integer keys become lists."""
     root: Dict[str, Any] = {}
     with np.load(path) as data:
         for key in data.files:
             _set(root, key, data[key])
-
-    def listify(node):
-        if not isinstance(node, dict):
-            return node
-        keys = list(node.keys())
-        if keys and all(k.isdigit() for k in keys):
-            return [listify(node[str(i)]) for i in range(len(keys))]
-        return {k: listify(v) for k, v in node.items()}
-
-    return listify(root)
+    return _listify(root)
 
 
 # -- JAX tree <-> state dict -----------------------------------------------
@@ -103,7 +109,7 @@ def params_from_jax(tree: Any) -> Dict[str, torch.Tensor]:
 def params_to_jax(params: Union[nn.Module, Mapping[str, torch.Tensor]]
                   ) -> Dict[str, Any]:
     """State dict (or module) -> the JAX tree of float32 numpy arrays,
-    layer stacks restacked."""
+    layer stacks restacked, list entries back in lists."""
     sd = params.state_dict() if isinstance(params, nn.Module) else params
     tree: Dict[str, Any] = {}
     stacks: Dict[Tuple[str, str], Dict[int, np.ndarray]] = {}
@@ -119,7 +125,7 @@ def params_to_jax(params: Union[nn.Module, Mapping[str, torch.Tensor]]
     for (stem, rest), layers in stacks.items():
         _set(tree, f"{stem}/{rest}",
              np.stack([layers[i] for i in range(len(layers))]))
-    return tree
+    return _listify(tree)
 
 
 # -- model bundles ----------------------------------------------------------
@@ -196,3 +202,100 @@ def load_offline_bundle(path: str) -> OfflineBundle:
     if os.path.exists(mvn_path):
         cmvn = parse_kaldi_cmvn(mvn_path)
     return OfflineBundle(params=params, cfg=cfg, vocab=vocab, cmvn=cmvn)
+
+
+# -- FSMN-VAD and punctuation directories ----------------------------------
+
+def save_vad_dir(path: str, params, cfg: cfg_mod.VadConfig, cmvn=None):
+    """Write an FSMN-VAD model directory (weights.npz, a config.yaml that
+    load_vad_yaml reads back into `cfg`, am.mvn) that both packages load.
+    `params` is an FsmnVad module or its state dict."""
+    os.makedirs(path, exist_ok=True)
+    save_params(os.path.join(path, "weights.npz"), params_to_jax(params))
+    fe = cfg.frontend
+    model_conf = {k: getattr(cfg, k) for k in (
+        "detect_mode", "max_end_silence_time", "max_start_silence_time",
+        "window_size_ms", "sil_to_speech_time_thres",
+        "speech_to_sil_time_thres", "speech_2_noise_ratio", "do_extend",
+        "lookback_time_start_point", "lookahead_time_end_point",
+        "max_single_segment_time", "snr_thres",
+        "noise_frame_num_used_for_snr", "decibel_thres",
+        "speech_noise_thres")}
+    model_conf["sil_pdf_ids"] = [int(i) for i in cfg.sil_pdf_ids]
+    with open(os.path.join(path, "config.yaml"), "w") as f:
+        f.write(yaml.safe_dump({
+            "frontend_conf": {
+                "fs": fe.fs, "window": fe.window, "n_mels": fe.n_mels,
+                "frame_length": fe.frame_length_ms,
+                "frame_shift": fe.frame_shift_ms,
+                "lfr_m": fe.lfr_m, "lfr_n": fe.lfr_n, "dither": fe.dither,
+            },
+            "model_conf": model_conf,
+            "encoder_conf": {
+                "proj_dim": cfg.proj_dim, "linear_dim": cfg.hidden_dim,
+                "output_dim": cfg.output_dim,
+                "fsmn_layers": cfg.fsmn_layers, "lorder": cfg.lorder,
+                "rorder": cfg.rorder,
+            },
+        }))
+    if cmvn is not None and cmvn[0] is not None:
+        write_kaldi_cmvn(os.path.join(path, "am.mvn"), cmvn[0], cmvn[1])
+
+
+def load_vad_dir(path: str):
+    """FSMN-VAD model directory -> (state dict on the CPU, VadConfig,
+    cmvn): weights.npz, config.yaml through load_vad_yaml (VadConfig()
+    when absent) and am.mvn ((None, None) when absent)."""
+    vy = os.path.join(path, "config.yaml")
+    cfg = (cfg_mod.load_vad_yaml(vy) if os.path.exists(vy)
+           else cfg_mod.VadConfig())
+    params = params_from_jax(load_params(os.path.join(path, "weights.npz")))
+    mvn = os.path.join(path, "am.mvn")
+    cmvn = parse_kaldi_cmvn(mvn) if os.path.exists(mvn) else (None, None)
+    return params, cfg, cmvn
+
+
+def save_punc_dir(path: str, params, cfg: cfg_mod.PuncConfig, tokens,
+                  punc_list=None):
+    """Write a punctuation model directory (weights.npz, config.yaml in
+    the layout punc_cfg_from_node reads, tokens.json) that both packages
+    load. `params` is a CtTransformer module or its state dict."""
+    os.makedirs(path, exist_ok=True)
+    save_params(os.path.join(path, "weights.npz"), params_to_jax(params))
+    with open(os.path.join(path, "tokens.json"), "w", encoding="utf-8") as f:
+        json.dump(list(tokens), f, ensure_ascii=False)
+    node = {
+        "encoder_conf": {
+            "output_size": cfg.att_dim,
+            "attention_heads": cfg.attention_heads,
+            "linear_units": cfg.linear_units,
+            "num_blocks": cfg.num_blocks,
+            "kernel_size": cfg.kernel_size,
+            "sanm_shift": cfg.sanm_shift,
+        },
+        "vocab_size": cfg.vocab_size,
+    }
+    if punc_list:
+        node["punc_list"] = list(punc_list)
+    with open(os.path.join(path, "config.yaml"), "w") as f:
+        f.write(yaml.safe_dump(node, allow_unicode=True))
+
+
+def load_punc_dir(path: str):
+    """Punctuation model directory -> (state dict on the CPU,
+    PuncConfig, PuncTokenizer): weights.npz, the dims and punc_list of
+    config.yaml (PuncConfig() when absent) and tokens.json."""
+    params = params_from_jax(load_params(os.path.join(path, "weights.npz")))
+    cfg = cfg_mod.PuncConfig()
+    punc_list = None
+    py = os.path.join(path, "config.yaml")
+    if os.path.exists(py):
+        with open(py) as f:
+            node = yaml.safe_load(f) or {}
+        cfg = cfg_mod.punc_cfg_from_node(node)
+        punc_list = node.get("punc_list")
+    kw = ({"punc_list": punc_list}
+          if isinstance(punc_list, list) and punc_list else {})
+    tokenizer = PuncTokenizer.from_file(
+        os.path.join(path, "tokens.json"), **kw)
+    return params, cfg, tokenizer

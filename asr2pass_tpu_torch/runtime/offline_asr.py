@@ -28,7 +28,7 @@ from asr2pass_tpu_torch.models import paraformer
 from asr2pass_tpu_torch.runtime.streaming_frontend import offline_frontend_device
 from asr2pass_tpu_torch.text import timestamps as ts_mod
 from asr2pass_tpu_torch.text.vocab import Vocab
-from asr2pass_tpu_torch.utils import resolve_device
+from asr2pass_tpu_torch.utils import fp32_products, resolve_device
 
 # feature-length buckets (LFR frames, 60 ms each): 3.8 s .. 61 s; longer
 # segments round up to a multiple of the last bucket
@@ -61,10 +61,7 @@ class ParaformerOffline:
                  cfg: ParaformerConfig, vocab: Vocab, cmvn=None,
                  device="cuda"):
         self.device = resolve_device(device)
-        # fbank (frontend/fbank.py) and the model's fp32 products stay
-        # true fp32 on the card: no TF32 in cuBLAS or cuDNN
-        torch.backends.cuda.matmul.allow_tf32 = False
-        torch.backends.cudnn.allow_tf32 = False
+        fp32_products()
         if isinstance(params, nn.Module):
             self.model = params.to(self.device).eval().requires_grad_(False)
         else:

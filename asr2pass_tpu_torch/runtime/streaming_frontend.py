@@ -1,21 +1,137 @@
-"""Offline front-end: samples -> fbank -> LFR -> CMVN features.
+"""Front-end: samples -> fbank -> LFR -> CMVN features, chunk by chunk
+and whole.
 
-Counterpart of the offline part of asr2pass_tpu/runtime/
-streaming_frontend.py: offline_window_samples, the fused device front-end
-_frontend_feats / offline_frontend_device (int16 upload, then fbank, LFR
-and CMVN on the card) and the one-shot reference offline_frontend. The
-chunk-incremental StreamingFrontend comes with the streaming slice.
+Counterpart of asr2pass_tpu/runtime/streaming_frontend.py:
+StreamingFrontend (chunk-incremental, with exact offline parity),
+offline_window_samples, the fused device front-end _frontend_feats /
+offline_frontend_device (int16 upload, then fbank, LFR and CMVN on the
+card) and the one-shot reference offline_frontend.
+
+StreamingFrontend keeps one invariant: the concatenation of its outputs
+equals the offline front-end run on the same audio. Its state is the
+residual samples, a trimmed mel ring and the emitted-window counter.
+Fbank runs on the device over chunks padded to 25-frame buckets (exact:
+each mel frame depends only on its own window); the mel rows come back
+to the host, where the LFR windows and CMVN are emitted.
 """
 from __future__ import annotations
+
+from typing import Optional
 
 import numpy as np
 import torch
 
 from asr2pass_tpu_torch.config import FrontendConfig
 from asr2pass_tpu_torch.frontend.audio import quantize_pcm
-from asr2pass_tpu_torch.frontend.fbank import get_extractor
+from asr2pass_tpu_torch.frontend.fbank import get_extractor, num_frames
 from asr2pass_tpu_torch.frontend.lfr import apply_cmvn, apply_lfr
 from asr2pass_tpu_torch.utils import resolve_device
+
+
+_BUCKET = 25  # fbank frames per chunk bucket (250 ms)
+
+
+class StreamingFrontend:
+    def __init__(self, cfg: FrontendConfig, cmvn_means=None, cmvn_vars=None,
+                 device="cuda"):
+        self.cfg = cfg
+        self.device = resolve_device(device)
+        self.extractor = get_extractor(cfg)
+        d = cfg.lfr_dim
+        self.means = (np.zeros(d, np.float32) if cmvn_means is None
+                      else np.asarray(cmvn_means, np.float32))
+        self.vars = (np.ones(d, np.float32) if cmvn_vars is None
+                     else np.asarray(cmvn_vars, np.float32))
+        self.reset()
+
+    def reset(self):
+        self._residual = np.zeros(0, dtype=np.float32)
+        self._mel: Optional[np.ndarray] = None   # trimmed buffer
+        self._mel_base = 0                       # global index of _mel[0]
+        self._mel_total = 0                      # total mel frames produced
+        self._next_window = 0                    # next LFR window index
+
+    # -- internals --------------------------------------------------------
+    def _fbank_chunk(self, samples: np.ndarray) -> np.ndarray:
+        cfg = self.cfg
+        n = num_frames(len(samples), cfg)
+        if n == 0:
+            return np.zeros((0, cfg.n_mels), np.float32)
+        bucket = -(-n // _BUCKET) * _BUCKET
+        need = cfg.frame_length + (bucket - 1) * cfg.frame_shift
+        if len(samples) < need:
+            samples = np.pad(samples, (0, need - len(samples)))
+        mel = self.extractor(samples[:need], self.device)
+        return mel[:n].cpu().numpy()
+
+    def _emit_windows(self, upto: int) -> np.ndarray:
+        """Emit LFR windows [_next_window, upto); taps past the last mel
+        frame repeat it (the offline tail padding)."""
+        cfg = self.cfg
+        left = (cfg.lfr_m - 1) // 2
+        count = upto - self._next_window
+        if count <= 0 or self._mel is None or self._mel_total == 0:
+            return np.zeros((0, cfg.lfr_dim), np.float32)
+        wins = np.arange(self._next_window, upto)[:, None]
+        idx = wins * cfg.lfr_n + np.arange(cfg.lfr_m)[None, :] - left
+        idx = np.clip(idx, 0, self._mel_total - 1)
+        feats = self._mel[idx - self._mel_base].reshape(count, cfg.lfr_dim)
+        self._next_window = upto
+        return (feats + self.means) * self.vars
+
+    # -- public -----------------------------------------------------------
+    def stage(self, samples: np.ndarray):
+        """Phase 1 of a batched accept: absorb samples, return
+        (waveform_buffer, n_complete_frames) for an external batched fbank
+        call. Follow with commit(mel, is_final)."""
+        samples = np.asarray(samples, dtype=np.float32)
+        buf = np.concatenate([self._residual, samples])
+        n = num_frames(len(buf), self.cfg)
+        if n > 0:
+            self._residual = buf[n * self.cfg.frame_shift:]
+        else:
+            self._residual = buf
+        return buf, n
+
+    def commit(self, mel: Optional[np.ndarray],
+               is_final: bool = False) -> np.ndarray:
+        """Phase 2: push mel rows (stage()'s frame count) and emit the
+        complete LFR+CMVN windows."""
+        if mel is not None and mel.shape[0] > 0:
+            if self._mel is None or len(self._mel) == 0:
+                self._mel = np.asarray(mel, np.float32)
+            else:
+                self._mel = np.concatenate([self._mel, mel])
+            self._mel_total += mel.shape[0]
+        return self._emit(is_final)
+
+    def accept(self, samples: np.ndarray, is_final: bool = False
+               ) -> np.ndarray:
+        """Feed raw float32 samples; returns the newly complete LFR+CMVN
+        rows [n, lfr_dim] (numpy)."""
+        buf, n = self.stage(samples)
+        mel = self._fbank_chunk(buf) if n > 0 else None
+        return self.commit(mel, is_final)
+
+    def _emit(self, is_final: bool) -> np.ndarray:
+        cfg = self.cfg
+        left = (cfg.lfr_m - 1) // 2
+        if is_final:
+            # offline window count: ceil(T / lfr_n), tail repeats last frame
+            upto = -(-self._mel_total // cfg.lfr_n)
+            out = self._emit_windows(upto)
+            self.reset()
+            return out
+        # window i is complete when its last tap i*lfr_n + (lfr_m-1) - left
+        # exists
+        upto = (self._mel_total - 1 - (cfg.lfr_m - 1) + left) // cfg.lfr_n + 1
+        out = self._emit_windows(max(upto, 0))
+        # trim consumed mel frames (next window's earliest tap)
+        keep_from = max(self._next_window * cfg.lfr_n - left, 0)
+        if self._mel is not None and keep_from > self._mel_base:
+            self._mel = self._mel[keep_from - self._mel_base:]
+            self._mel_base = keep_from
+        return out
 
 
 def offline_window_samples(fcfg: FrontendConfig, lfr_bucket: int) -> int:

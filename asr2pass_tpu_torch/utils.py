@@ -1,4 +1,5 @@
-"""Small shared utilities: device resolution and float casts."""
+"""Small shared utilities: device resolution, fp32 products and float
+casts."""
 from __future__ import annotations
 
 from typing import Mapping, Union
@@ -18,6 +19,15 @@ def resolve_device(device: Union[str, torch.device, None] = "cuda"
             f"device {dev} requested but CUDA is not available; pass "
             "device='cpu' to run the plain PyTorch path on the CPU")
     return dev
+
+
+def fp32_products() -> None:
+    """fp32 products stay true fp32 on the card: no TF32 in cuBLAS or
+    cuDNN. The fbank (frontend/fbank.py) feeds a log, and the models'
+    fp32 path is held to the CPU's. Every entry point that builds a model
+    calls it."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
 
 
 def cast_floats(params: Union[nn.Module, Mapping[str, torch.Tensor]],

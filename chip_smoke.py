@@ -36,6 +36,21 @@ Phases, each of which fails the run if it fails:
               points 50 times each
   6. profile  one traced run of each: device busy time, idle share, and
               the kernels that took the most device time
+  7. 2pass    the 2pass session at full width: paraformer_large_online
+              (pass 1), the phase-3 paraformer_large dir (pass 2),
+              vad_default (FSMN-VAD) and PuncConfig() (CT-Transformer),
+              each saved as a model dir and loaded back, take ~59 s of
+              seeded audio (four speech-like bursts between stretches of
+              digital silence) in 600 ms messages. Gates: one closed VAD
+              segment per burst starting within 300 ms of it, one
+              non-empty punctuated final per segment with its timestamps
+              inside it, non-empty partials, finite outputs, the fp32
+              kernel launched 50 times per bucket-256 segment and nothing
+              else; card vs CPU: the same VAD events, pass-1 steps on the
+              first 10 chunks (counts, logits) and pass-2 logits on one
+              segment. Prints pass-1/pass-2/VAD/punctuation latencies, the
+              real-time factor, the batched pass-1 step at B = 1, 16, 64
+              and a traced run of the session
 
 Prints the card's name and power limit, one JSON line of kernel numbers
 ({"kernels": [...]}), and as its last line
@@ -45,6 +60,7 @@ checkout. Imports nothing of JAX or of the JAX package.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import subprocess
@@ -92,6 +108,23 @@ CONTROL_BF16 = 10.0
 CPU_TOL = 1e-4
 FEATS_TOL = 4e-3
 FS = 16000
+# phase 7: (digital silence before, speech-like burst) in seconds, then a
+# tail of silence: ~59 s. Each burst makes a VAD segment of 128 < T_lfr <=
+# 256 LFR frames (7.7-15.4 s), pass 2's bucket 256, under the VAD's 15 s
+# cap (VadConfig.max_single_segment_time)
+BURSTS = [(2.0, 9.5), (2.5, 12.0), (2.2, 13.5), (2.8, 10.5)]
+TAIL_SILENCE = 4.0
+MESSAGE = 9600            # samples a client message carries: 600 ms
+PROFILE_MESSAGES = 25     # the traced session: 15 s, the first final
+# a VAD segment starts within VAD_START_TOL_MS of the start its options
+# predict for its burst. The prediction is the burst's onset less the
+# 250 ms the automaton reaches back by design; the automaton's decibel
+# frames, taken per message, also run up to 200 ms ahead of the
+# posteriors (2 frames a 600 ms message, a behaviour of the reference)
+VAD_START_TOL_MS = 300
+# the VAD's energy gate: digital silence reads -60 dB (10 log10 of the
+# 1e-6 floor), the bursts -14 dB at their quietest (the 0.01 noise floor)
+VAD_DECIBEL_THRES = -30.0
 
 
 def fail(msg: str):
@@ -179,17 +212,19 @@ def ptxas_usage(log: str) -> list:
     return out
 
 
-def device_profile(fn, label: str) -> dict:
+def device_profile(fn, label: str, host_ops: bool = True) -> dict:
     """One traced run of fn: wall time, the device's busy time (the sum of
     its kernels' times; one stream, so they do not overlap), its idle
-    share, and the kernels that took the most device time."""
+    share, and the kernels that took the most device time. host_ops=False
+    traces the device alone, which keeps a long run's trace small."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    acts = [ProfilerActivity.CUDA] + ([ProfilerActivity.CPU] if host_ops
+                                      else [])
+    with profile(activities=acts) as prof:
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
@@ -223,6 +258,9 @@ def device_profile(fn, label: str) -> dict:
 def _lengths(b: int, t: int, gen):
     import torch
 
+    if b == 1:             # one pass-2 segment of its bucket: t/2 < T <= t
+        return torch.randint(t // 2 + 1, t + 1, (1,), generator=gen,
+                             device="cuda")
     lens = torch.randint(t // 4, t + 1, (b,), generator=gen, device="cuda")
     lens[0] = t
     lens[-1] = 0           # a batch-bucket padding row
@@ -380,9 +418,11 @@ def kernel_phase(gen):
     cases = {
         # main path: encoder self-attention at bucket 1024, decoder cross
         # with Tq = 1024//2+8; split-head at bucket 3072; long at 5120.
-        # #3 takes B=2 so that it, too, has a length-0 row.
+        # #3 takes B=2 so that it, too, has a length-0 row. The 2pass
+        # path: pass 2's encoder on one segment of bucket 256.
         "mh_flash_attention": [(16, 1024, 1024, 512, 4),
-                               (16, 520, 1024, 512, 4)],
+                               (16, 520, 1024, 512, 4),
+                               (1, 256, 256, 512, 4)],
         "_attention_ss": [(2, 4, 3072, 128)],
         "_attention_flash": [(2, 4, 5120, 128)],
     }
@@ -674,6 +714,415 @@ def main_path(model_dir: str, gen, card: str):
                       "tf32_control_logits_max_abs_err": tf32_err,
                       "tf32_control_feats_max_abs_err": tf32_feat_err}
 
+# ---------------------------------------------------------------------------
+# phase 7: the 2pass session
+# ---------------------------------------------------------------------------
+
+@contextlib.contextmanager
+def wrapped(obj, name: str, around):
+    """obj.name replaced by around(original) inside the block."""
+    own = name in vars(obj)
+    orig = getattr(obj, name)
+    setattr(obj, name, around(orig))
+    try:
+        yield
+    finally:
+        if own:
+            setattr(obj, name, orig)
+        else:
+            delattr(obj, name)
+
+
+def after(sink):
+    """For `wrapped`: a wrapper that hands each result to sink."""
+    def around(fn):
+        def call(*a, **kw):
+            out = fn(*a, **kw)
+            sink(out)
+            return out
+        return call
+    return around
+
+
+def vad_events(events: list, ms: list = None):
+    """For `wrapped` on FsmnVadStream.accept: collect its events and, if
+    given, its host ms."""
+    def around(fn):
+        def call(samples, is_final=False):
+            t1 = time.perf_counter()
+            ev = fn(samples, is_final)
+            if ms is not None:
+                ms.append((time.perf_counter() - t1) * 1e3)
+            events.extend(ev)
+            return ev
+        return call
+    return around
+
+
+def two_pass_audio():
+    """The bursts between digital silence, and each burst's [start, end)
+    in ms."""
+    import numpy as np
+
+    parts, spans, at = [], [], 0
+    for k, (sil, sec) in enumerate(BURSTS):
+        parts += [np.zeros(int(sil * FS), np.float32),
+                  synth_audio(sec, 200 + k)]
+        at += int(sil * FS)
+        spans.append((at * 1000 // FS, (at + int(sec * FS)) * 1000 // FS))
+        at += int(sec * FS)
+    parts.append(np.zeros(int(TAIL_SILENCE * FS), np.float32))
+    return np.concatenate(parts), spans
+
+
+def feed_all(sess, wave):
+    """The wave in MESSAGE-sample messages, the last one final: the
+    results and each feed()'s host time (s)."""
+    out, secs = [], []
+    for a in range(0, len(wave), MESSAGE):
+        t0 = time.perf_counter()
+        out.append(sess.feed(wave[a: a + MESSAGE],
+                             is_final=a + MESSAGE >= len(wave)))
+        secs.append(time.perf_counter() - t0)
+    return out, secs
+
+
+def closed_segments(events):
+    """Online VAD events ([s,-1], [-1,e], [s,e]) -> closed [s, e]."""
+    out, start = [], -1
+    for s, e in events:
+        if s != -1:
+            start = s
+        if e != -1 and start != -1:
+            out.append([start, e])
+            start = -1
+    return out
+
+
+def _pct(xs, q):
+    import numpy as np
+
+    return float(np.percentile(np.asarray(xs), q)) if xs else float("nan")
+
+
+def two_pass_phase(model_dir: str, tmp: str, gen, card: str):
+    """Phase 7. Returns the 2pass run's launches by dtype and entry point,
+    and its printed numbers."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from asr2pass_tpu_torch.config import (PuncConfig,
+                                           paraformer_large_online,
+                                           vad_default)
+    from asr2pass_tpu_torch.models import (ct_transformer, fsmn_vad,
+                                           paraformer, paraformer_online,
+                                           sanm_decoder)
+    from asr2pass_tpu_torch.ops import attention as att
+    from asr2pass_tpu_torch.runtime import model_zoo
+    from asr2pass_tpu_torch.runtime.asr_stream import ParaformerOnlineStream
+    from asr2pass_tpu_torch.runtime.offline_asr import ParaformerOffline
+    from asr2pass_tpu_torch.runtime.punc import Punctuator
+    from asr2pass_tpu_torch.runtime.streaming_frontend import (
+        offline_frontend_device)
+    from asr2pass_tpu_torch.runtime.two_pass import TwoPassSession
+    from asr2pass_tpu_torch.runtime.vad_stream import FsmnVadStream
+
+    t0 = time.perf_counter()
+    # the four models at full width, each saved as a model dir and loaded
+    # back through the loaders; pass 2 reuses phase 3's dir
+    online_cfg = paraformer_large_online()
+    tokens = ["<blank>", "<s>", "</s>", "<unk>"] + [
+        chr(0x4E00 + i) for i in range(online_cfg.vocab_size - 4)]
+    d = online_cfg.frontend.lfr_dim
+    cmvn = (np.full(d, -12.0, np.float32), np.full(d, 0.25, np.float32))
+    online_dir = os.path.join(tmp, "online")
+    model_zoo.save_offline_bundle(
+        online_dir, paraformer.init(online_cfg, gen, "cuda"), online_cfg,
+        tokens, cmvn)
+    # The VAD's weights are random, so the phase makes the segmentation
+    # follow the signal in both of the ways the reference's options allow:
+    # decibel_thres puts the energy gate between silence and the bursts,
+    # and the out2 bias of the silence pdf is seeded at -20, so the net
+    # never calls a frame silence and the energy gate alone decides
+    vad_cfg = dataclasses.replace(vad_default(),
+                                  decibel_thres=VAD_DECIBEL_THRES)
+    vad_model = fsmn_vad.init(vad_cfg, gen, "cuda")
+    with torch.no_grad():
+        vad_model.out2.b[list(vad_cfg.sil_pdf_ids)] = -20.0
+    vad_dir = os.path.join(tmp, "vad")
+    vad_cmvn = (np.full(400, -12.0, np.float32),
+                np.full(400, 0.25, np.float32))
+    model_zoo.save_vad_dir(vad_dir, vad_model, vad_cfg, vad_cmvn)
+    del vad_model
+    punc_cfg = PuncConfig()
+    punc_tokens = ["<blank>", "<unk>"] + tokens[4:]
+    punc_tokens += [f"w{i}" for i in range(punc_cfg.vocab_size
+                                           - len(punc_tokens))]
+    punc_dir = os.path.join(tmp, "punc")
+    model_zoo.save_punc_dir(punc_dir, ct_transformer.init(punc_cfg, gen),
+                            punc_cfg, punc_tokens)
+
+    on_b = model_zoo.load_offline_bundle(online_dir)
+    off_b = model_zoo.load_offline_bundle(model_dir)
+    vad_sd, vad_cfg2, vad_cmvn2 = model_zoo.load_vad_dir(vad_dir)
+    punc_sd, punc_cfg2, punc_tok = model_zoo.load_punc_dir(punc_dir)
+    if (dataclasses.asdict(vad_cfg2) != dataclasses.asdict(vad_cfg)
+            or dataclasses.asdict(punc_cfg2)
+            != dataclasses.asdict(punc_cfg)):
+        fail("2pass: a model dir does not load back its configuration")
+    vad = FsmnVadStream(vad_sd, vad_cfg2, cmvn=vad_cmvn2)
+    online = ParaformerOnlineStream(on_b.params, on_b.cfg, on_b.vocab,
+                                    cmvn=on_b.cmvn)
+    offline = ParaformerOffline(off_b.params, off_b.cfg, off_b.vocab,
+                                cmvn=off_b.cmvn)
+    punc = Punctuator(punc_sd, punc_cfg2, punc_tok)
+    n_params = {name: sum(p.numel() for p in m.parameters()) for name, m in
+                (("pass 1", online.params), ("pass 2", offline.model),
+                 ("vad", vad.params), ("punc", punc.params))}
+    print(f"2pass: models {n_params}, init+save+load "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+
+    wave, spans = two_pass_audio()
+    audio_s = len(wave) / FS
+    rec = {"vad_ms": [], "events": [], "p1_ms": [], "p1_inputs": [],
+           "punc_ms": [], "segments": [], "t_lfr": [], "finite": []}
+
+    def timed(key, fn):
+        def call(*a, **kw):
+            t1 = time.perf_counter()
+            out = fn(*a, **kw)
+            rec[key].append((time.perf_counter() - t1) * 1e3)
+            return out
+        return call
+
+    def run_chunk(fn):
+        def call(feats, is_final):
+            if len(rec["p1_inputs"]) < 10:
+                rec["p1_inputs"].append((online.state, feats.copy(),
+                                         is_final))
+            return timed("p1_ms", fn)(feats, is_final)
+        return call
+
+    def finite(*xs):
+        rec["finite"].extend(torch.isfinite(x).all() for x in xs)
+
+    def forward(fn):
+        def call(feats, lengths, hw_emb=None):
+            out = fn(feats, lengths, hw_emb)
+            rec["t_lfr"].append(max(lengths))
+            finite(out.logits, out.us_alphas, out.us_cif_peak)
+            return out
+        return call
+
+    def finalize(fn):
+        def call(frame):
+            out = fn(frame)
+            rec["segments"].append((frame.global_start, frame.global_end,
+                                    len(frame.data), out))
+            return out
+        return call
+
+    sess = TwoPassSession(vad, online, offline, punc=punc, mode="2pass")
+    torch.cuda.synchronize()
+    att.reset_launch_counts()
+    with contextlib.ExitStack() as stack:
+        for obj, name, around in (
+                (vad, "accept", vad_events(rec["events"], rec["vad_ms"])),
+                (online, "_run_chunk", run_chunk),
+                (offline, "_forward", forward),
+                (punc, "add_punc_streaming",
+                 lambda fn: timed("punc_ms", fn)),
+                (sess, "_finalize_segment", finalize),
+                (sanm_decoder, "apply_streaming",
+                 after(lambda o: finite(o[0]))),
+                (fsmn_vad, "apply", after(lambda o: finite(o[0]))),
+                (ct_transformer, "apply", after(finite))):
+            stack.enter_context(wrapped(obj, name, around))
+        results, secs = feed_all(sess, wave)
+    torch.cuda.synchronize()
+    launches = att.launch_counts_by_dtype()
+    print(f"2pass: session run ({time.perf_counter() - t0:.1f} s)",
+          flush=True)
+
+    # -- gates ----------------------------------------------------------
+    if not bool(torch.stack([f.cpu() for f in rec["finite"]]).all()):
+        fail("2pass: non-finite logits or posteriors")
+    segs = closed_segments(rec["events"])
+    print(f"2pass: VAD events {rec['events']}; bursts {spans}", flush=True)
+    if len(segs) != len(spans):
+        fail(f"2pass: {len(segs)} closed VAD segments for {len(spans)} "
+             "bursts")
+    # the VAD puts a start (window - sil_to_speech threshold + lookback)
+    # = 250 ms before the onset it detects, by design
+    lead = (vad_cfg.window_size_ms - vad_cfg.sil_to_speech_time_thres
+            + vad_cfg.lookback_time_start_point)
+    nxt = [b0 for b0, _ in spans[1:]] + [int(audio_s * 1000)]
+    for (s, e), (b0, b1), n0 in zip(segs, spans, nxt):
+        if not (abs(s - (b0 - lead)) <= VAD_START_TOL_MS and b0 < e <= n0):
+            fail(f"2pass: VAD segment [{s}, {e}] does not match the burst "
+                 f"[{b0}, {b1}] (start expected at {b0 - lead} +- "
+                 f"{VAD_START_TOL_MS} ms)")
+    partials = "".join(r.partial for r in results)
+    if not partials:
+        fail("2pass: no pass-1 partial text")
+    fcfg = off_b.cfg.frontend
+    if [[g0, g1] for g0, g1, _, _ in rec["segments"]] != segs:
+        fail(f"2pass: pass-2 segments {rec['segments']} are not the VAD's")
+    for g0, g1, n, out in rec["segments"]:
+        n_mel = 1 + (n - fcfg.frame_length) // fcfg.frame_shift
+        end = g0 + -(-n_mel // fcfg.lfr_n) * fcfg.lfr_n * fcfg.frame_shift_ms
+        if not out["text"]:
+            fail(f"2pass: empty final for the segment [{g0}, {g1}]")
+        if not out["stamps"] or any(not g0 <= b <= e <= end
+                                    for b, e in out["stamps"]):
+            fail(f"2pass: timestamps outside the segment [{g0}, {g1}]")
+    if len(rec["punc_ms"]) != len(segs):
+        fail(f"2pass: {len(rec['punc_ms'])} punctuation calls for "
+             f"{len(segs)} finals")
+    n256 = sum(128 < t <= 256 for t in rec["t_lfr"])
+    want = 50 * n256
+    got = launches["mh_flash_attention"]["float32"]
+    others = sum(n for name, by in launches.items()
+                 for dt, n in by.items()
+                 if (name, dt) != ("mh_flash_attention", "float32"))
+    print(f"2pass: pass-2 T_lfr {rec['t_lfr']}; kernel launches {launches}",
+          flush=True)
+    if n256 < 1 or got != want or others:
+        fail(f"2pass: launched {launches}, expected mh_flash_attention "
+             f"{want} times in float32 (50 x {n256} bucket-256 segments) "
+             "and nothing else")
+
+    # card vs CPU. VAD: a session on the CPU with the same VAD (the ASR
+    # passes do not feed the VAD, so they are left out) gives the same
+    # events from the same messages
+    cpu_events = []
+    vad_cpu = FsmnVadStream(vad_sd, vad_cfg2, cmvn=vad_cmvn2, device="cpu")
+    with wrapped(vad_cpu, "accept", vad_events(cpu_events)):
+        feed_all(TwoPassSession(vad_cpu, None, None, mode="2pass"), wave)
+    if cpu_events != rec["events"]:
+        fail(f"2pass: the CPU's VAD events {cpu_events} differ")
+    t_vad = time.perf_counter() - t0
+    # pass 1: the first 10 chunks' steps from the card's state, copied to
+    # the CPU, on both devices
+    cpu_online = paraformer.from_state_dict(on_b.params, on_b.cfg, "cpu")
+    center = on_b.cfg.chunk_size[1]
+    p1_err, p1_limit = 0.0, 0.0
+    for st, feats, fin in rec["p1_inputs"]:
+        padded = np.zeros((1, center, d), np.float32)
+        padded[0, :len(feats)] = feats
+        outs = []
+        for dev, model in (("cpu", cpu_online), ("cuda", online.params)):
+            logits = []
+            with wrapped(sanm_decoder, "apply_streaming",
+                         after(lambda o: logits.append(o[0]))):
+                _, _, n = paraformer_online.step(
+                    model, on_b.cfg,
+                    paraformer_online.OnlineState(*(x.to(dev) for x in st)),
+                    torch.from_numpy(padded).to(dev),
+                    torch.tensor([len(feats)], dtype=torch.int32,
+                                 device=dev),
+                    torch.tensor([fin], device=dev))
+            outs.append((int(n[0]), logits[0].cpu()))
+        (n_c, l_c), (n_g, l_g) = outs
+        limit = CPU_TOL * max(1.0, l_c.abs().max().item())
+        err = (l_g - l_c).abs().max().item() if n_g == n_c else float("inf")
+        if not err <= limit:
+            fail(f"2pass: pass-1 step card vs cpu: counts {n_g}/{n_c}, "
+                 f"max |logits| err {err:.3e} (limit {limit:.3e})")
+        p1_err, p1_limit = max(p1_err, err), max(p1_limit, limit)
+    del cpu_online
+    t_p1 = time.perf_counter() - t0
+    # pass 2: the first segment's front-end and forward on both devices
+    seg_audio = wave[segs[0][0] * FS // 1000: segs[0][1] * FS // 1000]
+    n_mel = 1 + (len(seg_audio) - fcfg.frame_length) // fcfg.frame_shift
+    t_lfr = -(-n_mel // fcfg.lfr_n)
+    cpu_off = ParaformerOffline(off_b.params, off_b.cfg, off_b.vocab,
+                                cmvn=off_b.cmvn, device="cpu")
+    outs = []
+    for dev, asr in (("cpu", cpu_off), ("cuda", offline)):
+        feats = offline_frontend_device([seg_audio], [n_mel], 256, fcfg,
+                                        *off_b.cmvn, batch_b=1, device=dev)
+        with torch.inference_mode():
+            out = asr._forward(feats, [t_lfr])
+        outs.append((int(out.token_num[0]), out.logits[0].cpu()))
+    del cpu_off
+    (n_c, l_c), (n_g, l_g) = outs
+    p2_limit = CPU_TOL * max(1.0, l_c[:n_c].abs().max().item())
+    p2_err = ((l_g[:n_c] - l_c[:n_c]).abs().max().item() if n_g == n_c
+              else float("inf"))
+    print(f"2pass: card vs cpu (done at {t_vad:.1f} / {t_p1:.1f} / "
+          f"{time.perf_counter() - t0:.1f} s): VAD events equal "
+          f"({len(cpu_events)}); "
+          f"pass 1, {len(rec['p1_inputs'])} chunks: max |logits| err "
+          f"{p1_err:.3e} (limit {p1_limit:.3e}); pass 2, T={t_lfr}: "
+          f"token_num {n_g}/{n_c}, max |logits| err {p2_err:.3e} (limit "
+          f"{p2_limit:.3e})", flush=True)
+    if not p2_err <= p2_limit:
+        fail(f"2pass: pass-2 card vs cpu logits differ by {p2_err:.3e}")
+
+    # -- numbers ----------------------------------------------------------
+    final_secs = [secs[i] * 1e3 for i, r in enumerate(results)
+                  if r.final_text]
+    n_punc = sum(out["text"].count(p) for *_, out in rec["segments"]
+                 for p in "，。？、")
+    numbers = {
+        "audio_s": audio_s, "messages": len(secs),
+        "rtf": sum(secs) / audio_s,
+        "pass1_step_ms_p50": _pct(rec["p1_ms"], 50),
+        "pass1_step_ms_p95": _pct(rec["p1_ms"], 95),
+        "pass1_chunks": len(rec["p1_ms"]),
+        "pass2_final_feed_ms": final_secs,
+        "vad_ms_per_message_p50": _pct(rec["vad_ms"], 50),
+        "vad_ms_per_message_p95": _pct(rec["vad_ms"], 95),
+        "punc_ms_per_final": rec["punc_ms"],
+        "feed_ms_p50": _pct([x * 1e3 for x in secs], 50),
+        "final_chars": [len(out["text"]) for *_, out in rec["segments"]],
+        "punctuation_marks": n_punc, "partial_chars": len(partials),
+        "pass1_logits_max_abs_err": p1_err, "pass1_logits_limit": p1_limit,
+        "pass2_logits_max_abs_err": p2_err, "pass2_logits_limit": p2_limit,
+    }
+    print(f"2pass: {json.dumps(numbers)}", flush=True)
+
+    # the batched pass-1 step: ms a step of B streams (10 steps each, one
+    # chunk of `center` frames per stream), and the streams whose 600 ms
+    # chunks one card keeps up with at that B
+    for b in (1, 16, 64):
+        state = paraformer_online.init_state(online.params, on_b.cfg, b)
+        feats = torch.randn(b, center, d, generator=gen, device="cuda")
+        cnt = torch.full((b,), center, dtype=torch.int32, device="cuda")
+        fin = torch.zeros(b, dtype=torch.bool, device="cuda")
+        for _ in range(2):
+            state, _, n = paraformer_online.step(online.params, on_b.cfg,
+                                                 state, feats, cnt, fin)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        for _ in range(10):
+            state, _, n = paraformer_online.step(online.params, on_b.cfg,
+                                                 state, feats, cnt, fin)
+        n.cpu()
+        ms = (time.perf_counter() - t1) * 1e3 / 10
+        numbers[f"pass1_step_B{b}_ms"] = ms
+        print(f"2pass: batched pass-1 step B={b}: {ms:.1f} ms/step, "
+              f"{b * int(600 // ms)} streams a card within the 600 ms "
+              f"chunk on {card}", flush=True)
+
+    # one traced run of the session's first PROFILE_MESSAGES messages (one
+    # pass-2 final among them), the device alone
+    sess = TwoPassSession(vad, online, offline, punc=punc, mode="2pass")
+    sess.reset()
+    prof = device_profile(
+        lambda: feed_all(sess, wave[: PROFILE_MESSAGES * MESSAGE]),
+        f"2pass session, first {PROFILE_MESSAGES} messages",
+        host_ops=False)
+    if prof.get("launches"):
+        print(f"profile: 2pass session: "
+              f"{prof['launches'] / PROFILE_MESSAGES:.0f} launches a 600 ms "
+              f"message", flush=True)
+    print(f"2pass: phase {time.perf_counter() - t0:.1f} s", flush=True)
+    return launches, numbers
+
 
 def main() -> int:
     import torch
@@ -704,11 +1153,14 @@ def main() -> int:
     kernels = kernel_phase(gen)
     with tempfile.TemporaryDirectory() as tmp:
         launches, speed = main_path(os.path.join(tmp, "model"), gen, card)
+        launches_2pass, two_pass = two_pass_phase(
+            os.path.join(tmp, "model"), tmp, gen, card)
 
     # one entry per CUDA kernel and entry point: the fp32 kernel
-    # (attention_f32_sm90.cu) and the bf16 kernel (attention_sm90.cu), each at the
-    # entry point's first main-path shape, its other shapes as variants;
-    # launches are the main-path run's in that dtype
+    # (attention_f32_sm90.cu) and the bf16 kernel (attention_sm90.cu), each
+    # at the entry point's first main-path shape, its other shapes as
+    # variants; launches are the offline main path's run in that dtype,
+    # launches_2pass the 2pass session's
     line = []
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms", "device_ms", "host_ms", "plain_device_ms",
@@ -725,6 +1177,7 @@ def main() -> int:
                 "name": name, "route": "cuda", "source": source,
                 "replaces": REPLACES[name],
                 "launches": launches[dtype][name],
+                "launches_2pass": launches_2pass[name][dtype],
                 **{k: head[k] for k in keys},
                 "shape": head["shape"], "dtype": dtype,
                 "tol_ratio": head["tol_ratio"],

@@ -314,3 +314,113 @@ def test_tiny_paraformer_card_matches_cpu(dev):
     n = int(ref.token_num.min())
     torch.testing.assert_close(got.logits[:, :n].cpu(), ref.logits[:, :n],
                                rtol=1e-4, atol=1e-4)
+
+
+def _tree_on(x, dev):
+    return x.device.type == torch.device(dev).type
+
+
+def test_online_step_card_matches_cpu(dev):
+    """paraformer_online.step at paraformer_tiny: four chunks of two
+    streams (one flushed at chunk 3) on the card and on the CPU from the
+    same CPU state each chunk: equal counts and ids, every state field
+    within 1e-4, the card's state on the card."""
+    from asr2pass_tpu_torch.config import paraformer_tiny
+    from asr2pass_tpu_torch.models import paraformer, paraformer_online
+
+    cfg = paraformer_tiny()
+    model = paraformer.init(cfg, torch.Generator().manual_seed(1), "cpu")
+    cuda_model = paraformer.from_state_dict(model.state_dict(), cfg, dev)
+    rng = np.random.default_rng(1)
+    state = paraformer_online.init_state(model, cfg, 2)
+    for i, (counts, fin) in enumerate([([10, 10], [False, False]),
+                                       ([10, 6], [False, True]),
+                                       ([10, 10], [False, False]),
+                                       ([4, 10], [True, False])]):
+        feats = torch.from_numpy(rng.standard_normal(
+            (2, 10, 560)).astype(np.float32))
+        counts = torch.tensor(counts, dtype=torch.int32)
+        fin = torch.tensor(fin)
+        gs, gids, gn = paraformer_online.step(
+            cuda_model, cfg, paraformer_online.OnlineState(
+                *(x.to(dev) for x in state)),
+            feats.to(dev), counts.to(dev), fin.to(dev))
+        state, ids, n = paraformer_online.step(model, cfg, state, feats,
+                                               counts, fin)
+        assert all(_tree_on(x, "cuda") for x in gs)
+        assert torch.equal(gn.cpu(), n)
+        for b, k in enumerate(n.tolist()):
+            assert torch.equal(gids[b, :k].cpu(), ids[b, :k])
+        for a, r in zip(gs, state):
+            torch.testing.assert_close(a.cpu(), r, rtol=1e-4, atol=1e-4)
+
+
+def test_fsmn_vad_card_matches_cpu(dev):
+    """fsmn_vad.apply at vad_default's widths with caches and valid_len
+    on the card and on the CPU."""
+    from asr2pass_tpu_torch.config import vad_default
+    from asr2pass_tpu_torch.models import fsmn_vad
+
+    cfg = vad_default()
+    model = fsmn_vad.init(cfg, torch.Generator().manual_seed(2), "cpu")
+    cuda_model = fsmn_vad.from_state_dict(model.state_dict(), cfg, dev)
+    feats = torch.from_numpy(np.random.default_rng(2).standard_normal(
+        (3, 25, 400)).astype(np.float32))
+    lens = torch.tensor([25, 11, 0])
+    caches = [torch.randn(3, 19, 128, generator=torch.Generator()
+                          .manual_seed(k)) for k in range(4)]
+    with torch.inference_mode():
+        gp, gc = fsmn_vad.apply(cuda_model, feats.to(dev),
+                                [c.to(dev) for c in caches], lens.to(dev))
+        p, c = fsmn_vad.apply(model, feats, caches, lens)
+    torch.testing.assert_close(gp.cpu(), p, rtol=1e-5, atol=1e-5)
+    for a, r in zip(gc, c):
+        torch.testing.assert_close(a.cpu(), r, rtol=1e-5, atol=1e-5)
+
+
+def test_two_pass_session_lives_on_the_card(dev):
+    """A TwoPassSession built with the default device: every model and
+    state tensor on the card, before and after a few messages."""
+    import dataclasses
+
+    from asr2pass_tpu_torch.config import (paraformer_tiny, punc_tiny,
+                                           vad_default)
+    from asr2pass_tpu_torch.models import ct_transformer, fsmn_vad, paraformer
+    from asr2pass_tpu_torch.runtime.asr_stream import ParaformerOnlineStream
+    from asr2pass_tpu_torch.runtime.offline_asr import ParaformerOffline
+    from asr2pass_tpu_torch.runtime.punc import Punctuator
+    from asr2pass_tpu_torch.runtime.two_pass import TwoPassSession
+    from asr2pass_tpu_torch.runtime.vad_stream import FsmnVadStream
+    from asr2pass_tpu_torch.text.punc_tokenizer import PuncTokenizer
+    from asr2pass_tpu_torch.text.vocab import Vocab
+
+    cfg = paraformer_tiny()
+    vocab = Vocab(["<blank>", "<s>", "</s>", "<unk>"]
+                  + [chr(0x4E00 + i) for i in range(cfg.vocab_size - 4)])
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    vcfg = dataclasses.replace(vad_default(), decibel_thres=-30.0)
+    pcfg = punc_tiny(300)
+    sess = TwoPassSession(
+        FsmnVadStream(fsmn_vad.init(vcfg, gen), vcfg),
+        ParaformerOnlineStream(paraformer.init(cfg, gen), cfg, vocab),
+        ParaformerOffline(paraformer.init(cfg, gen), cfg, vocab),
+        punc=Punctuator(ct_transformer.init(pcfg, gen), pcfg,
+                        PuncTokenizer(["<blank>", "<unk>"] + [
+                            chr(0x4E00 + i) for i in range(298)])))
+
+    def tensors():
+        yield from sess.vad.caches
+        yield from sess.online_asr.state
+        for m in (sess.vad.params, sess.online_asr.params,
+                  sess.offline_asr.model, sess.punc.params):
+            yield from m.parameters()
+
+    assert all(_tree_on(x, "cuda") for x in tensors())
+    rng = np.random.default_rng(3)
+    wave = np.concatenate([np.zeros(8000), 0.2 * np.sin(
+        np.arange(30000) * 0.07) + 0.02 * rng.standard_normal(30000),
+        np.zeros(20000)]).astype(np.float32)
+    for a in range(0, len(wave), 9600):
+        sess.feed(wave[a: a + 9600], is_final=False)
+        assert all(_tree_on(x, "cuda") for x in tensors())
+    sess.feed(np.zeros(0, np.float32), is_final=True)

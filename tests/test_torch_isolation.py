@@ -72,31 +72,60 @@ def test_no_jax_import_in_source(path):
 
 
 def _entry_points():
-    from asr2pass_tpu_torch.config import FrontendConfig, paraformer_tiny
-    from asr2pass_tpu_torch.models import paraformer
+    from asr2pass_tpu_torch.config import (FrontendConfig, paraformer_tiny,
+                                           punc_tiny, vad_default)
+    from asr2pass_tpu_torch.models import ct_transformer, fsmn_vad, paraformer
     from asr2pass_tpu_torch.runtime import streaming_frontend as sf
+    from asr2pass_tpu_torch.runtime.asr_stream import ParaformerOnlineStream
     from asr2pass_tpu_torch.runtime.offline_asr import ParaformerOffline
+    from asr2pass_tpu_torch.runtime.punc import Punctuator
+    from asr2pass_tpu_torch.runtime.vad_stream import (FsmnVadStream,
+                                                       vad_segments_offline)
+    from asr2pass_tpu_torch.text.punc_tokenizer import PuncTokenizer
     from asr2pass_tpu_torch.text.vocab import Vocab
 
-    cfg = paraformer_tiny()
+    cfg, vcfg, pcfg = paraformer_tiny(), vad_default(), punc_tiny()
     sd = paraformer.init(cfg, device="cpu").state_dict()
+    vsd = fsmn_vad.init(vcfg, device="cpu").state_dict()
+    psd = ct_transformer.init(pcfg, device="cpu").state_dict()
+    vocab = Vocab(["a"] * cfg.vocab_size)
     wave = np.zeros(4000, np.float32)
     return {
         "init": lambda **kw: paraformer.init(cfg, **kw),
         "from_state_dict": lambda **kw: paraformer.from_state_dict(
             sd, cfg, **kw),
         "ParaformerOffline": lambda **kw: ParaformerOffline(
-            sd, cfg, Vocab(["a"] * cfg.vocab_size), **kw),
+            sd, cfg, vocab, **kw),
         "offline_frontend": lambda **kw: sf.offline_frontend(
             wave, FrontendConfig(), **kw),
         "offline_frontend_device": lambda **kw: sf.offline_frontend_device(
             [wave], [23], 64, FrontendConfig(), **kw),
+        "StreamingFrontend": lambda **kw: sf.StreamingFrontend(
+            FrontendConfig(), **kw),
+        "ParaformerOnlineStream": lambda **kw: ParaformerOnlineStream(
+            sd, cfg, vocab, **kw),
+        "fsmn_vad.init": lambda **kw: fsmn_vad.init(vcfg, **kw),
+        "fsmn_vad.from_state_dict": lambda **kw: fsmn_vad.from_state_dict(
+            vsd, vcfg, **kw),
+        "fsmn_vad.init_caches": lambda **kw: fsmn_vad.init_caches(
+            vcfg, 1, **kw),
+        "FsmnVadStream": lambda **kw: FsmnVadStream(vsd, vcfg, **kw),
+        "vad_segments_offline": lambda **kw: vad_segments_offline(
+            vsd, vcfg, wave, **kw),
+        "ct_transformer.init": lambda **kw: ct_transformer.init(pcfg, **kw),
+        "ct_transformer.from_state_dict":
+            lambda **kw: ct_transformer.from_state_dict(psd, pcfg, **kw),
+        "Punctuator": lambda **kw: Punctuator(
+            psd, pcfg, PuncTokenizer(["a"] * pcfg.vocab_size), **kw),
     }
 
 
-@pytest.mark.parametrize("name", ["init", "from_state_dict",
-                                  "ParaformerOffline", "offline_frontend",
-                                  "offline_frontend_device"])
+@pytest.mark.parametrize("name", [
+    "init", "from_state_dict", "ParaformerOffline", "offline_frontend",
+    "offline_frontend_device", "StreamingFrontend",
+    "ParaformerOnlineStream", "fsmn_vad.init", "fsmn_vad.from_state_dict",
+    "fsmn_vad.init_caches", "FsmnVadStream", "vad_segments_offline",
+    "ct_transformer.init", "ct_transformer.from_state_dict", "Punctuator"])
 def test_entry_points_default_to_the_card(name):
     """Without device="cpu" an entry point asks for CUDA, and on a machine
     without it raises instead of running on the CPU."""

@@ -185,13 +185,16 @@ def test_fire_is_exact(max_tokens):
     """Identical alphas give identical fires, counts and packed frames,
     including fires past max_tokens sent to the guard slot (5)."""
     alphas, hidden = _alphas(3)
-    jf, jc, jfi, _ = jcif.fire(jnp.asarray(hidden), jnp.asarray(alphas), 1.0,
-                               max_tokens=max_tokens)
-    tf, tc, tfi = tcif.fire(t(hidden), t(alphas), 1.0,
-                            max_tokens=max_tokens)
+    jf, jc, jfi, js = jcif.fire(jnp.asarray(hidden), jnp.asarray(alphas),
+                                1.0, max_tokens=max_tokens)
+    tf, tc, tfi, ts = tcif.fire(t(hidden), t(alphas), 1.0,
+                                max_tokens=max_tokens)
     np.testing.assert_array_equal(tfi.numpy(), np.asarray(jfi))
     np.testing.assert_array_equal(tc.numpy(), np.asarray(jc))
     np.testing.assert_array_equal(tf.numpy(), np.asarray(jf))
+    np.testing.assert_array_equal(ts.integrate.numpy(),
+                                  np.asarray(js.integrate))
+    np.testing.assert_array_equal(ts.frame.numpy(), np.asarray(js.frame))
     if max_tokens == 5:
         assert (tc.numpy() == 5).all()
 

@@ -229,6 +229,7 @@ def test_port_init_shapes_match_jax_init():
     ("paraformer_large", dict(timestamp=True, hotword=True)),
     ("paraformer_large", {}),
     ("paraformer_tiny", {}),
+    ("paraformer_large_online", {}),
 ])
 def test_config_presets_are_copies(preset):
     name, kw = preset

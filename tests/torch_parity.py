@@ -55,3 +55,22 @@ def t(x):
 def ragged_mask(lens, t_max: int) -> np.ndarray:
     return (np.arange(t_max)[None, :]
             < np.asarray(lens)[:, None]).astype(np.float32)
+
+
+def bursty(pattern, seed: int) -> np.ndarray:
+    """16 kHz audio from (seconds, loud) pairs: digital silence, or a
+    speech-like burst (a tone under a 4 Hz envelope, plus noise) that the
+    VAD's energy gate (decibel_thres -30 dB) reads as speech."""
+    rng = np.random.default_rng(seed)
+    parts = []
+    for sec, loud in pattern:
+        n = int(sec * 16000)
+        if not loud:
+            parts.append(np.zeros(n, np.float32))
+            continue
+        tt = np.arange(n) / 16000
+        x = (0.2 * np.sin(2 * np.pi * rng.uniform(120, 250) * tt)
+             * 0.5 * (1 + np.sin(2 * np.pi * 4 * tt))
+             + 0.02 * rng.standard_normal(n))
+        parts.append(x.astype(np.float32))
+    return np.concatenate(parts)
