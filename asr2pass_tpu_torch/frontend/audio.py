@@ -1,12 +1,17 @@
-"""Audio IO helpers (port copy): WAV parsing, PCM quantization and the
-kaldi-nnet am.mvn CMVN file.
+"""Audio IO helpers (port copy): WAV/PCM parsing, PCM quantization,
+ffmpeg decoding, resampling and the kaldi-nnet am.mvn CMVN file.
 
 Counterpart of asr2pass_tpu/frontend/audio.py (load_wav_bytes,
-quantize_pcm, parse_kaldi_cmvn, write_kaldi_cmvn); pure numpy.
+load_pcm_bytes, quantize_pcm, ffmpeg_decode, load_audio_file,
+linear_resample, parse_kaldi_cmvn, write_kaldi_cmvn); pure numpy. The
+resampler is the numpy path only: the native C++ branch comes with the
+native bindings.
 """
 from __future__ import annotations
 
 import io
+import shutil
+import subprocess
 import wave
 from typing import Tuple
 
@@ -38,6 +43,12 @@ def load_wav_bytes(data: bytes) -> Tuple[np.ndarray, int]:
     return x, fs
 
 
+def load_pcm_bytes(data: bytes) -> np.ndarray:
+    """s16le PCM bytes -> float32 waveform in [-1,1] (audio.cpp s16->f32)."""
+    n = len(data) // 2 * 2
+    return np.frombuffer(data[:n], dtype="<i2").astype(np.float32) / 32768.0
+
+
 def quantize_pcm(x) -> np.ndarray:
     """Snap a float waveform to the 16-bit PCM grid (k/32768).
 
@@ -48,6 +59,97 @@ def quantize_pcm(x) -> np.ndarray:
     bit-identical to the float reference paths."""
     x = np.asarray(x, np.float32)
     return np.clip(np.round(x * 32768.0), -32768, 32767) / np.float32(32768.0)
+
+
+def ffmpeg_decode(path_or_bytes, fs: int = 16000) -> np.ndarray:
+    """Any-format decode via the ffmpeg CLI to mono s16 at `fs`
+    (equivalent of audio.cpp:286-446 FfmpegLoad)."""
+    if shutil.which("ffmpeg") is None:
+        raise RuntimeError("ffmpeg not available")
+    if isinstance(path_or_bytes, (bytes, bytearray)):
+        args = ["ffmpeg", "-nostdin", "-i", "pipe:0"]
+        inp = bytes(path_or_bytes)
+    else:
+        args = ["ffmpeg", "-nostdin", "-i", str(path_or_bytes)]
+        inp = None
+    args += ["-f", "s16le", "-acodec", "pcm_s16le", "-ac", "1",
+             "-ar", str(fs), "pipe:1"]
+    out = subprocess.run(args, input=inp, capture_output=True, check=True)
+    return load_pcm_bytes(out.stdout)
+
+
+def load_audio_file(path: str, fs: int = 16000) -> np.ndarray:
+    """Load a wav (native) or any other format (ffmpeg) as float32 @ fs."""
+    if str(path).endswith(".pcm"):
+        with open(path, "rb") as f:
+            return load_pcm_bytes(f.read())
+    if str(path).endswith(".wav"):
+        with open(path, "rb") as f:
+            x, in_fs = load_wav_bytes(f.read())
+        if in_fs != fs:
+            x = linear_resample(x, in_fs, fs)
+        return x
+    return ffmpeg_decode(path, fs)
+
+
+# ---------------------------------------------------------------------------
+# Linear (windowed-sinc) resampler — Kaldi LinearResample semantics
+# (onnxruntime/src/resample.cpp): cutoff = 0.99 * 0.5 * min(fs_in, fs_out),
+# num_zeros = 6, Hann-windowed sinc, output length = ceil(n * out/in) at the
+# sample instants t = k / fs_out.
+# ---------------------------------------------------------------------------
+
+def _hann_sinc_filter(t, cutoff, window_width):
+    """Windowed sinc h(t) evaluated at time offsets t (seconds)."""
+    t = np.asarray(t, dtype=np.float64)
+    inside = np.abs(t) < window_width
+    win = np.where(
+        inside, 0.5 * (1.0 + np.cos(np.pi * t / window_width)), 0.0
+    )
+    # sin(2 pi cutoff t) / (pi t), limit 2*cutoff at t=0
+    tiny = np.abs(t) < 1e-12
+    safe_t = np.where(tiny, 1.0, t)
+    sinc = np.where(
+        tiny, 2.0 * cutoff, np.sin(2 * np.pi * cutoff * safe_t) / (np.pi * safe_t)
+    )
+    return win * sinc
+
+
+def linear_resample(x: np.ndarray, fs_in: int, fs_out: int,
+                    num_zeros: int = 6) -> np.ndarray:
+    """Rational-rate windowed-sinc resampling of a whole utterance."""
+    if fs_in == fs_out:
+        return np.asarray(x, dtype=np.float32)
+    x = np.asarray(x, dtype=np.float64)
+    n_in = x.shape[0]
+    g = np.gcd(fs_in, fs_out)
+    cutoff = 0.99 * 0.5 * min(fs_in, fs_out)
+    window_width = num_zeros / (2.0 * cutoff)
+    n_out = int(np.ceil(n_in * fs_out / fs_in))
+    # phase structure: output sample k lands at t = k/fs_out; there are
+    # (fs_out/g) distinct phases relative to the input grid.
+    num_phases = fs_out // g
+    step_in = fs_in // g  # input samples advanced per full phase cycle
+    half_span = int(np.ceil(window_width * fs_in)) + 1
+    taps = np.arange(-half_span, half_span + 1)
+    # filters per phase
+    filters = np.zeros((num_phases, taps.size))
+    anchors = np.zeros(num_phases, dtype=np.int64)
+    for p in range(num_phases):
+        t_out = p / fs_out
+        center = int(np.floor(t_out * fs_in))
+        anchors[p] = center
+        t_taps = (center + taps) / fs_in - t_out
+        filters[p] = _hann_sinc_filter(t_taps, cutoff, window_width) / fs_in
+    xp = np.pad(x, (half_span, half_span + step_in + 1))
+    ks = np.arange(n_out)
+    cycle = ks // num_phases
+    phase = ks % num_phases
+    base = cycle * step_in + anchors[phase] + half_span  # padded index
+    # gather windows: [n_out, taps]
+    idx = base[:, None] + taps[None, :]
+    out = np.einsum("nt,nt->n", xp[idx], filters[phase])
+    return out.astype(np.float32)
 
 
 def parse_kaldi_cmvn(path: str) -> Tuple[np.ndarray, np.ndarray]:

@@ -1,7 +1,8 @@
 """Offline (pass-2) recognizer: samples -> text (+ timestamps).
 
 Counterpart of asr2pass_tpu/runtime/offline_asr.py (ParaformerOffline:
-recognize_batch = dispatch_batch + fetch + finish_batch), without the LM
+recognize_batch = dispatch_batch + one fetch + finish_batch, with the
+engine's feats_override), without the LM
 rescoring, sequence-parallel and per-item hotword-batching branches,
 which come with later slices. Segments are grouped by feature-length
 bucket and run as true batches: front-end on the device, one forward,
@@ -28,7 +29,7 @@ from asr2pass_tpu_torch.models import paraformer
 from asr2pass_tpu_torch.runtime.streaming_frontend import offline_frontend_device
 from asr2pass_tpu_torch.text import timestamps as ts_mod
 from asr2pass_tpu_torch.text.vocab import Vocab
-from asr2pass_tpu_torch.utils import fp32_products, resolve_device
+from asr2pass_tpu_torch.utils import fp32_products, resolve_device, to_host
 
 # feature-length buckets (LFR frames, 60 ms each): 3.8 s .. 61 s; longer
 # segments round up to a multiple of the last bucket
@@ -89,20 +90,27 @@ class ParaformerOffline:
             hw, hw_mask, max_tokens=t // 2 + 8)
 
     def recognize_batch(self, segments: List[np.ndarray],
-                        hw_emb: Optional[np.ndarray] = None
+                        hw_emb: Optional[np.ndarray] = None,
+                        feats_override=None
                         ) -> List[Tuple[str, List[List[float]]]]:
         """Batch of raw-sample segments -> [(text, token_timestamps_s)].
         hw_emb: compiled hotword embeddings [N, D] shared by all segments
-        (used when the model has the hotword block)."""
-        pending, handles = self.dispatch_batch(segments, hw_emb=hw_emb)
-        fetched = [h.cpu().numpy() for h in handles]
-        return self.finish_batch(pending, fetched)
+        (used when the model has the hotword block). feats_override: see
+        dispatch_batch. All outputs come back in one copy."""
+        pending, handles = self.dispatch_batch(
+            segments, hw_emb=hw_emb, feats_override=feats_override)
+        return self.finish_batch(pending, to_host(handles))
 
     @torch.inference_mode()
     def dispatch_batch(self, segments: List[np.ndarray],
-                       hw_emb: Optional[np.ndarray] = None):
+                       hw_emb: Optional[np.ndarray] = None,
+                       feats_override=None):
         """Phase A: front-end and forward on the device. Returns (pending,
-        handles): `handles` are the device tensors finish_batch needs."""
+        handles): `handles` are the device tensors finish_batch needs.
+        feats_override(idxs, bucket, bb), when given, supplies a chunk's
+        device feats (the engine's pass-2 lane gathers them from its
+        device audio ring); where it returns None the segments' samples
+        are uploaded."""
         means, vars_ = self.cmvn
         fcfg = self.cfg.frontend
         bufs = [np.asarray(s, np.float32) for s in segments]
@@ -127,9 +135,12 @@ class ParaformerOffline:
             lens = [0] * bb   # padded rows have length 0 (mask empty)
             for k, i in enumerate(idxs):
                 lens[k] = t_lfrs[i]
-            feats = offline_frontend_device(
-                [bufs[i] for i in idxs], [ns[i] for i in idxs], bucket,
-                fcfg, means, vars_, batch_b=bb, device=self.device)
+            feats = (feats_override(idxs, bucket, bb)
+                     if feats_override is not None else None)
+            if feats is None:
+                feats = offline_frontend_device(
+                    [bufs[i] for i in idxs], [ns[i] for i in idxs], bucket,
+                    fcfg, means, vars_, batch_b=bb, device=self.device)
             out = self._forward(feats, lens, hw_emb)
             ids, counts = paraformer.greedy_ids(out)
             hlist = [ids, counts]

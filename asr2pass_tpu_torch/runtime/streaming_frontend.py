@@ -5,7 +5,8 @@ Counterpart of asr2pass_tpu/runtime/streaming_frontend.py:
 StreamingFrontend (chunk-incremental, with exact offline parity),
 offline_window_samples, the fused device front-end _frontend_feats /
 offline_frontend_device (int16 upload, then fbank, LFR and CMVN on the
-card) and the one-shot reference offline_frontend.
+card), its ring variant ring_frontend_device (the engine's pass-2 lane)
+and the one-shot reference offline_frontend.
 
 StreamingFrontend keeps one invariant: the concatenation of its outputs
 equals the offline front-end run on the same audio. Its state is the
@@ -25,7 +26,7 @@ from asr2pass_tpu_torch.config import FrontendConfig
 from asr2pass_tpu_torch.frontend.audio import quantize_pcm
 from asr2pass_tpu_torch.frontend.fbank import get_extractor, num_frames
 from asr2pass_tpu_torch.frontend.lfr import apply_cmvn, apply_lfr
-from asr2pass_tpu_torch.utils import resolve_device
+from asr2pass_tpu_torch.utils import resolve_device, to_device
 
 
 _BUCKET = 25  # fbank frames per chunk bucket (250 ms)
@@ -194,6 +195,39 @@ def offline_frontend_device(bufs, ns, lfr_bucket: int, cfg: FrontendConfig,
     return _frontend_feats(
         get_extractor(cfg), cfg, batch_b, lfr_bucket,
         torch.from_numpy(waves).to(dev), torch.from_numpy(n_mel).to(dev),
+        torch.as_tensor(np.asarray(means, np.float32), device=dev),
+        torch.as_tensor(np.asarray(vars_, np.float32), device=dev))
+
+
+def ring_frontend_device(ring, slot_ids, abs_starts, ns, lfr_bucket: int,
+                         cfg: FrontendConfig, means=None, vars_=None,
+                         batch_b: int = None):
+    """Device feats for segments that still live in the engine's per-slot
+    int16 audio ring [C, R] (written once a tick by the fused VAD step):
+    each segment's window is gathered there with modular indices, so the
+    pass-2 lane uploads no audio, then the same _frontend_feats tail as
+    offline_frontend_device runs. Rows past len(slot_ids) up to batch_b
+    are padding (slot 0 from offset 0, n_mel 0). Returns None when the
+    window does not fit the ring (the caller takes the upload path)."""
+    dev = ring.device
+    if batch_b is None:
+        batch_b = len(slot_ids)
+    r = ring.shape[1]
+    need = offline_window_samples(cfg, lfr_bucket)
+    if need > r:
+        return None
+    idx = np.zeros((3, batch_b), np.int64)
+    for i, (sid, a, nf) in enumerate(zip(slot_ids, abs_starts, ns)):
+        idx[:, i] = (sid, a % r, nf)
+    sl, off, n_mel = to_device(dev, idx)
+    cols = (off[:, None] + torch.arange(need, device=dev)[None, :]) % r
+    win = ring[sl[:, None], cols]
+    if means is None:
+        means = np.zeros(cfg.lfr_dim, np.float32)
+    if vars_ is None:
+        vars_ = np.ones(cfg.lfr_dim, np.float32)
+    return _frontend_feats(
+        get_extractor(cfg), cfg, batch_b, lfr_bucket, win, n_mel,
         torch.as_tensor(np.asarray(means, np.float32), device=dev),
         torch.as_tensor(np.asarray(vars_, np.float32), device=dev))
 

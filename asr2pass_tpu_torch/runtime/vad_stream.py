@@ -23,6 +23,33 @@ from asr2pass_tpu_torch.vad.e2e_vad import E2EVadStateMachine, VadOptions
 _BUCKET = 25
 
 
+def vad_options(cfg: VadConfig, sil_pdf_ids=None) -> VadOptions:
+    """The decision automaton's options from a VAD config (its
+    model_conf). sil_pdf_ids overrides the config's: the engine hands the
+    automaton one column, the silence posterior already summed on the
+    device, so it passes (0,)."""
+    return VadOptions(
+        sample_rate=cfg.sample_rate,
+        max_end_silence_time=cfg.max_end_silence_time,
+        max_start_silence_time=cfg.max_start_silence_time,
+        window_size_ms=cfg.window_size_ms,
+        sil_to_speech_time_thres=cfg.sil_to_speech_time_thres,
+        speech_to_sil_time_thres=cfg.speech_to_sil_time_thres,
+        speech_2_noise_ratio=cfg.speech_2_noise_ratio,
+        do_extend=cfg.do_extend,
+        lookback_time_start_point=cfg.lookback_time_start_point,
+        lookahead_time_end_point=cfg.lookahead_time_end_point,
+        max_single_segment_time=cfg.max_single_segment_time,
+        snr_thres=cfg.snr_thres,
+        decibel_thres=cfg.decibel_thres,
+        speech_noise_thres=cfg.speech_noise_thres,
+        sil_pdf_ids=tuple(cfg.sil_pdf_ids if sil_pdf_ids is None
+                          else sil_pdf_ids),
+        frame_in_ms=cfg.frame_in_ms,
+        frame_length_ms=cfg.frame_length_ms,
+    )
+
+
 class FsmnVadStream:
     """One stream's VAD state; `accept` returns the newly decided
     segments in ms ([s,e] / [s,-1] / [-1,e] online). params: an FsmnVad
@@ -46,26 +73,7 @@ class FsmnVadStream:
         self.frontend = StreamingFrontend(cfg.frontend, means, vars_,
                                           device=self.device)
         self.caches = fsmn_vad.init_caches(cfg, 1, self.device)
-        opts = VadOptions(
-            sample_rate=cfg.sample_rate,
-            max_end_silence_time=cfg.max_end_silence_time,
-            max_start_silence_time=cfg.max_start_silence_time,
-            window_size_ms=cfg.window_size_ms,
-            sil_to_speech_time_thres=cfg.sil_to_speech_time_thres,
-            speech_to_sil_time_thres=cfg.speech_to_sil_time_thres,
-            speech_2_noise_ratio=cfg.speech_2_noise_ratio,
-            do_extend=cfg.do_extend,
-            lookback_time_start_point=cfg.lookback_time_start_point,
-            lookahead_time_end_point=cfg.lookahead_time_end_point,
-            max_single_segment_time=cfg.max_single_segment_time,
-            snr_thres=cfg.snr_thres,
-            decibel_thres=cfg.decibel_thres,
-            speech_noise_thres=cfg.speech_noise_thres,
-            sil_pdf_ids=tuple(cfg.sil_pdf_ids),
-            frame_in_ms=cfg.frame_in_ms,
-            frame_length_ms=cfg.frame_length_ms,
-        )
-        self.sm = E2EVadStateMachine(opts)
+        self.sm = E2EVadStateMachine(vad_options(cfg))
         self.max_end_sil = (max_end_sil if max_end_sil is not None
                             else cfg.max_end_silence_time)
         self.max_single_segment = (max_single_segment

@@ -1,0 +1,137 @@
+"""Launch the websocket ASR server from model directories.
+
+    python -m asr2pass_tpu_torch.server.run_server --model-dir DIR \\
+        --online-model-dir DIR --vad-dir DIR --punc-dir DIR --engine
+    python -m asr2pass_tpu_torch.server.run_server --demo --device cpu
+
+Counterpart of scripts/run_server.py (the role of
+funasr-wss-server-2pass.cpp main), with the flags whose modules are
+ported. The model directories are the ones both packages read and write
+(runtime/model_zoo.py). --demo builds random tiny models (protocol and
+load testing without trained weights). The models run on --device:
+cuda (the default), cuda:N, or cpu for the plain PyTorch path.
+"""
+from __future__ import annotations
+
+import argparse
+import logging
+import ssl
+
+
+def parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(
+        prog="python -m asr2pass_tpu_torch.server.run_server")
+    p.add_argument("--model-dir", help="offline (pass-2) model directory")
+    p.add_argument("--online-model-dir", help="streaming model directory")
+    p.add_argument("--vad-dir", help="VAD model directory")
+    p.add_argument("--punc-dir", help="punctuation model directory")
+    p.add_argument("--itn", action=argparse.BooleanOptionalAction,
+                   default=True,
+                   help="rule-based Chinese ITN on finals (default on, like "
+                        "the reference's 2pass launch scripts)")
+    p.add_argument("--host", default="0.0.0.0")
+    p.add_argument("--port", type=int, default=10095)
+    p.add_argument("--decode-workers", type=int, default=1)
+    p.add_argument("--engine", action="store_true",
+                   help="batched StreamEngine serving (one batched step "
+                        "advances all connections)")
+    p.add_argument("--engine-capacity", type=int, default=128)
+    p.add_argument("--upload-overlap", action="store_true",
+                   help="engine mode: stage and upload the next tick's "
+                        "audio on a lane during the tick's fetch")
+    p.add_argument("--decide-async", action="store_true",
+                   help="engine mode: VAD automaton and splitter on the "
+                        "decide lane")
+    p.add_argument("--max-message-mb", type=int, default=16,
+                   help="max websocket frame size (MB)")
+    p.add_argument("--max-upload-mb", type=int, default=256,
+                   help="max per-connection offline upload size (MB)")
+    p.add_argument("--certfile", default="")
+    p.add_argument("--keyfile", default="")
+    p.add_argument("--demo", action="store_true",
+                   help="random tiny models (protocol testing)")
+    p.add_argument("--device", default="cuda",
+                   help="cuda (default), cuda:N or cpu")
+    return p
+
+
+def build_models(args):
+    """ServerModels from the parsed flags (model directories, or the demo
+    models), on args.device."""
+    from asr2pass_tpu_torch.server.engine import ServerModels
+
+    if args.demo:
+        import torch
+
+        from asr2pass_tpu_torch.config import (VadConfig, paraformer_tiny,
+                                               punc_tiny)
+        from asr2pass_tpu_torch.models import (ct_transformer, fsmn_vad,
+                                               paraformer)
+        from asr2pass_tpu_torch.text.punc_tokenizer import PuncTokenizer
+        from asr2pass_tpu_torch.text.vocab import make_test_vocab
+
+        gen = torch.Generator().manual_seed(0)
+        acfg, vcfg, pcfg = paraformer_tiny(), VadConfig(), punc_tiny(300)
+        models = ServerModels(
+            asr_params=paraformer.init(acfg, gen, "cpu"), asr_cfg=acfg,
+            vocab=make_test_vocab(acfg.vocab_size),
+            vad_params=fsmn_vad.init(vcfg, gen, "cpu"), vad_cfg=vcfg,
+            punc_params=ct_transformer.init(pcfg, gen, "cpu"),
+            punc_cfg=pcfg,
+            punc_tokenizer=PuncTokenizer(
+                ["<blank>", "<unk>"]
+                + [chr(0x4E00 + i) for i in range(200)]),
+            device=args.device)
+    else:
+        from asr2pass_tpu_torch.runtime import model_zoo
+
+        if not args.model_dir:
+            raise SystemExit("--model-dir required (or --demo)")
+        b = model_zoo.load_offline_bundle(args.model_dir)
+        kw = {}
+        if args.online_model_dir:
+            ob = model_zoo.load_offline_bundle(args.online_model_dir)
+            kw.update(online_params=ob.params, online_cfg=ob.cfg)
+        if args.vad_dir:
+            vad_sd, vad_cfg, vad_cmvn = model_zoo.load_vad_dir(args.vad_dir)
+            kw.update(vad_params=vad_sd, vad_cfg=vad_cfg,
+                      vad_cmvn=vad_cmvn)
+        if args.punc_dir:
+            punc_sd, punc_cfg, punc_tok = model_zoo.load_punc_dir(
+                args.punc_dir)
+            kw.update(punc_params=punc_sd, punc_cfg=punc_cfg,
+                      punc_tokenizer=punc_tok)
+        models = ServerModels(
+            asr_params=b.params, asr_cfg=b.cfg, vocab=b.vocab,
+            asr_cmvn=b.cmvn,
+            device=args.device, **kw)
+    if args.itn:
+        from asr2pass_tpu_torch.text.itn import ChineseITN
+
+        models.itn = ChineseITN()
+    return models
+
+
+def main(argv=None):
+    args = parser().parse_args(argv)
+    logging.basicConfig(level=logging.INFO)
+    models = build_models(args)
+    ssl_ctx = None
+    if args.certfile:
+        ssl_ctx = ssl.SSLContext(ssl.PROTOCOL_TLS_SERVER)
+        ssl_ctx.load_cert_chain(args.certfile, args.keyfile or None)
+
+    from asr2pass_tpu_torch.server.ws_server import AsrWsServer
+
+    AsrWsServer(models, host=args.host, port=args.port,
+                decode_workers=args.decode_workers,
+                ssl_context=ssl_ctx, use_engine=args.engine,
+                engine_capacity=args.engine_capacity,
+                upload_overlap=args.upload_overlap,
+                decide_async=args.decide_async,
+                max_message_bytes=args.max_message_mb << 20,
+                max_upload_bytes=args.max_upload_mb << 20).run_forever()
+
+
+if __name__ == "__main__":
+    main()

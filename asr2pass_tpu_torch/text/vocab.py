@@ -100,3 +100,13 @@ class Vocab:
         timestamp aligner, paraformer.cpp:399-404)."""
         return self.ids_to_tokens(ids)
 
+
+def make_test_vocab(n: int = 64) -> Vocab:
+    """Deterministic vocab for unit tests and the launcher's demo mode:
+    specials + CJK block."""
+    tokens = ["<blank>", "<s>", "</s>", "<unk>"]
+    i = 0
+    while len(tokens) < n:
+        tokens.append(chr(0x4E00 + i))
+        i += 1
+    return Vocab(tokens)

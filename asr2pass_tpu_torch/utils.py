@@ -1,9 +1,10 @@
-"""Small shared utilities: device resolution, fp32 products and float
-casts."""
+"""Small shared utilities: device resolution, batched host-device
+copies, fp32 products and float casts."""
 from __future__ import annotations
 
-from typing import Mapping, Union
+from typing import List, Mapping, Sequence, Union
 
+import numpy as np
 import torch
 from torch import nn
 
@@ -19,6 +20,44 @@ def resolve_device(device: Union[str, torch.device, None] = "cuda"
             f"device {dev} requested but CUDA is not available; pass "
             "device='cpu' to run the plain PyTorch path on the CPU")
     return dev
+
+
+def to_device(device: torch.device, rows: np.ndarray) -> torch.Tensor:
+    """A small host int array [k, n] (per-slot counters, offsets) as int64
+    on `device` in one copy: pinned and asynchronous on the card, so the
+    upload waits for nothing queued before it. Rows unpack as tensors."""
+    t = torch.from_numpy(np.ascontiguousarray(rows, dtype=np.int64))
+    if device.type == "cuda":
+        return t.pin_memory().to(device, non_blocking=True)
+    return t
+
+
+def to_host(tensors: Sequence[torch.Tensor]) -> List[np.ndarray]:
+    """Several device tensors in ONE device-to-host copy (one
+    synchronisation): each is flattened to int32 (floats as float32 bit
+    patterns, integers and bools converted), all are concatenated,
+    copied, and split again on the host. Returns numpy arrays of the
+    tensors' shapes: float32 for floats, bool for bool, int32 otherwise
+    (token ids and counts, far below 2^31)."""
+    if not tensors:
+        return []
+    parts = []
+    for x in tensors:
+        if x.is_floating_point():
+            parts.append(x.float().reshape(-1).view(torch.int32))
+        else:
+            parts.append(x.reshape(-1).to(torch.int32))
+    flat = torch.cat(parts).cpu().numpy()
+    out, at = [], 0
+    for x in tensors:
+        a = flat[at: at + x.numel()]
+        at += x.numel()
+        if x.is_floating_point():
+            a = a.view(np.float32)
+        elif x.dtype == torch.bool:
+            a = a.astype(bool)
+        out.append(a.reshape(tuple(x.shape)))
+    return out
 
 
 def fp32_products() -> None:

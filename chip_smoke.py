@@ -51,9 +51,30 @@ Phases, each of which fails the run if it fails:
               segment. Prints pass-1/pass-2/VAD/punctuation latencies, the
               real-time factor, the batched pass-1 step at B = 1, 16, 64
               and a traced run of the session
+  8. server   the websocket server with the batched StreamEngine
+              (capacity 128), built by the launcher's build_models from
+              the phase-3 and phase-7 model dirs with ChineseITN, on a
+              real socket on 127.0.0.1, driven by the reference client's
+              messages (its first JSON, 9600-sample frames,
+              {"is_speaking": false}): 8a 64 connections paced at 600 ms
+              a frame, each two bursts of 9.5-13.5 s between 2-4 s of
+              digital silence; 8b 128 unpaced connections of ~20 s; 8c a
+              60 s offline upload; 8d a 10 s online stream. Gates: one
+              is_final per connection, last; one non-empty pass-2 result
+              per burst with timestamps in the reference schema inside
+              its VAD segment; partials; connection c0's VAD segments
+              equal a TwoPassSession's on the same chunks; the fp32
+              kernel launched 50 times per pass-2 forward at bucket 256
+              and nothing else; the offline result equal to
+              OfflineRecognizer.transcribe; online partials only; one
+              fused engine tick on the card and on the CPU. Prints tick,
+              partial and final latency, the pass-2 lane's batches,
+              audio-s/s, peak memory and a traced window of 10 ticks;
+              kernel #1 fp32 is timed at the lane's batch shape too
 
 Prints the card's name and power limit, one JSON line of kernel numbers
-({"kernels": [...]}), and as its last line
+({"kernels": [...]}, with each kernel's launches on the offline path, in
+the 2pass session and in the engine run), and as its last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 Exits non-zero, printing no result, without a CUDA device or outside a
 checkout. Imports nothing of JAX or of the JAX package.
@@ -125,6 +146,29 @@ VAD_START_TOL_MS = 300
 # the VAD's energy gate: digital silence reads -60 dB (10 log10 of the
 # 1e-6 floor), the bursts -14 dB at their quietest (the 0.01 noise floor)
 VAD_DECIBEL_THRES = -30.0
+# phase 8: the server. The reference client's first message
+# (tests/test_protocol_replay.py:63-82) and its 9600-sample frames
+# (chunk_size [5, 10, 5], chunk_interval 10); the launcher's default engine
+# capacity; 64 paced connections of two bursts each, 128 unpaced ones of
+# ~20 s with one burst, one 60 s offline upload, one 10 s online stream
+ENGINE_CAPACITY = 128
+PACED_CONNECTIONS = 64
+UNPACED_CONNECTIONS = 128
+UNPACED_SECONDS = 20.0
+ONLINE_SECONDS = 10.0
+PACE_S = 0.6
+VAD_TAIL_SIL_MS = 350
+TRACE_TICKS = 10
+
+
+def reference_first_message(mode: str, wav_name: str) -> str:
+    return json.dumps({
+        "mode": mode, "chunk_size": [5, 10, 5], "chunk_interval": 10,
+        "audio_fs": FS, "wav_name": wav_name, "wav_format": "pcm",
+        "is_speaking": True, "hotwords": json.dumps({"阿里巴巴": 20}),
+        "itn": True, "svs_itn": True, "vad_tail_sil": VAD_TAIL_SIL_MS,
+        "vad_max_len": 20000, "svs_lang": "auto",
+    })
 
 
 def fail(msg: str):
@@ -1124,6 +1168,536 @@ def two_pass_phase(model_dir: str, tmp: str, gen, card: str):
     return launches, numbers
 
 
+# ---------------------------------------------------------------------------
+# phase 8: the websocket server with the batched StreamEngine
+# ---------------------------------------------------------------------------
+
+def s16_bytes(wave) -> bytes:
+    import numpy as np
+
+    return np.clip(np.round(wave * 32768.0), -32768, 32767).astype(
+        "<i2").tobytes()
+
+
+def burst_stream(seed: int, n_bursts: int, total_s: float = None):
+    """Seeded client audio as phase 7 draws it: n_bursts speech-like
+    bursts of 9.5-13.5 s, each after 2-4 s of digital silence, then a
+    silent tail (2 s, or up to total_s). Returns (s16le bytes, burst spans
+    in ms)."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    parts, spans, at = [], [], 0
+    for k in range(n_bursts):
+        sil, sec = rng.uniform(2.0, 4.0), rng.uniform(9.5, 13.5)
+        parts += [np.zeros(int(sil * FS), np.float32),
+                  synth_audio(sec, seed * 10 + k)]
+        at += int(sil * FS)
+        spans.append((at * 1000 // FS, (at + int(sec * FS)) * 1000 // FS))
+        at += int(sec * FS)
+    tail = 2.0 if total_s is None else max(2.0, total_s - at / FS)
+    parts.append(np.zeros(int(tail * FS), np.float32))
+    return s16_bytes(np.concatenate(parts)), spans
+
+
+async def ws_client(port: int, name: str, data: bytes, mode: str,
+                    pace: float = None, delay: float = 0.0):
+    """The reference client's sequence for one connection: first message,
+    9600-sample frames (every `pace` s after `delay`, or as fast as the
+    server takes them), {"is_speaking": false}; messages are read as they
+    come until the final. Returns (frame send times, [(recv time, msg)])."""
+    import asyncio
+
+    import websockets
+
+    stride = 2 * MESSAGE
+    frames = [data[i: i + stride] for i in range(0, len(data), stride)]
+    sends, msgs = [], []
+    async with websockets.connect(f"ws://127.0.0.1:{port}",
+                                  max_size=1 << 30) as ws:
+        await ws.send(reference_first_message(mode, name))
+
+        async def reader():
+            while True:
+                m = json.loads(await ws.recv())
+                msgs.append((time.perf_counter(), m))
+                if m.get("is_final"):
+                    return
+
+        task = asyncio.create_task(reader())
+        await asyncio.sleep(delay)
+        t0 = time.perf_counter()
+        for k, f in enumerate(frames):
+            if pace:
+                await asyncio.sleep(max(0.0, t0 + k * pace
+                                        - time.perf_counter()))
+            await ws.send(f)
+            sends.append(time.perf_counter())
+        await ws.send(json.dumps({"is_speaking": False}))
+        await asyncio.wait_for(task, timeout=600)
+    return sends, msgs
+
+
+def check_stream(name, msgs, spans, segs, fcfg):
+    """Phase 8's per-connection gates: exactly one is_final, the last
+    message; one non-empty 2pass-offline result per burst, with timestamp
+    and stamp_sents in the reference schema and its times inside its VAD
+    segment; non-empty 2pass-online partials."""
+    ms = [m for _, m in msgs]
+    finals = [i for i, m in enumerate(ms) if m.get("is_final")]
+    if finals != [len(ms) - 1] or any(m["wav_name"] != name for m in ms):
+        fail(f"server: {name}: finals at {finals} of {len(ms)} messages")
+    offs = [m for m in ms if m["mode"] == "2pass-offline"]
+    if len(offs) != len(spans) or len(segs) != len(spans):
+        fail(f"server: {name}: {len(offs)} pass-2 results and {len(segs)} "
+             f"segments for {len(spans)} bursts")
+    for m, (g0, _g1, n) in zip(offs, segs):
+        n_mel = 1 + (n - fcfg.frame_length) // fcfg.frame_shift
+        end = g0 + -(-n_mel // fcfg.lfr_n) * fcfg.lfr_n * fcfg.frame_shift_ms
+        stamps = json.loads(m.get("timestamp", "[]"))
+        sents = m.get("stamp_sents")
+        if (not m["text"] or not stamps or not isinstance(sents, list)
+                or any(set(r) != {"text_seg", "punc", "start", "end",
+                                  "ts_list"} for r in sents)
+                or any(not (isinstance(b, int) and isinstance(e, int)
+                            and g0 <= b <= e <= end) for b, e in stamps)):
+            fail(f"server: {name}: pass-2 result {m} outside its segment "
+                 f"[{g0}, {end}] or not in the reference schema")
+    if not any(m["mode"] == "2pass-online" and m["text"] for m in ms):
+        fail(f"server: {name}: no 2pass-online partial")
+
+
+def server_latencies(sends, msgs, spans):
+    """(partial ms, final ms) of one paced connection: each frame inside a
+    burst to the next 2pass-online result; the frame that carries a
+    burst's end plus the VAD's tail silence to that burst's 2pass-offline
+    result."""
+    part = [t for t, m in msgs if m["mode"] == "2pass-online"]
+    fin = [t for t, m in msgs if m["mode"] == "2pass-offline"]
+    step_ms = MESSAGE * 1000 // FS
+    partial = []
+    for k, t in enumerate(sends):
+        if any(b0 <= k * step_ms and (k + 1) * step_ms <= b1
+               for b0, b1 in spans):
+            nxt = [r for r in part if r > t]
+            if nxt:
+                partial.append((nxt[0] - t) * 1e3)
+    final = []
+    for (_, b1), t_res in zip(spans, fin):
+        k = min((b1 + VAD_TAIL_SIL_MS) // step_ms, len(sends) - 1)
+        final.append((t_res - sends[k]) * 1e3)
+    return partial, final
+
+
+def engine_card_vs_cpu(models):
+    """One tick of the fused VAD step and of the fused pass-1 step at
+    capacity 4, full width, on the card and on the CPU with the same
+    inputs: silence posteriors and pass-1 logits within CPU_TOL of their
+    range, ids and counts equal, the int16 ring bit-equal."""
+    import numpy as np
+    import torch
+
+    from asr2pass_tpu_torch.frontend.fbank import num_frames
+    from asr2pass_tpu_torch.models import (fsmn_vad, paraformer,
+                                           paraformer_online, sanm_decoder)
+    from asr2pass_tpu_torch.runtime import engine as eng_mod
+
+    cap, ring = 4, eng_mod._RING_SAMPLES
+    vcfg, ocfg = models.vad_cfg, models.online_cfg or models.asr_cfg
+    oparams = (models.online_params if models.online_params is not None
+               else models.asr_params)
+    cpu = torch.device("cpu")
+    waves = np.stack([np.round(synth_audio(MESSAGE / FS, 300 + i) * 32767)
+                      .astype(np.int16) for i in range(cap)])
+    vf, af = vcfg.frontend, ocfg.frontend
+    nf = num_frames(MESSAGE, vf)
+    left = (vf.lfr_m - 1) // 2
+    k_vad = (nf - 1 - (vf.lfr_m - 1) + left) // vf.lfr_n + 1
+    # rows: n_new, win_start, total_new, k_emit, finals, ring_off, n_samp,
+    # win_off (a fresh slot's first 600 ms message)
+    vad_ints = np.zeros((8, cap), np.int64)
+    vad_ints[0], vad_ints[2], vad_ints[3], vad_ints[6] = nf, nf, k_vad, MESSAGE
+    na = num_frames(MESSAGE, af)
+    k_p1 = (na - 1 - (af.lfr_m - 1) + (af.lfr_m - 1) // 2) // af.lfr_n + 1
+    center = ocfg.chunk_size[1]
+    # rows: start_off, n_new, win_start, total_new, k_emit, fe_finals,
+    # ring_woff, consume_start, consume_count, finals
+    p1_ints = np.zeros((10, cap), np.int64)
+    p1_ints[1], p1_ints[3], p1_ints[4] = na, na, k_p1
+    p1_ints[8] = min(k_p1, center)
+    out = []
+    for dev in (cpu, torch.device("cuda")):
+        if dev.type == "cpu":
+            vad = fsmn_vad.from_state_dict(
+                {k: v.cpu() for k, v in models.vad_params.state_dict()
+                 .items()}, vcfg, "cpu")
+            online = paraformer.from_state_dict(
+                {k: v.cpu() for k, v in oparams.state_dict().items()},
+                ocfg, "cpu")
+        else:
+            vad, online = models.vad_params, oparams
+        vstep, _, max_new = eng_mod._fused_vad_step(
+            vf, cap, tuple(vcfg.sil_pdf_ids), ring, dev)
+        pstep, _, hist_n, ring_n, _ = eng_mod._fused_p1_step(ocfg, cap,
+                                                             ring, dev)
+        w = np.zeros((cap, max_new), np.int16)
+        w[:, :MESSAGE] = waves
+        ones = lambda d_: (torch.zeros(d_, device=dev),
+                           torch.ones(d_, device=dev))
+        with torch.inference_mode():
+            audio = torch.zeros(cap, ring, dtype=torch.int16, device=dev)
+            vi = torch.from_numpy(vad_ints).to(dev)
+            sil, _, _ = vstep(
+                vad, *ones(vf.lfr_dim), torch.from_numpy(w).to(dev),
+                vi[0], vi[1], vi[2], vi[3], vi[4],
+                torch.zeros(cap, vf.lfr_m - 1, vf.n_mels, device=dev),
+                fsmn_vad.init_caches(vcfg, cap, dev), audio, vi[5], vi[6],
+                vi[7])
+            logits = []
+            with wrapped(sanm_decoder, "apply_streaming",
+                         after(lambda o: logits.append(o[0]))):
+                _, ids, nums, _ = pstep(
+                    online, *ones(af.lfr_dim),
+                    paraformer_online.init_state(online, ocfg, cap), audio,
+                    *torch.from_numpy(p1_ints).to(dev),
+                    torch.zeros(cap, hist_n, af.n_mels, device=dev),
+                    torch.zeros(cap, ring_n, af.lfr_dim, device=dev))
+        out.append((sil[:, :k_vad].cpu(), audio.cpu(), ids.cpu(),
+                    nums.cpu(), logits[0].float().cpu()))
+    (s_c, r_c, i_c, n_c, l_c), (s_g, r_g, i_g, n_g, l_g) = out
+    sil_limit = CPU_TOL * max(1.0, s_c.abs().max().item())
+    sil_err = (s_g - s_c).abs().max().item()
+    logit_limit = CPU_TOL * max(1.0, l_c.abs().max().item())
+    same = torch.equal(n_g, n_c) and all(
+        torch.equal(i_g[b, :int(n_c[b])], i_c[b, :int(n_c[b])])
+        for b in range(cap))
+    logit_err = ((l_g - l_c).abs().max().item() if same else float("inf"))
+    print(f"server: card vs cpu, one fused tick at capacity {cap}: silence "
+          f"posteriors {sil_err:.3e} (limit {sil_limit:.3e}), ring equal "
+          f"{torch.equal(r_g, r_c)}; pass-1 counts {n_g.tolist()} / "
+          f"{n_c.tolist()}, logits {logit_err:.3e} (limit "
+          f"{logit_limit:.3e})", flush=True)
+    if not (sil_err <= sil_limit and torch.equal(r_g, r_c) and same
+            and logit_err <= logit_limit and int(n_c.sum()) > 0):
+        fail("server: the fused engine steps differ between card and CPU")
+    return {"engine_cpu_sil_max_abs_err": sil_err,
+            "engine_cpu_logits_max_abs_err": logit_err}
+
+
+def server_phase(model_dir: str, tmp: str, card: str):
+    """Phase 8: the port's websocket server with the batched engine,
+    launched through the launcher's build_models on the phase-3 and
+    phase-7 model dirs, driven by the reference client's messages.
+    Returns (engine-run launches by entry point and dtype, the pass-2
+    forward shapes, printed numbers)."""
+    import asyncio
+
+    import numpy as np
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from asr2pass_tpu_torch.frontend.audio import load_pcm_bytes
+    from asr2pass_tpu_torch.ops import attention as att
+    from asr2pass_tpu_torch.runtime.metrics import GLOBAL as METRICS
+    from asr2pass_tpu_torch.runtime.two_pass import TwoPassSession
+    from asr2pass_tpu_torch.runtime.vad_stream import FsmnVadStream
+    from asr2pass_tpu_torch.server.run_server import build_models, parser
+    from asr2pass_tpu_torch.server.ws_server import AsrWsServer
+    from asr2pass_tpu_torch.text.itn import ChineseITN
+
+    t0 = time.perf_counter()
+    args = parser().parse_args([
+        "--model-dir", model_dir,
+        "--online-model-dir", os.path.join(tmp, "online"),
+        "--vad-dir", os.path.join(tmp, "vad"),
+        "--punc-dir", os.path.join(tmp, "punc"),
+        "--engine", "--engine-capacity", str(ENGINE_CAPACITY),
+        "--host", "127.0.0.1", "--port", "0"])
+    models = build_models(args)
+    if not isinstance(models.itn, ChineseITN) or models.device.type != "cuda":
+        fail("server: build_models did not give ITN models on the card")
+    fcfg = models.asr_cfg.frontend
+    rec = {"ticks": [], "segs": {}, "lane": [], "fwd": [], "vad": []}
+    numbers = {"card": card}
+
+    async def main():
+        server = AsrWsServer(
+            models, host=args.host, port=args.port,
+            decode_workers=args.decode_workers, use_engine=args.engine,
+            engine_capacity=args.engine_capacity,
+            upload_overlap=args.upload_overlap,
+            decide_async=args.decide_async,
+            max_message_bytes=args.max_message_mb << 20,
+            max_upload_bytes=args.max_upload_mb << 20)
+        srv = await server.serve()
+        port = srv.sockets[0].getsockname()[1]
+        eng = server.engine
+        print(f"server: models loaded, engine capacity {eng.capacity} "
+              f"warmed, listening ({time.perf_counter() - t0:.1f} s)",
+              flush=True)
+
+        def conn_name(sid, slot):
+            conn = server._engine_conns.get(sid)
+            return (conn[1].wav_name if conn is not None
+                    and eng.slots[sid] is slot else None)
+
+        step = eng.step
+
+        def timed_step():
+            t1 = time.perf_counter()
+            step()
+            rec["ticks"].append(time.perf_counter() - t1)
+
+        process = eng._process_segments
+
+        def logged_segments(pairs, settled=None):
+            rec["lane"].append(len(pairs))
+            for sid, slot, fr in pairs:
+                rec["segs"].setdefault(conn_name(sid, slot), []).append(
+                    (fr.global_start, fr.global_end, len(fr.data)))
+            return process(pairs, settled)
+
+        forward = eng.offline.asr._forward
+
+        def logged_forward(feats, lengths, hw_emb=None):
+            rec["fwd"].append(tuple(feats.shape[:2]))
+            return forward(feats, lengths, hw_emb)
+
+        reset = eng._reset_slot
+
+        def recording_reset(sid):
+            # connection c0's automaton input and events, for the session
+            # comparison below
+            reset(sid)
+            slot = eng.slots[sid]
+            sm, name = slot.sm, []
+
+            def call(scores, samples, is_final=False, **kw):
+                ev = sm(scores, samples, is_final=is_final, **kw)
+                if not name:
+                    name.append(conn_name(sid, slot))
+                if name[0] == "c0":
+                    rec["vad"].append((samples.copy(), is_final, ev))
+                return ev
+
+            slot.sm = call
+
+        def print_stages(part):
+            st = {k: [v["p50_ms"], v["p95_ms"], v["count"]]
+                  for k, v in METRICS.report()["stages"].items()}
+            numbers[f"stages_{part.split()[0]}"] = st
+            print(f"server: {part} stages (p50, p95 ms, count) "
+                  f"{json.dumps(st)}", flush=True)
+
+        eng.step, eng._process_segments = timed_step, logged_segments
+        eng.offline.asr._forward, eng._reset_slot = (logged_forward,
+                                                     recording_reset)
+        try:
+            # -- 8a: 64 paced connections ----------------------------------
+            streams = [burst_stream(1000 + i, 2)
+                       for i in range(PACED_CONNECTIONS)]
+            METRICS.reset()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            att.reset_launch_counts()
+            prof = profile(activities=[ProfilerActivity.CUDA])
+            trace = {}
+
+            async def traced_window():
+                await asyncio.sleep(15.0)
+                n0 = len(rec["ticks"])
+                prof.start()
+                trace["t"] = time.perf_counter()
+                deadline = time.perf_counter() + 60
+                while (len(rec["ticks"]) < n0 + TRACE_TICKS
+                       and time.perf_counter() < deadline):
+                    await asyncio.sleep(0.01)
+                trace["wall_ms"] = (time.perf_counter() - trace["t"]) * 1e3
+                trace["ticks"] = len(rec["ticks"]) - n0
+                prof.stop()
+
+            t1 = time.perf_counter()
+            tracer = asyncio.create_task(traced_window())
+            paced = await asyncio.gather(*[
+                ws_client(port, f"c{i}", data, "2pass", PACE_S,
+                          i * PACE_S / PACED_CONNECTIONS)
+                for i, (data, _) in enumerate(streams)])
+            await tracer
+            numbers["paced_wall_s"] = time.perf_counter() - t1
+            launches = att.launch_counts_by_dtype()
+            numbers["paced_peak_mem_gib"] = (torch.cuda.max_memory_allocated()
+                                             / 2 ** 30)
+            ticks_a = list(rec["ticks"])
+            fwd_a = list(rec["fwd"])
+            lane_a = list(rec["lane"])
+            partial, final = [], []
+            for i, ((sends, msgs), (_, spans)) in enumerate(zip(paced,
+                                                                streams)):
+                check_stream(f"c{i}", msgs, spans, rec["segs"].get(f"c{i}",
+                                                                   []), fcfg)
+                p, f = server_latencies(sends, msgs, spans)
+                partial += p
+                final += f
+            numbers.update({
+                "tick_ms_p50": _pct([x * 1e3 for x in ticks_a], 50),
+                "tick_ms_p95": _pct([x * 1e3 for x in ticks_a], 95),
+                "ticks": len(ticks_a),
+                "partial_ms_p50": _pct(partial, 50),
+                "partial_ms_p95": _pct(partial, 95),
+                "final_ms_p50": _pct(final, 50),
+                "final_ms_p95": _pct(final, 95),
+                "pass2_lane_batches": lane_a,
+                "pass2_forwards": [list(s) for s in fwd_a],
+            })
+            print(f"server: 8a, {PACED_CONNECTIONS} paced 2pass "
+                  f"connections, {numbers['paced_wall_s']:.1f} s: tick "
+                  f"p50/p95 {numbers['tick_ms_p50']:.1f} / "
+                  f"{numbers['tick_ms_p95']:.1f} ms over {len(ticks_a)} "
+                  f"ticks; partial p50/p95 {numbers['partial_ms_p50']:.1f}"
+                  f" / {numbers['partial_ms_p95']:.1f} ms; final p50/p95 "
+                  f"{numbers['final_ms_p50']:.1f} / "
+                  f"{numbers['final_ms_p95']:.1f} ms; pass-2 lane batches "
+                  f"{lane_a}; forwards (B, T) {fwd_a}; peak memory "
+                  f"{numbers['paced_peak_mem_gib']:.2f} GiB", flush=True)
+            print_stages("8a")
+            # the engine's VAD against a TwoPassSession's on the card, on
+            # the chunks the engine staged for connection c0
+            events = [e for _, _, ev in rec["vad"] for e in ev]
+            sess_events = []
+            vad = FsmnVadStream(models.vad_params, models.vad_cfg,
+                                cmvn=models.vad_cmvn,
+                                max_end_sil=VAD_TAIL_SIL_MS,
+                                max_single_segment=20000)
+            with wrapped(vad, "accept", vad_events(sess_events)):
+                sess = TwoPassSession(vad, None, None, mode="2pass")
+                for samples, fin, _ in rec["vad"]:
+                    sess.feed(samples, fin)
+            eng_segs = closed_segments(events)
+            print(f"server: c0 VAD segments: engine {eng_segs}, "
+                  f"TwoPassSession {closed_segments(sess_events)}, bursts "
+                  f"{streams[0][1]}", flush=True)
+            if eng_segs != closed_segments(sess_events) or not eng_segs:
+                fail("server: the engine's VAD segments differ from the "
+                     "session's")
+            want = sum(50 + (16 if t // 2 + 8 >= 256 else 0)
+                       for _, t in fwd_a if t >= 256)
+            got = launches["mh_flash_attention"]["float32"]
+            others = sum(n for name, by in launches.items()
+                         for dt, n in by.items()
+                         if (name, dt) != ("mh_flash_attention", "float32"))
+            print(f"server: 8a kernel launches {launches} (expected "
+                  f"mh_flash_attention fp32 {want})", flush=True)
+            if want == 0 or got != want or others:
+                fail(f"server: engine run launched {launches}, expected "
+                     f"mh_flash_attention {want} times in float32 and "
+                     "nothing else")
+            if trace.get("ticks"):
+                kern = [(e.device_time_total, e.count)
+                        for e in prof.key_averages()
+                        if e.device_type == DeviceType.CUDA
+                        and e.device_time_total > 0]
+                busy = sum(t for t, _ in kern) / 1e3
+                n_launch = sum(n for _, n in kern)
+                numbers.update({"trace_wall_ms": trace["wall_ms"],
+                                "trace_busy_ms": busy,
+                                "trace_idle_share": (
+                                    1 - busy / trace["wall_ms"]
+                                    if busy else None),
+                                "trace_launches_per_tick":
+                                    n_launch / trace["ticks"]})
+                print(f"profile: engine, {trace['ticks']} ticks of 8a: wall "
+                      f"{trace['wall_ms']:.1f} ms, device busy "
+                      + (f"{busy:.1f} ms, idle share "
+                         f"{numbers['trace_idle_share']:.3f}, "
+                         if busy else "not measured (no kernel traced), ")
+                      + f"{numbers['trace_launches_per_tick']:.0f} launches "
+                      f"a tick (pass-2 lane included)", flush=True)
+
+            # -- 8b: 128 unpaced connections -------------------------------
+            streams = [burst_stream(2000 + i, 1, UNPACED_SECONDS)
+                       for i in range(UNPACED_CONNECTIONS)]
+            METRICS.reset()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            n_ticks = len(rec["ticks"])
+            t1 = time.perf_counter()
+            unpaced = await asyncio.gather(*[
+                ws_client(port, f"u{i}", data, "2pass")
+                for i, (data, _) in enumerate(streams)])
+            wall = time.perf_counter() - t1
+            audio_s = sum(len(d) / 2 / FS for d, _ in streams)
+            for i, ((_, msgs), (_, spans)) in enumerate(zip(unpaced,
+                                                            streams)):
+                check_stream(f"u{i}", msgs, spans,
+                             rec["segs"].get(f"u{i}", []), fcfg)
+            numbers.update({
+                "unpaced_wall_s": wall, "unpaced_audio_s": audio_s,
+                "unpaced_audio_s_per_s": audio_s / wall,
+                "unpaced_ticks": len(rec["ticks"]) - n_ticks,
+                "unpaced_peak_mem_gib": (torch.cuda.max_memory_allocated()
+                                         / 2 ** 30)})
+            print(f"server: 8b, {UNPACED_CONNECTIONS} unpaced connections, "
+                  f"{audio_s:.1f} s of audio in {wall:.1f} s: "
+                  f"{audio_s / wall:.1f} audio-s/s, "
+                  f"{min(ENGINE_CAPACITY, audio_s / wall):.0f} real-time "
+                  f"streams a card at capacity {ENGINE_CAPACITY}; "
+                  f"{numbers['unpaced_ticks']} ticks; peak memory "
+                  f"{numbers['unpaced_peak_mem_gib']:.2f} GiB on {card}",
+                  flush=True)
+            print_stages("8b")
+
+            # -- 8c: one offline upload ------------------------------------
+            data = s16_bytes(synth_audio(60.0, 1))
+            _, msgs = await ws_client(port, "off", data, "offline")
+            ms = [m for _, m in msgs]
+            ref = models.create_offline_recognizer(
+                vad_tail_sil=VAD_TAIL_SIL_MS, vad_max_len=20000).transcribe(
+                load_pcm_bytes(data), use_itn=True)
+            if (len(ms) != 1 or ms[0]["mode"] != "offline"
+                    or ms[0]["is_final"] is not True
+                    or not ms[0].get("timestamp")
+                    or ms[0]["text"] != ref.text or not ref.text
+                    or ms[0]["timestamp"] != json.dumps(ref.timestamps)):
+                fail(f"server: 8c offline upload gave {ms}, transcribe "
+                     f"gives {ref.text!r}")
+            print(f"server: 8c, 60 s offline upload: one final, "
+                  f"{len(ms[0]['text'])} chars, "
+                  f"{len(json.loads(ms[0]['timestamp']))} stamps, equal to "
+                  "OfflineRecognizer.transcribe", flush=True)
+
+            # -- 8d: one online connection ---------------------------------
+            data = s16_bytes(np.concatenate([
+                np.zeros(FS, np.float32), synth_audio(ONLINE_SECONDS - 2, 7),
+                np.zeros(FS, np.float32)]))
+            METRICS.reset()
+            _, msgs = await ws_client(port, "on", data, "online", PACE_S)
+            ms = [m for _, m in msgs]
+            if ({m["mode"] for m in ms} != {"online"}
+                    or [m["is_final"] for m in ms].index(True) != len(ms) - 1
+                    or not "".join(m["text"] for m in ms)):
+                fail(f"server: 8d online stream gave {ms}")
+            print(f"server: 8d, {ONLINE_SECONDS:.0f} s online stream: "
+                  f"{len(ms) - 1} online partials, "
+                  f"{sum(len(m['text']) for m in ms)} chars, then the "
+                  "final", flush=True)
+            print_stages("8d (one stream, no pass 2)")
+        finally:
+            server._engine_task.cancel()
+            srv.close()
+            await srv.wait_closed()
+            server.engine.shutdown()
+            server.executor.shutdown(wait=False)
+            server._offline_executor.shutdown(wait=False)
+        return launches, fwd_a
+
+    launches, fwd = asyncio.run(main())
+    numbers.update(engine_card_vs_cpu(models))
+    print(f"server: {json.dumps(numbers)}", flush=True)
+    print(f"server: phase {time.perf_counter() - t0:.1f} s", flush=True)
+    return launches, fwd, numbers
+
+
 def main() -> int:
     import torch
 
@@ -1155,12 +1729,40 @@ def main() -> int:
         launches, speed = main_path(os.path.join(tmp, "model"), gen, card)
         launches_2pass, two_pass = two_pass_phase(
             os.path.join(tmp, "model"), tmp, gen, card)
+        launches_engine, engine_fwd, server = server_phase(
+            os.path.join(tmp, "model"), tmp, card)
+    # kernel #1 fp32 at the engine's pass-2 shape: the largest batch the
+    # lane ran at bucket 256
+    b_eng = max(b for b, t in engine_fwd if t == 256)
+    engine_case = kernel_case("mh_flash_attention", (b_eng, 256, 256, 512, 4),
+                              "float32", gen)
+    print(f"kernel mh_flash_attention {engine_case['shape']} float32 (the "
+          f"engine's pass 2): max_abs_err {engine_case['max_abs_err']:.3e} "
+          f"({engine_case['tol_ratio']:.3f} of tolerance; dropped-key "
+          f"control {engine_case['control_tol_ratio']:.1f}; TF32 control "
+          f"{engine_case['tf32_control_tol_ratio']:.3f}), ms back to back / "
+          f"device / host: kernel {engine_case['ms']:.4f} / "
+          f"{engine_case['device_ms']:.4f} / {engine_case['host_ms']:.4f}, "
+          f"plain {engine_case['plain_ms']:.4f} / "
+          f"{engine_case['plain_device_ms']:.4f} / "
+          f"{engine_case['plain_host_ms']:.4f}, sdpa "
+          f"{engine_case['library_ms']:.4f} / "
+          f"{engine_case['library_device_ms']:.4f} / "
+          f"{engine_case['library_host_ms']:.4f}; bound "
+          f"{engine_case['bound_ms']:.4f} by {engine_case['bound_by']}",
+          flush=True)
+    if not (engine_case["tol_ratio"] <= 1
+            and engine_case["control_tol_ratio"] > 1
+            and engine_case["tf32_control_tol_ratio"] > 1):
+        fail("mh_flash_attention at the engine's pass-2 shape fails its "
+             "checks")
 
     # one entry per CUDA kernel and entry point: the fp32 kernel
     # (attention_f32_sm90.cu) and the bf16 kernel (attention_sm90.cu), each
     # at the entry point's first main-path shape, its other shapes as
     # variants; launches are the offline main path's run in that dtype,
-    # launches_2pass the 2pass session's
+    # launches_2pass the 2pass session's, launches_engine the paced server
+    # run's (8a); #1 fp32 carries the engine's pass-2 shape as a variant
     line = []
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms", "device_ms", "host_ms", "plain_device_ms",
@@ -1173,17 +1775,25 @@ def main() -> int:
         for name, runs in kernels.items():
             runs = [r for r in runs if r["dtype"] == dtype]
             head = runs[0]
+            variants = [{k: r[k] for k in ("shape", "tol_ratio") + keys}
+                        for r in runs[1:]]
+            if (name, dtype) == ("mh_flash_attention", "float32"):
+                variants.append({
+                    "path": "engine pass 2",
+                    "launches_engine": launches_engine[name][dtype],
+                    **{k: engine_case[k] for k in ("shape", "tol_ratio")
+                       + keys}})
             line.append({
                 "name": name, "route": "cuda", "source": source,
                 "replaces": REPLACES[name],
                 "launches": launches[dtype][name],
                 "launches_2pass": launches_2pass[name][dtype],
+                "launches_engine": launches_engine[name][dtype],
                 **{k: head[k] for k in keys},
                 "shape": head["shape"], "dtype": dtype,
                 "tol_ratio": head["tol_ratio"],
                 "control_tol_ratio": head["control_tol_ratio"],
-                "variants": [{k: r[k] for k in ("shape", "tol_ratio")
-                              + keys} for r in runs[1:]],
+                "variants": variants,
             })
     print(f"speed: {json.dumps(speed)}")
     print(f"total: {time.perf_counter() - t_start:.1f} s")

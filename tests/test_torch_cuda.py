@@ -424,3 +424,71 @@ def test_two_pass_session_lives_on_the_card(dev):
         sess.feed(wave[a: a + 9600], is_final=False)
         assert all(_tree_on(x, "cuda") for x in tensors())
     sess.feed(np.zeros(0, np.float32), is_final=True)
+
+
+def _engine_texts(models, kw, waves):
+    """Three streams through a StreamEngine at capacity 4: per stream the
+    concatenated partials and the finals (text, timestamps)."""
+    import time
+
+    from asr2pass_tpu_torch.runtime.engine import StreamEngine
+
+    eng = StreamEngine(models, capacity=4, **kw)
+    eng.warmup()
+    eng.warm_pass2_ring()
+    sids = [eng.open() for _ in waves]
+    out = {s: [] for s in sids}
+    for off in range(0, max(len(w) for w in waves), 9600):
+        for s, w in zip(sids, waves):
+            if off < len(w):
+                eng.feed(s, w[off: off + 9600], is_final=off + 9600 >= len(w))
+        eng.step()
+        for s in sids:
+            out[s] += eng.poll(s)
+    deadline = time.time() + 120
+    while time.time() < deadline and not (
+            all(eng.drained(s) for s in sids) and not eng.has_inflight()):
+        eng.step()
+        for s in sids:
+            out[s] += eng.poll(s)
+        time.sleep(0.005)
+    for s in sids:
+        out[s] += eng.poll(s)
+    eng.shutdown()
+    return [("".join(r["text"] for r in out[s] if r["mode"] == "2pass-online"),
+             [(r["text"], r.get("timestamp")) for r in out[s]
+              if r["mode"] == "2pass-offline"]) for s in sids]
+
+
+@pytest.mark.parametrize("tick", ["default", "fused_fetch"])
+def test_engine_card_matches_cpu(dev, tick):
+    """The StreamEngine on the card against the same engine on the CPU,
+    tiny config with the timestamp head, three streams of 2.0/1.4/2.6 s:
+    equal partials, finals and timestamps."""
+    import dataclasses
+
+    from asr2pass_tpu_torch.config import VadConfig, paraformer_tiny
+    from asr2pass_tpu_torch.models import fsmn_vad, paraformer
+    from asr2pass_tpu_torch.server.engine import ServerModels
+    from asr2pass_tpu_torch.text.vocab import make_test_vocab
+
+    cfg = paraformer_tiny()
+    cfg = dataclasses.replace(cfg, predictor=dataclasses.replace(
+        cfg.predictor, use_timestamp=True))
+    gen = torch.Generator().manual_seed(5)
+    asr = paraformer.init(cfg, gen, "cpu").state_dict()
+    vad = fsmn_vad.init(VadConfig(), gen, "cpu").state_dict()
+    kw = {"default": {}, "fused_fetch": dict(fused_fetch=True,
+                                             pass2_async=True)}[tick]
+    rng = np.random.default_rng(7)
+    waves = [(rng.standard_normal(int(16000 * s)) * 0.1).astype(np.float32)
+             for s in (2.0, 1.4, 2.6)]
+    res = {}
+    for device in ("cpu", "cuda"):
+        models = ServerModels(asr_params=asr, asr_cfg=cfg,
+                              vocab=make_test_vocab(cfg.vocab_size),
+                              vad_params=vad, vad_cfg=VadConfig(),
+                              device=device)
+        res[device] = _engine_texts(models, kw, waves)
+    assert res["cuda"] == res["cpu"]
+    assert all(p and f for p, f in res["cpu"])

@@ -128,3 +128,45 @@ def test_audio_helpers(tmp_path):
     ref, fs_ref = jaudio.load_wav_bytes(buf.getvalue())
     assert fs == fs_ref == 16000
     np.testing.assert_array_equal(got, ref)
+
+
+def test_load_pcm_bytes():
+    """s16le bytes, an odd trailing byte dropped, as the JAX package."""
+    x = (_speechy(0.2, 5) * 32767).astype("<i2").tobytes() + b"\x01"
+    np.testing.assert_array_equal(taudio.load_pcm_bytes(x),
+                                  jaudio.load_pcm_bytes(x))
+
+
+@pytest.mark.parametrize("fs_in,fs_out", [(8000, 16000), (44100, 16000),
+                                          (16000, 22050), (16000, 16000)])
+def test_linear_resample(fs_in, fs_out, monkeypatch):
+    """The numpy windowed-sinc resampler against the JAX package's numpy
+    path (its native C++ branch turned off): equal samples."""
+    from asr2pass_tpu.native import bindings
+
+    monkeypatch.setattr(bindings, "available", lambda: False)
+    x = _speechy(0.25, 6)
+    got = taudio.linear_resample(x, fs_in, fs_out)
+    ref = jaudio.linear_resample(x, fs_in, fs_out)
+    assert got.dtype == np.float32 and got.shape == ref.shape
+    np.testing.assert_array_equal(got, ref)
+
+
+def test_load_audio_file(tmp_path, monkeypatch):
+    """.pcm read as s16le; .wav at 8 kHz resampled to 16 kHz."""
+    from asr2pass_tpu.native import bindings
+
+    monkeypatch.setattr(bindings, "available", lambda: False)
+    x = (_speechy(0.3, 7) * 32767).astype("<i2")
+    pcm = tmp_path / "a.pcm"
+    pcm.write_bytes(x.tobytes())
+    wav = tmp_path / "a.wav"
+    with wave.open(str(wav), "wb") as w:
+        w.setnchannels(1)
+        w.setsampwidth(2)
+        w.setframerate(8000)
+        w.writeframes(x.tobytes())
+    for path in (pcm, wav):
+        np.testing.assert_array_equal(taudio.load_audio_file(str(path)),
+                                      jaudio.load_audio_file(str(path)))
+    assert len(taudio.load_audio_file(str(wav))) == 2 * len(x)

@@ -81,6 +81,8 @@ def _entry_points():
     from asr2pass_tpu_torch.runtime.punc import Punctuator
     from asr2pass_tpu_torch.runtime.vad_stream import (FsmnVadStream,
                                                        vad_segments_offline)
+    from asr2pass_tpu_torch.server.engine import ServerModels
+    from asr2pass_tpu_torch.server.run_server import build_models, parser
     from asr2pass_tpu_torch.text.punc_tokenizer import PuncTokenizer
     from asr2pass_tpu_torch.text.vocab import Vocab
 
@@ -117,6 +119,14 @@ def _entry_points():
             lambda **kw: ct_transformer.from_state_dict(psd, pcfg, **kw),
         "Punctuator": lambda **kw: Punctuator(
             psd, pcfg, PuncTokenizer(["a"] * pcfg.vocab_size), **kw),
+        # the server's registry; StreamEngine and AsrWsServer run on its
+        # device
+        "ServerModels": lambda **kw: ServerModels(
+            asr_params=sd, asr_cfg=cfg, vocab=vocab, vad_params=vsd,
+            vad_cfg=vcfg, **kw),
+        # the launcher: --device defaults to cuda
+        "build_models": lambda **kw: build_models(parser().parse_args(
+            ["--demo"] + [f"--device={v}" for v in kw.values()])),
     }
 
 
@@ -125,7 +135,8 @@ def _entry_points():
     "offline_frontend_device", "StreamingFrontend",
     "ParaformerOnlineStream", "fsmn_vad.init", "fsmn_vad.from_state_dict",
     "fsmn_vad.init_caches", "FsmnVadStream", "vad_segments_offline",
-    "ct_transformer.init", "ct_transformer.from_state_dict", "Punctuator"])
+    "ct_transformer.init", "ct_transformer.from_state_dict", "Punctuator",
+    "ServerModels", "build_models"])
 def test_entry_points_default_to_the_card(name):
     """Without device="cpu" an entry point asks for CUDA, and on a machine
     without it raises instead of running on the CPU."""
