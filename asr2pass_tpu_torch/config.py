@@ -1,10 +1,11 @@
-"""Configuration dataclasses of the Paraformer, FSMN-VAD and
-CT-Transformer punctuation models (port copy).
+"""Configuration dataclasses of the Paraformer, FSMN-VAD,
+CT-Transformer punctuation, SenseVoice and hotword-compiler models (port
+copy).
 
-Counterpart of asr2pass_tpu/config.py, of which this keeps what the
-offline and 2pass paths need: the front-end, encoder, decoder,
-predictor, VAD and punctuation configs, the reference-layout config.yaml
-loaders and the presets. Same fields, same defaults, same yaml keys, so
+Counterpart of asr2pass_tpu/config.py: the front-end, encoder, decoder,
+predictor, VAD, punctuation, SenseVoice and hotword configs, the
+reference-layout config.yaml loaders (load_svs_yaml is the JAX
+package's runtime/model_zoo.load_svs_yaml) and the presets. Same fields, same defaults, same yaml keys, so
 one model directory serves both packages.
 """
 from __future__ import annotations
@@ -194,6 +195,44 @@ class PuncConfig:
     cache_pop_trigger_limit: int = 200
 
 
+@dataclass(frozen=True)
+class SenseVoiceConfig:
+    """SenseVoice-small multilingual CTC model."""
+
+    frontend: FrontendConfig = field(default_factory=FrontendConfig)
+    encoder: EncoderConfig = field(
+        default_factory=lambda: EncoderConfig(
+            input_size=560, output_size=512, num_blocks=50
+        )
+    )
+    vocab_size: int = 25055
+    # meta prefix tokens (sensevoice-small.cpp:596-642)
+    lid_pairs: tuple = (("auto", 0), ("zh", 3), ("en", 4), ("yue", 7),
+                        ("ja", 11), ("ko", 12), ("nospeech", 13))
+    textnorm_pairs: tuple = (("withitn", 14), ("woitn", 15))
+    blank_id: int = 0
+    # detok/punc joining style for the offline pipeline (ParaformerConfig
+    # .lang counterpart); SenseVoice output text carries its own spacing
+    lang: str = "zh"
+
+    @property
+    def lid_dict(self) -> dict:
+        return dict(self.lid_pairs)
+
+    @property
+    def textnorm_dict(self) -> dict:
+        return dict(self.textnorm_pairs)
+
+
+@dataclass(frozen=True)
+class HotwordConfig:
+    """Hotword embedding compiler (model_eb: paraformer.cpp:592-693)."""
+
+    vocab_size: int = 8404
+    embed_dim: int = 512
+    hidden_dim: int = 512
+    num_layers: int = 1
+    max_hotword_len: int = 10
 
 
 def _merge(cls, node: Optional[dict], **extra):
@@ -257,6 +296,41 @@ def load_paraformer_yaml(path: str) -> ParaformerConfig:
         vocab_size=vocab_size,
         lang=cfg.get("lang", "zh"),
     )
+
+
+def load_svs_yaml(path: str) -> SenseVoiceConfig:
+    """SenseVoice model-dir config.yaml -> SenseVoiceConfig: the
+    frontend_conf and encoder_conf keys of load_paraformer_yaml, plus
+    vocab_size, blank_id, lid_pairs, textnorm_pairs and lang."""
+    with open(path) as f:
+        node = yaml.safe_load(f) or {}
+    fe = node.get("frontend_conf", {})
+    frontend = FrontendConfig(
+        fs=fe.get("fs", 16000), window=fe.get("window", "hamming"),
+        n_mels=fe.get("n_mels", 80),
+        frame_length_ms=fe.get("frame_length", 25),
+        frame_shift_ms=fe.get("frame_shift", 10),
+        lfr_m=fe.get("lfr_m", 7), lfr_n=fe.get("lfr_n", 6))
+    enc = node.get("encoder_conf", {})
+    encoder = EncoderConfig(
+        input_size=frontend.n_mels * frontend.lfr_m,
+        output_size=enc.get("output_size", 512),
+        num_blocks=enc.get("num_blocks", 50),
+        attention_heads=enc.get("attention_heads", 4),
+        linear_units=enc.get("linear_units", 2048),
+        kernel_size=enc.get("kernel_size", 11))
+    kw = {}
+    if node.get("lid_pairs"):
+        kw["lid_pairs"] = tuple(tuple(p) for p in node["lid_pairs"])
+    if node.get("textnorm_pairs"):
+        kw["textnorm_pairs"] = tuple(tuple(p)
+                                     for p in node["textnorm_pairs"])
+    return SenseVoiceConfig(
+        frontend=frontend, encoder=encoder,
+        vocab_size=node.get("vocab_size", 25055),
+        blank_id=node.get("blank_id", 0),
+        lang=node.get("lang", "zh"), **kw)
+
 
 def load_punc_yaml(path: str) -> PuncConfig:
     """Punc model-dir config.yaml -> PuncConfig.
@@ -386,3 +460,15 @@ def vad_default() -> VadConfig:
 def punc_tiny(vocab_size: int = 128) -> PuncConfig:
     return PuncConfig(vocab_size=vocab_size, embed_dim=32, att_dim=32,
                       num_blocks=2, attention_heads=2, linear_units=64)
+
+
+def sensevoice_small(vocab_size: int = 25055) -> SenseVoiceConfig:
+    return SenseVoiceConfig(vocab_size=vocab_size)
+
+
+def sensevoice_tiny(vocab_size: int = 64) -> SenseVoiceConfig:
+    return SenseVoiceConfig(
+        encoder=EncoderConfig(input_size=560, output_size=64, num_blocks=2,
+                              attention_heads=2, linear_units=128),
+        vocab_size=vocab_size,
+    )

@@ -1,7 +1,7 @@
 """StreamEngine: S concurrent 2pass streams through shared batched steps.
 
-Counterpart of asr2pass_tpu/runtime/engine.py, without its SenseVoice,
-LM and hotword hooks. All active streams advance together, each tick:
+Counterpart of asr2pass_tpu/runtime/engine.py, without its LM hooks. All
+active streams advance together, each tick:
 
   * one batched fused VAD step for every slot's new audio (fbank, LFR,
     CMVN, FSMN-VAD), with the decision automatons on the host
@@ -9,8 +9,10 @@ LM and hotword hooks. All active streams advance together, each tick:
     pending-feature ring, paraformer_online.step); the per-slot chunk
     counts, final flags and state resets ride the leading axis
   * pass-2 segments from every stream pool into one bucketed
-    ParaformerOffline.recognize_batch, their features gathered from the
-    device audio ring
+    recognize_batch, their features gathered from the device audio ring:
+    ParaformerOffline with each slot's hotword embeddings, or, when the
+    models carry SenseVoice, SenseVoiceOffline with each slot's language,
+    ITN token and hotword context graph
 
 Slots are fixed (capacity), so the tick's launches do not grow with the
 number of streams: every ring write and gather is one batched indexed op
@@ -45,6 +47,7 @@ from asr2pass_tpu_torch.runtime import streaming_frontend as sf
 from asr2pass_tpu_torch.runtime.audio_splitter import (AudioFrame,
                                                       TwoPassSplitter)
 from asr2pass_tpu_torch.runtime.metrics import GLOBAL as METRICS
+from asr2pass_tpu_torch.runtime.sensevoice_asr import SenseVoiceOffline
 from asr2pass_tpu_torch.runtime.vad_stream import vad_options
 from asr2pass_tpu_torch.text import timestamps as ts_mod
 from asr2pass_tpu_torch.text.vocab import Vocab
@@ -258,6 +261,10 @@ class _Slot:
     # these per connection, websocket-server-2pass.cpp:424-523)
     mode: str = "2pass"                # "2pass" or "online"
     use_itn: bool = True
+    hw_emb: Any = None                 # compiled hotword embeddings [N, D]
+    svs_lang: Any = None               # SenseVoice language (None: auto)
+    svs_itn: Any = None                # SenseVoice ITN token (None: on)
+    svs_context: Any = None            # SenseVoice hotword ContextGraph
     vad_tail_sil: Any = None           # max_end_silence override (ms)
     vad_max_len: Any = None            # max_single_segment override (ms)
     speech_noise_thres: Any = None
@@ -311,7 +318,8 @@ class StreamEngine:
                         else models.asr_params)
         self.offline = None
         if mode != "online":
-            self.offline = models.create_offline_recognizer()
+            self.offline = models.create_offline_recognizer(
+                use_svs=models.svs_params is not None)
         self.punc = models._punctuator()
         self.slots: List[_Slot] = [_Slot() for _ in range(capacity)]
         self.chunk_len = (ocfg.chunk_size[1] * ocfg.frontend.frame_shift
@@ -430,9 +438,10 @@ class StreamEngine:
     def warm_pass2_ring(self, buckets=(64, 128, 256),
                         batches=(1, 2, 4, 8, 16)):
         """Run the pass-2 ring front-end once for every (bucket, batch)
-        the lane can take from the ring, then one pass-2 forward at the
-        largest of them: its first use of the attention library (the
-        kernel build on the card) lands here, not on a live segment."""
+        the lane can take from the ring, then one pass-2 forward (the
+        Paraformer's or SenseVoice's) at the largest of them: its first
+        use of the attention library (the kernel build on the card) lands
+        here, not on a live segment."""
         if self.offline is None:
             return
         asr = self.offline.asr
@@ -448,8 +457,8 @@ class StreamEngine:
                     bucket, fcfg, means, vars_, batch_b=bb)
             top = bucket
         if feats is not None:
-            asr._forward(feats[:1], [top])
-            to_host([feats[:1, :1, :1]])
+            out = asr._forward(feats[:1], [top])
+            to_host([out.logits[:1, :1, :1]])
 
     @torch.inference_mode()
     def warmup(self):
@@ -498,25 +507,28 @@ class StreamEngine:
 
     # -- stream lifecycle ------------------------------------------------
     def open(self, hw_emb=None, hotwords=None, use_itn: bool = True,
-             vad_tail_sil=None, vad_max_len=None,
-             speech_noise_thres=None, mode=None) -> int:
+             svs_lang=None, svs_itn=None, vad_tail_sil=None,
+             vad_max_len=None, speech_noise_thres=None, mode=None) -> int:
         """Claim a slot with this connection's first-message options (the
-        reference supports per-request VAD/ITN config on every
-        connection, websocket-server-2pass.cpp:424-523). `mode` is the
-        connection's: "2pass" (the engine's default) or "online", which
-        gets pass-1 results labelled "online" and no pass 2. Hotword
-        embeddings need the hotword compiler, which is not ported yet;
-        `hotwords` only matter to LM and SenseVoice decoding, which are
-        not ported either."""
+        reference supports hotwords and per-request VAD/ITN/svs config on
+        every connection, websocket-server-2pass.cpp:424-523). `mode` is
+        the connection's: "2pass" (the engine's default) or "online",
+        which gets pass-1 results labelled "online" and no pass 2.
+        `hw_emb` (ServerModels.compile_hotwords' [N, D]) biases a
+        Paraformer pass 2 and must match its hotword block; a SenseVoice
+        pass 2 ignores it and biases with a context graph of `hotwords`
+        instead, and takes svs_lang/svs_itn (None: the recognizer's)."""
         mode = mode or self.mode
         if mode not in ("2pass", "online") or (
                 mode == "2pass" and self.offline is None):
             raise ValueError(f"an engine in mode {self.mode!r} cannot serve "
                              f"a {mode!r} stream")
-        if hw_emb is not None:
-            raise NotImplementedError(
-                "hotword embeddings in the engine come with the hotword "
-                "compiler (ROADMAP queue 1 item 15)")
+        svs = (self.offline is not None
+               and isinstance(self.offline.asr, SenseVoiceOffline))
+        if hw_emb is not None and self.offline is not None and not svs:
+            self._check_hw_emb(hw_emb)
+        svs_context = (self.models.svs_context_graph(hotwords)
+                       if svs and hotwords else None)
         with self._results_lock:
             # the reclaim check and the claim are one step: the staging
             # scan counts a slot's work under the same lock
@@ -531,12 +543,31 @@ class StreamEngine:
                     slot.active = True
                     slot.mode = mode
                     slot.use_itn = use_itn
+                    slot.hw_emb = hw_emb
+                    slot.svs_lang = svs_lang
+                    slot.svs_itn = svs_itn
+                    # compiled once per connection, shared read-only
+                    slot.svs_context = svs_context
                     slot.vad_tail_sil = vad_tail_sil
                     slot.vad_max_len = vad_max_len
                     slot.speech_noise_thres = speech_noise_thres
                     return sid
         raise EngineAtCapacity(
             f"engine at capacity ({self.capacity} streams)")
+
+    def _check_hw_emb(self, hw_emb):
+        """Raise unless hw_emb is an [N, D] embedding matrix that the
+        Paraformer pass 2's hotword block takes: without the block, or at
+        another width, the embeddings could only be dropped or fail in
+        the pass-2 lane."""
+        asr = self.offline.asr
+        d = asr.cfg.encoder.output_size
+        if asr.model.decoder.hotword is None:
+            raise ValueError("hotword embeddings given, but the pass-2 "
+                             "model has no hotword block")
+        if np.ndim(hw_emb) != 2 or np.shape(hw_emb)[1] != d:
+            raise ValueError(f"hotword embeddings {np.shape(hw_emb)} are "
+                             f"not [N, {d}]")
 
     def _reset_slot(self, sid: int):
         m = self.models
@@ -1338,8 +1369,9 @@ class StreamEngine:
 
     @torch.inference_mode()
     def _process_segments(self, pairs, settled=None):
-        """Offline-decode segments and post results (punctuation, ITN,
-        timestamps) to the slots that queued them.
+        """Offline-decode segments with each owner's per-connection
+        options (hotwords, svs language and ITN) and post results
+        (punctuation, ITN, timestamps) to the slots that queued them.
 
         `settled` (when given) collects the pair indices whose inflight
         counter this call decremented — the caller's failure handler
@@ -1348,10 +1380,18 @@ class StreamEngine:
         segment cannot poison the whole batch."""
         if settled is None:
             settled = []
+        slots = [slot for _, slot, _ in pairs]
         segs = [fr.data for _, _, fr in pairs]
+        kw = {"feats_override": self._ring_feats_override(pairs)}
+        if isinstance(self.offline.asr, SenseVoiceOffline):
+            # per-slot language and ITN prefix ids, hotword context graphs
+            kw.update(langs=[s.svs_lang for s in slots],
+                      itn_flags=[s.svs_itn for s in slots],
+                      contexts=[s.svs_context for s in slots])
+        elif any(s.hw_emb is not None for s in slots):
+            kw["hw_embs"] = [s.hw_emb for s in slots]
         with METRICS.stage("p2_recognize"):
-            outs = self.offline.asr.recognize_batch(
-                segs, feats_override=self._ring_feats_override(pairs))
+            outs = self.offline.asr.recognize_batch(segs, **kw)
         t_post = time.perf_counter()
         for idx, ((text, merged), (sid, slot, fr)) in enumerate(
                 zip(outs, pairs)):

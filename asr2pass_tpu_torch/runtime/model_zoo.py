@@ -1,12 +1,16 @@
 """Model directories: weights.npz + config.yaml + am.mvn + tokens.json.
 
 Counterpart of asr2pass_tpu/runtime/model_zoo.py (save_params,
-load_params, save_offline_bundle, load_offline_bundle, load_punc_dir)
-and of the VAD-dir reading of asr2pass_tpu/tools/transcribe.py. Both
-packages read and write the same directories: weights.npz holds the JAX
-parameter tree flattened with '/'-joined keys, with the uniform layer
-stacks (encoder/rest, decoder/blocks) stored STACKED on a leading layer
-axis, and lists (the FSMN-VAD's blocks) as one key per entry.
+load_params, save_offline_bundle, load_offline_bundle, load_punc_dir,
+save_svs_bundle, load_svs_bundle) and of the VAD-dir reading of
+asr2pass_tpu/tools/transcribe.py. Both packages read and write the same
+directories: weights.npz holds the JAX parameter tree flattened with
+'/'-joined keys, with the uniform layer stacks (encoder/rest,
+decoder/blocks, SenseVoice's tp/rest) stored STACKED on a leading layer
+axis, and lists (the FSMN-VAD's blocks) as one key per entry. A hotword
+model's weights.npz carries its hotword compiler as a top-level
+`hotword_compiler` subtree beside the Paraformer's
+(tools/convert_funasr.py in the JAX package writes it so).
 
 params_from_jax / params_to_jax are the only place that knows that
 layout: they map between the JAX tree and this package's state dict,
@@ -18,6 +22,7 @@ CT-Transformer share the encoder's stack; the VAD has none.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 from dataclasses import dataclass
@@ -34,7 +39,9 @@ from asr2pass_tpu_torch.text.punc_tokenizer import PuncTokenizer
 from asr2pass_tpu_torch.text.vocab import Vocab
 
 # JAX subtrees stored with a leading layer axis (one ModuleList here)
-_STACKED = ("encoder/rest", "decoder/blocks")
+_STACKED = ("encoder/rest", "decoder/blocks", "tp/rest")
+# the hotword compiler's subtree in a hotword model's weights.npz
+HOTWORD_KEY = "hotword_compiler"
 
 
 # -- nested tree <-> flat npz ----------------------------------------------
@@ -136,14 +143,22 @@ class OfflineBundle:
     cfg: cfg_mod.ParaformerConfig
     vocab: Vocab
     cmvn: Tuple[Optional[np.ndarray], Optional[np.ndarray]]
+    # the hotword compiler's state dict (CPU tensors) when the dir holds
+    # one (models/hotword.from_state_dict builds it), else None
+    hotword_params: Optional[Dict[str, torch.Tensor]] = None
 
 
 def save_offline_bundle(path: str, params, cfg: cfg_mod.ParaformerConfig,
-                        tokens, cmvn=None):
+                        tokens, cmvn=None, hotword_params=None):
     """Write a model directory that both packages load. `params` is a
-    Paraformer module or its state dict."""
+    Paraformer module or its state dict; `hotword_params` (a Hotword
+    module or its state dict) is written as the `hotword_compiler`
+    subtree, as the JAX package's converter writes a hotword model."""
     os.makedirs(path, exist_ok=True)
-    save_params(os.path.join(path, "weights.npz"), params_to_jax(params))
+    tree = params_to_jax(params)
+    if hotword_params is not None:
+        tree[HOTWORD_KEY] = params_to_jax(hotword_params)
+    save_params(os.path.join(path, "weights.npz"), tree)
     with open(os.path.join(path, "tokens.json"), "w", encoding="utf-8") as f:
         json.dump(list(tokens), f, ensure_ascii=False)
     with open(os.path.join(path, "config.yaml"), "w") as f:
@@ -193,15 +208,23 @@ def save_offline_bundle(path: str, params, cfg: cfg_mod.ParaformerConfig,
 
 def load_offline_bundle(path: str) -> OfflineBundle:
     """Model directory -> bundle whose params are this package's state
-    dict on the CPU (ParaformerOffline moves it to its device)."""
+    dict on the CPU (ParaformerOffline moves it to its device). A
+    `hotword_compiler` subtree is kept out of the Paraformer's state dict
+    and returned as hotword_params."""
     cfg = cfg_mod.load_paraformer_yaml(os.path.join(path, "config.yaml"))
-    params = params_from_jax(load_params(os.path.join(path, "weights.npz")))
+    tree = load_params(os.path.join(path, "weights.npz"))
+    hw_tree = tree.pop(HOTWORD_KEY, None)
     vocab = Vocab.from_file(os.path.join(path, "tokens.json"), cfg.lang)
+    return OfflineBundle(
+        params=params_from_jax(tree), cfg=cfg, vocab=vocab,
+        cmvn=_dir_cmvn(path),
+        hotword_params=None if hw_tree is None else params_from_jax(hw_tree))
+
+
+def _dir_cmvn(path: str):
     mvn_path = os.path.join(path, "am.mvn")
-    cmvn = (None, None)
-    if os.path.exists(mvn_path):
-        cmvn = parse_kaldi_cmvn(mvn_path)
-    return OfflineBundle(params=params, cfg=cfg, vocab=vocab, cmvn=cmvn)
+    return (parse_kaldi_cmvn(mvn_path) if os.path.exists(mvn_path)
+            else (None, None))
 
 
 # -- FSMN-VAD and punctuation directories ----------------------------------
@@ -299,3 +322,65 @@ def load_punc_dir(path: str):
     tokenizer = PuncTokenizer.from_file(
         os.path.join(path, "tokens.json"), **kw)
     return params, cfg, tokenizer
+
+
+# -- SenseVoice (svs) directories -------------------------------------------
+
+@dataclass
+class SvsBundle:
+    params: Dict[str, torch.Tensor]     # state dict, CPU tensors
+    cfg: cfg_mod.SenseVoiceConfig
+    vocab: Vocab
+    cmvn: Tuple[Optional[np.ndarray], Optional[np.ndarray]]
+
+
+def save_svs_bundle(path: str, params, cfg: cfg_mod.SenseVoiceConfig,
+                    tokens, cmvn=None):
+    """Write a SenseVoice model directory (the reference's MODEL_SVS dir,
+    sensevoice-small.cpp:497-560) that both packages load: weights.npz,
+    tokens.json, am.mvn and the SenseVoiceConfig fields in config.yaml.
+    `params` is a SenseVoice module or its state dict."""
+    os.makedirs(path, exist_ok=True)
+    save_params(os.path.join(path, "weights.npz"), params_to_jax(params))
+    with open(os.path.join(path, "tokens.json"), "w", encoding="utf-8") as f:
+        json.dump(list(tokens), f, ensure_ascii=False)
+    with open(os.path.join(path, "config.yaml"), "w") as f:
+        f.write(yaml.safe_dump({
+            "model": "SenseVoiceSmall",
+            "frontend_conf": {
+                "fs": cfg.frontend.fs,
+                "window": cfg.frontend.window,
+                "n_mels": cfg.frontend.n_mels,
+                "frame_length": cfg.frontend.frame_length_ms,
+                "frame_shift": cfg.frontend.frame_shift_ms,
+                "lfr_m": cfg.frontend.lfr_m,
+                "lfr_n": cfg.frontend.lfr_n,
+            },
+            "encoder_conf": {
+                "output_size": cfg.encoder.output_size,
+                "num_blocks": cfg.encoder.num_blocks,
+                "attention_heads": cfg.encoder.attention_heads,
+                "linear_units": cfg.encoder.linear_units,
+                "kernel_size": cfg.encoder.kernel_size,
+            },
+            "vocab_size": cfg.vocab_size,
+            "blank_id": cfg.blank_id,
+            "lid_pairs": [list(p) for p in cfg.lid_pairs],
+            "textnorm_pairs": [list(p) for p in cfg.textnorm_pairs],
+            "lang": cfg.lang,
+        }))
+    if cmvn is not None and cmvn[0] is not None:
+        write_kaldi_cmvn(os.path.join(path, "am.mvn"), cmvn[0], cmvn[1])
+
+
+def load_svs_bundle(path: str) -> SvsBundle:
+    """SenseVoice model directory -> bundle whose params are this
+    package's state dict on the CPU; the vocab size follows tokens.json."""
+    cfg = cfg_mod.load_svs_yaml(os.path.join(path, "config.yaml"))
+    params = params_from_jax(load_params(os.path.join(path, "weights.npz")))
+    with open(os.path.join(path, "tokens.json"), encoding="utf-8") as f:
+        tokens = json.load(f)
+    if len(tokens) != cfg.vocab_size:
+        cfg = dataclasses.replace(cfg, vocab_size=len(tokens))
+    return SvsBundle(params=params, cfg=cfg, vocab=Vocab(tokens, cfg.lang),
+                     cmvn=_dir_cmvn(path))

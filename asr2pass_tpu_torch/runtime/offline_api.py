@@ -31,8 +31,10 @@ class OfflineResult:
 
 
 class OfflineRecognizer:
-    """vad_params: an FsmnVad module or its state dict (None: the whole
-    file is one segment); itn: any object with normalize(text)."""
+    """asr: a ParaformerOffline or a SenseVoiceOffline (the same
+    recognize_batch interface); vad_params: an FsmnVad module or its
+    state dict (None: the whole file is one segment); itn: any object
+    with normalize(text)."""
 
     def __init__(self, asr: ParaformerOffline,
                  vad_params=None, vad_cfg=None, vad_cmvn=None,

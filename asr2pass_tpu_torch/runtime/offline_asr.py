@@ -2,11 +2,13 @@
 
 Counterpart of asr2pass_tpu/runtime/offline_asr.py (ParaformerOffline:
 recognize_batch = dispatch_batch + one fetch + finish_batch, with the
-engine's feats_override), without the LM
-rescoring, sequence-parallel and per-item hotword-batching branches,
-which come with later slices. Segments are grouped by feature-length
-bucket and run as true batches: front-end on the device, one forward,
-greedy ids, then host detokenization and bicif timestamps.
+engine's feats_override and per-item hotword embeddings), without the LM
+rescoring and sequence-parallel branches, which come with later slices.
+Segments are grouped by (feature-length bucket, hotword-count bucket) and
+run as true batches: front-end on the device, one forward, greedy ids,
+then host detokenization and bicif timestamps. Segments with and without
+hotwords never share a forward: the hotword cross-attention block runs
+only for a batch that has embeddings.
 
 The length and batch buckets are kept from the JAX package, where they
 bound the number of XLA programs. Here they decide the T that the
@@ -53,6 +55,17 @@ def _batch_bucket(n: int) -> int:
     return _MAX_BATCH
 
 
+# hotword-count buckets (rows of the compiled [N, D] embedding batch)
+_HW_BUCKETS = [4, 8, 16, 32, 64]
+
+
+def _hw_bucket(n: int) -> int:
+    for b in _HW_BUCKETS:
+        if n <= b:
+            return b
+    return -(-n // _HW_BUCKETS[-1]) * _HW_BUCKETS[-1]
+
+
 class ParaformerOffline:
     """params: a Paraformer module, or its state dict (as
     model_zoo.load_offline_bundle returns it). The model runs on `device`
@@ -72,17 +85,19 @@ class ParaformerOffline:
         self.cmvn = cmvn if cmvn is not None else (None, None)
 
     def _forward(self, feats: torch.Tensor, lengths: List[int],
-                 hw_emb: Optional[np.ndarray] = None):
-        b, t, _ = feats.shape
+                 hw_batch: Optional[np.ndarray] = None,
+                 hw_lens: Optional[List[int]] = None):
+        """hw_batch [B, N, D]: each row's hotword embeddings padded to N
+        rows; hw_lens [B] their counts (0 for a padded batch row). The
+        rows past a count are masked out of the bias cross-attention."""
+        t = feats.shape[1]
         hw = hw_mask = None
-        if hw_emb is not None and self.model.decoder.hotword is not None:
-            n_hw = hw_emb.shape[0]
-            hw = torch.as_tensor(np.asarray(hw_emb, np.float32),
-                                 device=self.device).expand(b, -1, -1)
-            # padded batch rows carry no hotwords
-            hw_mask = (torch.arange(n_hw, device=self.device)[None, :]
-                       < torch.tensor([n_hw if n else 0 for n in lengths],
-                                      device=self.device)[:, None]).float()
+        if hw_batch is not None and self.model.decoder.hotword is not None:
+            hw = torch.as_tensor(np.asarray(hw_batch, np.float32),
+                                 device=self.device)
+            hw_mask = (torch.arange(hw.shape[1], device=self.device)[None, :]
+                       < torch.tensor(hw_lens, device=self.device)[:, None]
+                       ).float()
         # trained CIF fires ~1 token per 3+ LFR frames; T//2+8 slots
         return paraformer.apply(
             self.model, self.cfg, feats,
@@ -91,19 +106,23 @@ class ParaformerOffline:
 
     def recognize_batch(self, segments: List[np.ndarray],
                         hw_emb: Optional[np.ndarray] = None,
+                        hw_embs: Optional[List] = None,
                         feats_override=None
                         ) -> List[Tuple[str, List[List[float]]]]:
         """Batch of raw-sample segments -> [(text, token_timestamps_s)].
-        hw_emb: compiled hotword embeddings [N, D] shared by all segments
-        (used when the model has the hotword block). feats_override: see
+        hw_embs[i]: segment i's compiled hotword embeddings [N_i, D] or
+        None (hw_emb is the shorthand for one set shared by all); used
+        when the model has the hotword block. feats_override: see
         dispatch_batch. All outputs come back in one copy."""
         pending, handles = self.dispatch_batch(
-            segments, hw_emb=hw_emb, feats_override=feats_override)
+            segments, hw_emb=hw_emb, hw_embs=hw_embs,
+            feats_override=feats_override)
         return self.finish_batch(pending, to_host(handles))
 
     @torch.inference_mode()
     def dispatch_batch(self, segments: List[np.ndarray],
                        hw_emb: Optional[np.ndarray] = None,
+                       hw_embs: Optional[List] = None,
                        feats_override=None):
         """Phase A: front-end and forward on the device. Returns (pending,
         handles): `handles` are the device tensors finish_batch needs.
@@ -117,31 +136,44 @@ class ParaformerOffline:
         ns = [num_frames(len(b), fcfg) for b in bufs]
         t_lfrs = [lfr_len(n, fcfg.lfr_m, fcfg.lfr_n) if n else 0
                   for n in ns]
+        if hw_embs is None:
+            hw_embs = [hw_emb] * len(bufs)
         results: List[Optional[Tuple[str, List[List[float]]]]] = \
             [None] * len(bufs)
+        # group by (feature bucket, hotword-count bucket; 0 = none)
         groups = {}
         for i, t in enumerate(t_lfrs):
             if t == 0:
                 results[i] = ("", [])
                 continue
-            groups.setdefault(_bucket(t), []).append(i)
-        chunks = [(bucket, idxs[j: j + _MAX_BATCH])
-                  for bucket, idxs in groups.items()
+            hw = hw_embs[i]
+            hw_key = 0 if hw is None else _hw_bucket(hw.shape[0])
+            groups.setdefault((_bucket(t), hw_key), []).append(i)
+        chunks = [(bucket, hw_key, idxs[j: j + _MAX_BATCH])
+                  for (bucket, hw_key), idxs in groups.items()
                   for j in range(0, len(idxs), _MAX_BATCH)]
         records = []
         handles: list = []
-        for bucket, idxs in chunks:
+        for bucket, hw_key, idxs in chunks:
             bb = _batch_bucket(len(idxs))
             lens = [0] * bb   # padded rows have length 0 (mask empty)
+            hw_batch = hw_lens = None
+            if hw_key:
+                hw_batch = np.zeros((bb, hw_key, hw_embs[idxs[0]].shape[1]),
+                                    np.float32)
+                hw_lens = [0] * bb
             for k, i in enumerate(idxs):
                 lens[k] = t_lfrs[i]
+                if hw_key:
+                    hw_batch[k, : hw_embs[i].shape[0]] = hw_embs[i]
+                    hw_lens[k] = hw_embs[i].shape[0]
             feats = (feats_override(idxs, bucket, bb)
                      if feats_override is not None else None)
             if feats is None:
                 feats = offline_frontend_device(
                     [bufs[i] for i in idxs], [ns[i] for i in idxs], bucket,
                     fcfg, means, vars_, batch_b=bb, device=self.device)
-            out = self._forward(feats, lens, hw_emb)
+            out = self._forward(feats, lens, hw_batch, hw_lens)
             ids, counts = paraformer.greedy_ids(out)
             hlist = [ids, counts]
             if self.cfg.predictor.use_timestamp:

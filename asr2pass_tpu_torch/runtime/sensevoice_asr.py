@@ -1,0 +1,292 @@
+"""SenseVoice recognizer: pass-2-compatible multilingual CTC.
+
+Counterpart of asr2pass_tpu/runtime/sensevoice_asr.py, without its
+LM/TLG rescoring (the native library's slice) and tensor-parallel
+(multi-GPU) branches. Role of the SenseVoice paths in
+sensevoice-small.cpp: the offline forward with language/textnorm meta ids
+(:596-642), greedy CTC (:323-377) or the context-graph-biased prefix beam
+(:392-440). It has the recognize/recognize_batch and
+dispatch_batch/finish_batch interface of ParaformerOffline, so it drops
+into OfflineRecognizer, TwoPassSession and the engine's pass-2 lane.
+
+What reaches the host: greedy runs on the device (models/sensevoice.
+greedy_ids), so a greedy item fetches [B, U] ids, counts and [B, 4] meta.
+A beam item also fetches the device-pruned [B, T, 64] candidate ids and
+log-probs (parallel/ctc_shard.py) plus the [B, T, E] log-probs of its
+context graph's unit ids, force-included so the prune never hides a
+hotword unit from the bias. No path fetches the [B, T, V] logits. All of
+a call's outputs come back in one copy. The beam itself is host Python
+(decode/ctc.py's spec).
+"""
+from __future__ import annotations
+
+from typing import List, Mapping, Optional, Tuple, Union
+
+import numpy as np
+import torch
+from torch import nn
+
+from asr2pass_tpu_torch.config import SenseVoiceConfig
+from asr2pass_tpu_torch.decode.context_graph import ContextGraph
+from asr2pass_tpu_torch.decode.ctc import ctc_prefix_beam_search_pruned
+from asr2pass_tpu_torch.frontend.fbank import num_frames
+from asr2pass_tpu_torch.frontend.lfr import lfr_len
+from asr2pass_tpu_torch.models import sensevoice
+from asr2pass_tpu_torch.models.sensevoice import NUM_META
+from asr2pass_tpu_torch.parallel.ctc_shard import (ctc_first_prune,
+                                                   ctc_first_prune_gather)
+from asr2pass_tpu_torch.runtime.offline_asr import (_MAX_BATCH,
+                                                    _batch_bucket, _bucket)
+from asr2pass_tpu_torch.runtime.streaming_frontend import offline_frontend_device
+from asr2pass_tpu_torch.text.vocab import Vocab
+from asr2pass_tpu_torch.utils import fp32_products, resolve_device, to_host
+
+_KCAND = 64              # device first-prune width (beam mode)
+
+
+def context_unit_ids(context: Optional[ContextGraph], token2id
+                     ) -> List[int]:
+    """Every vocab id reachable in a context graph's trie: the id set
+    force-included into the pruned beam's candidates."""
+    if context is None:
+        return []
+    ids, stack = set(), [context.root]
+    while stack:
+        node = stack.pop()
+        for tok, child in node.children.items():
+            tid = token2id.get(tok)
+            if tid is not None:
+                ids.add(int(tid))
+            stack.append(child)
+    return sorted(ids)
+
+
+class SenseVoiceOffline:
+    """params: a SenseVoice module, or its state dict (as
+    model_zoo.load_svs_bundle returns it). The model runs on `device`
+    (default the card; device="cpu" for the plain PyTorch path)."""
+
+    def __init__(self, params: Union[nn.Module, Mapping[str, torch.Tensor]],
+                 cfg: SenseVoiceConfig, vocab: Vocab, cmvn=None,
+                 lang: str = "auto", use_itn_token: bool = True,
+                 context: Optional[ContextGraph] = None, beam: int = 0,
+                 device="cuda"):
+        self.device = resolve_device(device)
+        fp32_products()
+        if isinstance(params, nn.Module):
+            self.model = params.to(self.device).eval().requires_grad_(False)
+        else:
+            self.model = sensevoice.from_state_dict(params, cfg, self.device)
+        self.cfg = cfg
+        self.vocab = vocab
+        self.cmvn = cmvn if cmvn is not None else (None, None)
+        self.lang = lang
+        self.use_itn_token = use_itn_token
+        self.context = context
+        self.beam = beam
+
+    def set_lang(self, lang: str):
+        self.lang = lang
+
+    def _meta_ids(self, n: int):
+        lid = self.cfg.lid_dict.get(self.lang, self.cfg.lid_dict["auto"])
+        tn = (self.cfg.textnorm_dict["withitn"] if self.use_itn_token
+              else self.cfg.textnorm_dict["woitn"])
+        return np.full(n, lid, np.int64), np.full(n, tn, np.int64)
+
+    def _ctx_for(self, contexts, i) -> Optional[ContextGraph]:
+        if contexts is not None and contexts[i] is not None:
+            return contexts[i]
+        return self.context
+
+    def _forward(self, feats: torch.Tensor, lengths: List[int],
+                 lid=None, tn=None):
+        """One forward over a padded chunk: feats [B, T, lfr_dim],
+        lengths [B] (0 for a padding row); lid/tn [B] meta ids (the
+        recognizer's own when None)."""
+        b = feats.shape[0]
+        if lid is None:
+            lid, tn = self._meta_ids(b)
+        as_long = lambda x: torch.as_tensor(np.asarray(x, np.int64),
+                                            device=self.device)
+        return sensevoice.apply(self.model, self.cfg, feats, as_long(lengths),
+                                as_long(lid), as_long(tn))
+
+    @torch.inference_mode()
+    def dispatch_batch(self, segments: List[np.ndarray], hw_emb=None,
+                       langs: Optional[List[Optional[str]]] = None,
+                       itn_flags: Optional[List[Optional[bool]]] = None,
+                       contexts: Optional[List] = None,
+                       feats_override=None):
+        """Phase A: front-end and forward on the device. Returns
+        (pending, handles); `handles` are the device tensors finish_batch
+        needs. feats_override as in ParaformerOffline.dispatch_batch.
+
+        `hw_emb` is accepted for ParaformerOffline's interface and has no
+        meaning here: SenseVoice hotword biasing is the context graph in
+        the CTC beam (sensevoice-small.cpp:392-440), given per segment
+        in `contexts` or to the recognizer as `context`."""
+        means, vars_ = self.cmvn
+        fcfg = self.cfg.frontend
+        bufs = [np.asarray(s, np.float32) for s in segments]
+        ns = [num_frames(len(b), fcfg) for b in bufs]
+        t_lfrs = [lfr_len(n, fcfg.lfr_m, fcfg.lfr_n) if n else 0
+                  for n in ns]
+        results: List[Optional[Tuple[str, list]]] = [None] * len(bufs)
+        metas: List[Optional[List[int]]] = [None] * len(bufs)
+        groups = {}
+        for i, t in enumerate(t_lfrs):
+            if t == 0:
+                results[i] = ("", [])
+                continue
+            groups.setdefault(_bucket(t), []).append(i)
+        chunks = [(bucket, idxs[j: j + _MAX_BATCH])
+                  for bucket, idxs in groups.items()
+                  for j in range(0, len(idxs), _MAX_BATCH)]
+        records = []
+        handles: list = []
+        for bucket, idxs in chunks:
+            bb = _batch_bucket(len(idxs))
+            lens = [0] * bb
+            for k, i in enumerate(idxs):
+                lens[k] = t_lfrs[i]
+            feats = (feats_override(idxs, bucket, bb)
+                     if feats_override is not None else None)
+            if feats is None:
+                feats = offline_frontend_device(
+                    [bufs[i] for i in idxs], [ns[i] for i in idxs], bucket,
+                    fcfg, means, vars_, batch_b=bb, device=self.device)
+            lid, tn = self._meta_ids(bb)
+            for k, i in enumerate(idxs):
+                if langs is not None and langs[i] is not None:
+                    lid[k] = self.cfg.lid_dict.get(
+                        langs[i], self.cfg.lid_dict["auto"])
+                if itn_flags is not None and itn_flags[i] is not None:
+                    tn[k] = (self.cfg.textnorm_dict["withitn"]
+                             if itn_flags[i]
+                             else self.cfg.textnorm_dict["woitn"])
+            out = self._forward(feats, lens, lid, tn)
+            ids, counts, meta = sensevoice.greedy_ids(
+                out, blank_id=self.cfg.blank_id)
+            hlist = [ids, counts, meta, out.lengths]
+            beam_items = [i for i in idxs
+                          if self.beam > 1
+                          or self._ctx_for(contexts, i) is not None]
+            hw_ids: List[int] = []
+            if beam_items:
+                # force-include every context unit id so the top-k prune
+                # can never hide a hotword unit from the bias (the
+                # reference biases the full-vocab beam,
+                # ctc-prefix-decoder.cpp:280-299)
+                uniq = set()
+                for i in beam_items:
+                    uniq.update(context_unit_ids(
+                        self._ctx_for(contexts, i), self.vocab.token2id))
+                hw_ids = sorted(uniq)
+                if hw_ids:
+                    # padded to a power of two, as the JAX package pads
+                    # to bound its programs: the gather's width is the
+                    # same set of shapes on both
+                    e = 1
+                    while e < len(hw_ids):
+                        e *= 2
+                    padded = hw_ids + [hw_ids[0]] * (e - len(hw_ids))
+                    hlist.extend(ctc_first_prune_gather(out.logits, padded,
+                                                        k=_KCAND))
+                else:
+                    hlist.extend(ctc_first_prune(out.logits, k=_KCAND))
+            records.append({"idxs": idxs, "beam": bool(beam_items),
+                            "hw_ids": hw_ids, "off": len(handles),
+                            "n": len(hlist)})
+            handles.extend(hlist)
+        pending = {"records": records, "results": results, "metas": metas,
+                   "contexts": contexts}
+        return pending, handles
+
+    def finish_batch(self, pending, fetched, with_meta: bool = False):
+        """Phase B: host decode over the fetched (numpy) arrays: greedy
+        straight from the device-collapsed ids; beam items run the pruned
+        prefix beam with their context graph."""
+        results = pending["results"]
+        metas = pending["metas"]
+        contexts = pending["contexts"]
+        for rec in pending["records"]:
+            idxs = rec["idxs"]
+            vals = list(fetched[rec["off"]: rec["off"] + rec["n"]])
+            ids, counts, meta, lengths = (np.asarray(vals.pop(0))
+                                          for _ in range(4))
+            cid = clp = hw_lp = None
+            if rec["beam"]:
+                cid = np.asarray(vals.pop(0))
+                clp = np.asarray(vals.pop(0), np.float32)
+                if rec["hw_ids"]:
+                    hw_lp = np.asarray(vals.pop(0), np.float32)
+            for k, i in enumerate(idxs):
+                ctx = self._ctx_for(contexts, i)
+                if self.beam > 1 or ctx is not None:
+                    ln = int(lengths[k])
+                    fid = cid[k, NUM_META:ln]
+                    flp = clp[k, NUM_META:ln]
+                    if rec["hw_ids"]:
+                        fid, flp = _merge_candidates(
+                            fid, flp, rec["hw_ids"],
+                            hw_lp[k, NUM_META:ln])
+                    nbest = ctc_prefix_beam_search_pruned(
+                        fid, flp, ln - NUM_META,
+                        beam=max(self.beam, 10),
+                        blank_id=self.cfg.blank_id, context=ctx,
+                        id_to_token=self.vocab.id2token)
+                    tok_ids = nbest[0][0] if nbest else []
+                else:
+                    tok_ids = [int(x) for x in ids[k, : int(counts[k])]]
+                # the meta positions' argmax (lang, emotion, event,
+                # textnorm: what CTCSearch strips,
+                # sensevoice-small.cpp:323-377), returned per segment
+                metas[i] = [int(x) for x in meta[k]]
+                results[i] = (self.vocab.to_string(tok_ids), [])
+        out = [r if r is not None else ("", []) for r in results]
+        if with_meta:
+            return [(t, s, m) for (t, s), m in zip(out, metas)]
+        return out
+
+    def recognize_batch(self, segments: List[np.ndarray], hw_emb=None,
+                        langs: Optional[List[Optional[str]]] = None,
+                        itn_flags: Optional[List[Optional[bool]]] = None,
+                        contexts: Optional[List] = None,
+                        feats_override=None,
+                        with_meta: bool = False
+                        ) -> List[Tuple[str, list]]:
+        """langs[i], itn_flags[i] and contexts[i] override the
+        recognizer's lang, use_itn_token and context for segment i: the
+        engine's pass-2 lane mixes connections with different first-
+        message options in one batch (the lid/textnorm prefix inputs,
+        sensevoice-small.cpp:596-642). with_meta=True appends each
+        segment's [lid, emotion, event, textnorm] argmax ids to its
+        result tuple."""
+        pending, handles = self.dispatch_batch(
+            segments, hw_emb=hw_emb, langs=langs, itn_flags=itn_flags,
+            contexts=contexts, feats_override=feats_override)
+        return self.finish_batch(pending, to_host(handles),
+                                 with_meta=with_meta)
+
+    def recognize(self, samples: np.ndarray, hw_emb=None
+                  ) -> Tuple[str, list]:
+        return self.recognize_batch([samples], hw_emb)[0]
+
+
+def _merge_candidates(cid: np.ndarray, clp: np.ndarray,
+                      hw_ids: List[int], hw_lp: np.ndarray
+                      ) -> Tuple[np.ndarray, np.ndarray]:
+    """Append the context unit ids (and their true log-probs) to each
+    frame's pruned candidate set, masking entries the top-k already holds
+    so the prefix beam never counts a token's probability twice."""
+    t, _ = cid.shape
+    e = len(hw_ids)
+    ids_arr = np.asarray(hw_ids, np.int32)
+    out_ids = np.concatenate(
+        [cid, np.broadcast_to(ids_arr, (t, e)).copy()], axis=1)
+    extra = hw_lp[:, :e].copy()
+    dup = (cid[:, :, None] == ids_arr[None, None, :]).any(axis=1)
+    extra[dup] = -1e30    # dropped by the beam's low-prob gate
+    out_lp = np.concatenate([clp, extra], axis=1)
+    return out_ids, out_lp

@@ -1,14 +1,14 @@
 """Server-side model registry + per-connection session factory.
 
 Counterpart of asr2pass_tpu/server/engine.py (ServerModels), with the
-fields of the ported modules only: the offline (pass-2) and streaming
-(pass-1) Paraformers, FSMN-VAD, punctuation, ITN, server-side hotwords
-and the device. Models are built once, on the device, and shared
-read-only; each websocket connection gets its own TwoPassSession
+fields of the ported modules: the offline (pass-2) and streaming
+(pass-1) Paraformers, FSMN-VAD, punctuation, ITN, the hotword compiler
+and its seg_dict, SenseVoice as the pass-2 alternative, server-side
+hotwords and the device. Models are built once, on the device, and
+shared read-only; each websocket connection gets its own TwoPassSession
 (per-connection VAD/ASR/punc caches), mirroring TpassOnlineStream-per-
-connection (websocket-server-2pass.h:49-65). SenseVoice, LM/TLG
-rescoring, the hotword compiler and model parallelism come with later
-slices (ROADMAP queue 1 items 14, 15, 16, 18).
+connection (websocket-server-2pass.h:49-65). LM/TLG rescoring and model
+parallelism come with later slices (ROADMAP queue 1 items 16 and 18).
 """
 from __future__ import annotations
 
@@ -21,12 +21,17 @@ from typing import Any, Optional
 import numpy as np
 from torch import nn
 
-from asr2pass_tpu_torch.config import ParaformerConfig, PuncConfig, VadConfig
-from asr2pass_tpu_torch.models import ct_transformer, fsmn_vad, paraformer
+from asr2pass_tpu_torch.config import (HotwordConfig, ParaformerConfig,
+                                       PuncConfig, SenseVoiceConfig,
+                                       VadConfig)
+from asr2pass_tpu_torch.decode.context_graph import ContextGraph
+from asr2pass_tpu_torch.models import (ct_transformer, fsmn_vad, hotword,
+                                       paraformer, sensevoice)
 from asr2pass_tpu_torch.runtime.asr_stream import ParaformerOnlineStream
 from asr2pass_tpu_torch.runtime.offline_api import OfflineRecognizer
 from asr2pass_tpu_torch.runtime.offline_asr import ParaformerOffline
 from asr2pass_tpu_torch.runtime.punc import Punctuator
+from asr2pass_tpu_torch.runtime.sensevoice_asr import SenseVoiceOffline
 from asr2pass_tpu_torch.runtime.two_pass import TwoPassSession
 from asr2pass_tpu_torch.runtime.vad_stream import FsmnVadStream
 from asr2pass_tpu_torch.text.vocab import Vocab
@@ -63,6 +68,22 @@ class ServerModels:
     punc_cfg: Optional[PuncConfig] = None
     punc_tokenizer: Any = None
     itn: Any = None
+    # the hotword compiler (a Hotword module or its state dict, as
+    # model_zoo.load_offline_bundle returns it in hotword_params)
+    hotword_params: Any = None
+    hotword_cfg: Optional[HotwordConfig] = None
+    seg_dict: Any = None               # EN word -> BPE pieces (SegDict)
+    # SenseVoice (svs) pass-2 alternative (MODEL_SVS role)
+    svs_params: Any = None
+    svs_cfg: Optional[SenseVoiceConfig] = None
+    svs_vocab: Any = None
+    svs_cmvn: Any = None
+    # SVS decode mode: beam > 1 switches every SVS decode to the pruned
+    # CTC prefix beam; hotworded connections get a context-graph-biased
+    # beam regardless (greedy has no bias hook: the reference's split
+    # between CTCSearch and CtcPrefixBeamSearch,
+    # sensevoice-small.cpp:323-440)
+    svs_beam: int = 0
     # server-side hotwords merged with per-connection ones
     server_hotwords: Any = None
     device: Any = "cuda"
@@ -84,6 +105,12 @@ class ServerModels:
             self.punc_params,
             lambda sd: ct_transformer.from_state_dict(sd, self.punc_cfg, dev),
             dev)
+        self.hotword_params = _on_device(
+            self.hotword_params,
+            lambda sd: hotword.from_state_dict(sd, dev), dev)
+        self.svs_params = _on_device(
+            self.svs_params,
+            lambda sd: sensevoice.from_state_dict(sd, self.svs_cfg, dev), dev)
         self._res_lock = threading.RLock()
         self._offline_rec_cache: "OrderedDict" = OrderedDict()
 
@@ -94,17 +121,46 @@ class ServerModels:
                           self.punc_tokenizer, device=self.device)
 
     def compile_hotwords(self, hotwords: dict) -> Optional[np.ndarray]:
-        """hotword dict {word: score} -> [N, D] NN embeddings
-        (CompileHotwordEmbedding role, paraformer.cpp:592-693). Without a
-        hotword model this is None, as in the JAX package; the port has
-        no hotword compiler yet (ROADMAP queue 1 item 15)."""
-        return None
+        """hotword dict {word: score} -> [N+1, D] NN embeddings, row 0
+        the null row (CompileHotwordEmbedding role,
+        paraformer.cpp:592-693); None without a hotword model or words."""
+        if self.hotword_params is None or not hotwords:
+            return None
+        return hotword.compile_hotwords(
+            self.hotword_params, self.hotword_cfg or HotwordConfig(),
+            list(hotwords.keys()), self.vocab, seg_dict=self.seg_dict)
+
+    def svs_context_graph(self, hotwords: Optional[dict]
+                          ) -> Optional[ContextGraph]:
+        """Hotword dict -> ContextGraph for SenseVoice CTC-beam biasing.
+        The reference attaches hotwords to SVS through the context graph
+        inside CtcPrefixBeamSearch (sensevoice-small.cpp:392-440), not
+        through NN embeddings."""
+        if not hotwords:
+            return None
+        return ContextGraph().build(
+            {str(w): float(s) for w, s in hotwords.items()})
+
+    def _pass2(self, use_svs: bool, svs_lang: str, svs_itn: bool,
+               hotwords: Optional[dict]):
+        """The pass-2 recognizer: SenseVoice when asked for and loaded,
+        else the offline Paraformer."""
+        if use_svs and self.svs_params is not None:
+            return SenseVoiceOffline(
+                self.svs_params, self.svs_cfg, self.svs_vocab or self.vocab,
+                cmvn=self.svs_cmvn, lang=svs_lang, use_itn_token=svs_itn,
+                context=self.svs_context_graph(hotwords),
+                beam=self.svs_beam, device=self.device)
+        return ParaformerOffline(self.asr_params, self.asr_cfg, self.vocab,
+                                 cmvn=self.asr_cmvn, device=self.device)
 
     def create_session(self, mode: str = "2pass",
                        vad_tail_sil: Optional[int] = None,
                        vad_max_len: Optional[int] = None,
                        hw_emb: Optional[np.ndarray] = None,
-                       use_itn: bool = True,
+                       use_itn: bool = True, svs_lang: str = "auto",
+                       svs_itn: bool = True, use_svs: bool = False,
+                       hotwords: Optional[dict] = None,
                        chunk_size=None) -> TwoPassSession:
         if self.vad_params is None:
             raise ValueError("2pass/online needs a VAD model")
@@ -128,29 +184,33 @@ class ServerModels:
                 cmvn=self.asr_cmvn, device=self.device)
         offline = None
         if mode != "online":
-            offline = ParaformerOffline(self.asr_params, self.asr_cfg,
-                                        self.vocab, cmvn=self.asr_cmvn,
-                                        device=self.device)
+            offline = self._pass2(use_svs, svs_lang, svs_itn, hotwords)
         return TwoPassSession(
             vad, online, offline, punc=self._punctuator(), itn=self.itn,
             mode=mode, hw_emb=hw_emb, use_itn=use_itn)
 
     def create_offline_recognizer(self, vad_tail_sil: int = 800,
                                   vad_max_len: int = 60000,
+                                  use_svs: bool = False,
+                                  svs_lang: str = "auto",
+                                  svs_itn: bool = True,
                                   hotwords: Optional[dict] = None
                                   ) -> OfflineRecognizer:
-        """Offline (whole-file) recognizer with VAD, punctuation and ITN.
-        `hotwords` select LM and SenseVoice biasing in the JAX package,
-        neither of which is ported yet."""
-        asr = ParaformerOffline(self.asr_params, self.asr_cfg, self.vocab,
-                                cmvn=self.asr_cmvn, device=self.device)
+        """Offline (whole-file) recognizer with VAD, punctuation and ITN;
+        SenseVoice as pass 2 with use_svs, biased by `hotwords` through
+        its context graph. A Paraformer takes hotword embeddings per
+        transcribe call instead."""
         return OfflineRecognizer(
-            asr, vad_params=self.vad_params, vad_cfg=self.vad_cfg,
+            self._pass2(use_svs, svs_lang, svs_itn, hotwords),
+            vad_params=self.vad_params, vad_cfg=self.vad_cfg,
             vad_cmvn=self.vad_cmvn, punc=self._punctuator(), itn=self.itn,
             vad_tail_sil=vad_tail_sil, vad_max_len=vad_max_len)
 
     def offline_recognizer_cached(self, vad_tail_sil: int = 800,
                                   vad_max_len: int = 60000,
+                                  use_svs: bool = False,
+                                  svs_lang: str = "auto",
+                                  svs_itn: bool = True,
                                   hotwords: Optional[dict] = None,
                                   max_cached: int = 32
                                   ) -> OfflineRecognizer:
@@ -158,7 +218,7 @@ class ServerModels:
         the server must NOT rebuild recognizers on every offline upload.
         LRU-bounded so a hostile stream of unique hotword sets cannot grow
         memory unboundedly."""
-        key = (vad_tail_sil, vad_max_len,
+        key = (vad_tail_sil, vad_max_len, use_svs, svs_lang, svs_itn,
                tuple(sorted(hotwords.items())) if hotwords else None)
         with self._res_lock:
             rec = self._offline_rec_cache.get(key)
@@ -167,6 +227,7 @@ class ServerModels:
                 return rec
         rec = self.create_offline_recognizer(
             vad_tail_sil=vad_tail_sil, vad_max_len=vad_max_len,
+            use_svs=use_svs, svs_lang=svs_lang, svs_itn=svs_itn,
             hotwords=hotwords)
         with self._res_lock:
             self._offline_rec_cache[key] = rec

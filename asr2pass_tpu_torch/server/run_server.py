@@ -2,19 +2,26 @@
 
     python -m asr2pass_tpu_torch.server.run_server --model-dir DIR \\
         --online-model-dir DIR --vad-dir DIR --punc-dir DIR --engine
+    python -m asr2pass_tpu_torch.server.run_server --model-dir DIR \
+        --vad-dir DIR --punc-dir DIR --svs-dir DIR --engine
     python -m asr2pass_tpu_torch.server.run_server --demo --device cpu
 
 Counterpart of scripts/run_server.py (the role of
 funasr-wss-server-2pass.cpp main), with the flags whose modules are
 ported. The model directories are the ones both packages read and write
-(runtime/model_zoo.py). --demo builds random tiny models (protocol and
-load testing without trained weights). The models run on --device:
-cuda (the default), cuda:N, or cpu for the plain PyTorch path.
+(runtime/model_zoo.py). A --model-dir whose weights carry a
+`hotword_compiler` subtree (a converted hotword model) serves NN hotword
+biasing: first-message hotwords compile into embeddings, with the dir's
+seg_dict for English words when it has one. --svs-dir makes SenseVoice
+pass 2. --demo builds random tiny models (protocol and load testing
+without trained weights). The models run on --device: cuda (the
+default), cuda:N, or cpu for the plain PyTorch path.
 """
 from __future__ import annotations
 
 import argparse
 import logging
+import os
 import ssl
 
 
@@ -25,6 +32,18 @@ def parser() -> argparse.ArgumentParser:
     p.add_argument("--online-model-dir", help="streaming model directory")
     p.add_argument("--vad-dir", help="VAD model directory")
     p.add_argument("--punc-dir", help="punctuation model directory")
+    p.add_argument("--svs-dir",
+                   help="SenseVoice-small model dir (pass-2 alternative; "
+                        "the reference's MODEL_SVS role). When set, 2pass "
+                        "finals and offline uploads decode through "
+                        "SenseVoice instead of the offline Paraformer")
+    p.add_argument("--svs-beam", type=int, default=0,
+                   help="SenseVoice CTC prefix-beam width (0/1 = greedy; "
+                        "hotworded connections always get the context-"
+                        "biased beam, sensevoice-small.cpp:392-440)")
+    p.add_argument("--hotword-file", default="",
+                   help="server-side hotwords, one 'word [score]' a line, "
+                        "merged with each connection's")
     p.add_argument("--itn", action=argparse.BooleanOptionalAction,
                    default=True,
                    help="rule-based Chinese ITN on finals (default on, like "
@@ -101,15 +120,53 @@ def build_models(args):
                 args.punc_dir)
             kw.update(punc_params=punc_sd, punc_cfg=punc_cfg,
                       punc_tokenizer=punc_tok)
+        if b.hotword_params is not None:
+            # a converted hotword model: its compiler rides in the ASR
+            # weights (the JAX converter writes bias_encoder/bias_embed
+            # as hotword_compiler), with the dir's seg_dict for English
+            # BPE pieces (the reference loads both from the hotword model
+            # dir, funasr-wss-server-2pass.cpp:195-502)
+            from asr2pass_tpu_torch.config import HotwordConfig
+            from asr2pass_tpu_torch.models.hotword import SegDict
+
+            kw.update(hotword_params=b.hotword_params,
+                      hotword_cfg=HotwordConfig())
+            sd_path = os.path.join(args.model_dir, "seg_dict")
+            if os.path.exists(sd_path):
+                kw["seg_dict"] = SegDict(sd_path)
+        if args.svs_dir:
+            sb = model_zoo.load_svs_bundle(args.svs_dir)
+            kw.update(svs_params=sb.params, svs_cfg=sb.cfg,
+                      svs_vocab=sb.vocab, svs_cmvn=sb.cmvn)
         models = ServerModels(
             asr_params=b.params, asr_cfg=b.cfg, vocab=b.vocab,
-            asr_cmvn=b.cmvn,
+            asr_cmvn=b.cmvn, svs_beam=args.svs_beam,
             device=args.device, **kw)
     if args.itn:
         from asr2pass_tpu_torch.text.itn import ChineseITN
 
         models.itn = ChineseITN()
+    if args.hotword_file and os.path.exists(args.hotword_file):
+        models.server_hotwords = read_hotword_file(args.hotword_file)
     return models
+
+
+def read_hotword_file(path: str) -> dict:
+    """Server-side hotwords (ExtractHws role, util.cpp:1001-1096): one
+    hotword a line, its score last when the line has one (default 20)."""
+    hws = {}
+    with open(path, encoding="utf-8") as f:
+        for line in f:
+            parts = line.strip().split(" ")
+            if len(parts) >= 2:
+                try:
+                    hws[" ".join(parts[:-1])] = int(parts[-1])
+                    continue
+                except ValueError:
+                    pass
+            if parts and parts[0]:
+                hws[parts[0]] = 20
+    return hws
 
 
 def main(argv=None):

@@ -12,8 +12,8 @@ Speaks the exact JSON+binary protocol of the reference servers
 
 Counterpart of asr2pass_tpu/server/ws_server.py. The models run on the
 device of the ServerModels (the card unless it was built with
-device="cpu"); the SenseVoice first-message options (svs_lang, svs_itn)
-are accepted and ignored until SenseVoice is ported. Threading model:
+device="cpu"); with a SenseVoice model loaded, pass 2 runs SenseVoice
+with the connection's svs_lang and svs_itn. Threading model:
 instead of the reference's decoder-thread pool with per-connection
 strands (funasr-wss-server-2pass.cpp:511-538), decoding runs on one
 executor thread per process (the card is the shared compute resource);
@@ -76,6 +76,8 @@ class ConnectionState:
         self.wav_format = "pcm"
         self.audio_fs = 16000
         self.itn = True
+        self.svs_lang = "auto"
+        self.svs_itn = True
         self.session = None
         self.offline_buf = bytearray()
         self.hw_emb = None
@@ -168,6 +170,8 @@ class AsrWsServer:
         rec = self.models.offline_recognizer_cached(
             vad_tail_sil=st.vad_tail_sil or 800,
             vad_max_len=st.vad_max_len or 60000,
+            use_svs=self.models.svs_params is not None,
+            svs_lang=st.svs_lang, svs_itn=st.svs_itn,
             hotwords=getattr(st, "hotwords", None),
         )
         with METRICS.stage("offline_decode"):
@@ -212,6 +216,8 @@ class AsrWsServer:
                 except (TypeError, ValueError):
                     bad.append("audio_fs")
             st.itn = bool(obj.get("itn", st.itn))
+            st.svs_lang = obj.get("svs_lang", st.svs_lang)
+            st.svs_itn = bool(obj.get("svs_itn", st.svs_itn))
             for fld in ("vad_tail_sil", "vad_max_len"):
                 v = obj.get(fld)
                 if v is None:
@@ -279,7 +285,10 @@ class AsrWsServer:
                     lambda: self.models.create_session(
                         mode=st.mode, vad_tail_sil=st.vad_tail_sil,
                         vad_max_len=st.vad_max_len, hw_emb=_hw,
-                        use_itn=st.itn, chunk_size=_cs,
+                        use_itn=st.itn, svs_lang=st.svs_lang,
+                        svs_itn=st.svs_itn,
+                        use_svs=self.models.svs_params is not None,
+                        hotwords=hotwords, chunk_size=_cs,
                     ))
             elif (st.chunk_size is not None and self.use_engine
                   and st.mode != "offline"):
@@ -406,7 +415,8 @@ class AsrWsServer:
                     st.engine_sid = self.engine.open(
                         hw_emb=st.hw_emb,
                         hotwords=getattr(st, "hotwords", None),
-                        use_itn=st.itn, vad_tail_sil=st.vad_tail_sil,
+                        use_itn=st.itn, svs_lang=st.svs_lang,
+                        svs_itn=st.svs_itn, vad_tail_sil=st.vad_tail_sil,
                         vad_max_len=st.vad_max_len, mode=st.mode,
                     )
             except EngineAtCapacity as e:

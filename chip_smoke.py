@@ -71,10 +71,35 @@ Phases, each of which fails the run if it fails:
               partial and final latency, the pass-2 lane's batches,
               audio-s/s, peak memory and a traced window of 10 ticks;
               kernel #1 fp32 is timed at the lane's batch shape too
+  9. hotword  9a: the deployed hotword model, paraformer_large(timestamp,
+   and svs    hotword) with a converted HotwordConfig() compiler (no null
+              row) and a seg_dict, saved as a dir and loaded through
+              build_models; 20 compiled hotwords card vs CPU (1e-5);
+              recognize_batch on 16 x 15 s (4 with 5 hotwords, 4 with 20,
+              8 without) must run exactly 3 forwards and launch #1 fp32
+              50 times each (the decoder's cross Tq = 136 is below the
+              kernel's gate at bucket 256); one hotworded segment card vs
+              CPU; compile ms for 20 and 200 hotwords; 16 x 60 s audio-s/s
+              with and without hotwords (66 launches a forward).
+              9b: sensevoice_small() + a 20-block tp stack as an svs dir;
+              recognize_batch on 60, 150, 270 s must launch #1, #2, #3
+              70 times each (T = 1028, 3076, 5124) and return meta ids;
+              one 15 s segment card vs CPU (logits, greedy ids, beam-10
+              n-best with a 5-word context graph) and the beam's host ms
+              there; 16 x 60 s greedy audio-s/s and a profile.
+              9c: the server on the 9a models, --engine at capacity 128,
+              16 paced connections, 8 with hotwords: one final per burst,
+              embeddings in exactly the hotworded segments' forwards, c0's
+              finals equal a create_session(hw_emb=...) session's.
+              9d: the same launch with --svs-dir: svs_lang cycling zh,
+              en, auto, 4 connections with hotwords; #1 fp32 launched 70
+              times per pass-2 forward at T = 260; a 60 s offline upload
+              equal to OfflineRecognizer.transcribe. Prints latencies and
+              the engine's idle share
 
 Prints the card's name and power limit, one JSON line of kernel numbers
 ({"kernels": [...]}, with each kernel's launches on the offline path, in
-the 2pass session and in the engine run), and as its last line
+the 2pass session, in the engine run and on phase 9's paths), and as its last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 Exits non-zero, printing no result, without a CUDA device or outside a
 checkout. Imports nothing of JAX or of the JAX package.
@@ -161,13 +186,14 @@ VAD_TAIL_SIL_MS = 350
 TRACE_TICKS = 10
 
 
-def reference_first_message(mode: str, wav_name: str) -> str:
+def reference_first_message(mode: str, wav_name: str, **fields) -> str:
+    """The reference client's first message; `fields` replace some."""
     return json.dumps({
         "mode": mode, "chunk_size": [5, 10, 5], "chunk_interval": 10,
         "audio_fs": FS, "wav_name": wav_name, "wav_format": "pcm",
         "is_speaking": True, "hotwords": json.dumps({"阿里巴巴": 20}),
         "itn": True, "svs_itn": True, "vad_tail_sil": VAD_TAIL_SIL_MS,
-        "vad_max_len": 20000, "svs_lang": "auto",
+        "vad_max_len": 20000, "svs_lang": "auto", **fields,
     })
 
 
@@ -299,15 +325,19 @@ def device_profile(fn, label: str, host_ops: bool = True) -> dict:
 # phase 2: kernels against their plain versions
 # ---------------------------------------------------------------------------
 
-def _lengths(b: int, t: int, gen):
+def _lengths(b: int, t: int, gen, meta: int = 0):
+    """Key lengths of a pass-2 batch at T = t: its bucket is t - meta
+    (SenseVoice's encoder runs over meta = 4 prefix rows + the frames)."""
     import torch
 
+    bucket = t - meta
     if b == 1:             # one pass-2 segment of its bucket: t/2 < T <= t
-        return torch.randint(t // 2 + 1, t + 1, (1,), generator=gen,
-                             device="cuda")
-    lens = torch.randint(t // 4, t + 1, (b,), generator=gen, device="cuda")
+        return meta + torch.randint(bucket // 2 + 1, bucket + 1, (1,),
+                                    generator=gen, device="cuda")
+    lens = meta + torch.randint(bucket // 4, bucket + 1, (b,), generator=gen,
+                                device="cuda")
     lens[0] = t
-    lens[-1] = 0           # a batch-bucket padding row
+    lens[-1] = meta        # a batch-bucket padding row: only the meta rows
     return lens
 
 
@@ -323,9 +353,10 @@ def _tol_ratio(got, ref, limit) -> float:
     return ((got.float() - ref).abs() / limit).max().item()
 
 
-def kernel_case(name, shape, dtype, gen):
-    """One (entry point, shape, dtype) measurement. Returns a dict with the
-    JSON keys of the kernels line."""
+def kernel_case(name, shape, dtype, gen, meta: int = 0):
+    """One (entry point, shape, dtype) measurement; meta = 4 draws
+    SenseVoice's lengths (see _lengths). Returns a dict with the JSON keys
+    of the kernels line."""
     import torch
     import torch.nn.functional as F
 
@@ -344,7 +375,7 @@ def kernel_case(name, shape, dtype, gen):
             q = torch.randn(b, tq, d, generator=gen, device="cuda", dtype=dt)
             kv = torch.randn(b, tk, 2 * d, generator=gen, device="cuda",
                              dtype=dt)
-        lens = _lengths(b, tk, gen)
+        lens = _lengths(b, tk, gen, meta)
         mask = _mask(lens, tk)
         run = lambda: att.mh_flash_attention(q, kv, mask, h)
         plain = lambda: att.mh_attention_plain(q, kv, mask, h)
@@ -365,7 +396,7 @@ def kernel_case(name, shape, dtype, gen):
         # the main path's layout: split-head views of one fused projection
         qh, kh, vh = (a.unflatten(-1, (h, d)).transpose(1, 2)
                       for a in qkv.split(h * d, dim=-1))
-        lens = _lengths(b, t, gen)
+        lens = _lengths(b, t, gen, meta)
         mask = _mask(lens, t)
         fn = getattr(att, name)
         run = lambda: fn(qh, kh, vh, mask) if name == "_attention_flash" \
@@ -402,7 +433,8 @@ def kernel_case(name, shape, dtype, gen):
     torch.cuda.synchronize()
     if not torch.isfinite(got).all():
         fail(f"{name} {shape} {dtype}: non-finite output")
-    if zero_rows is not None and got[zero_rows].abs().max().item() != 0:
+    if (zero_rows is not None and bool(zero_rows.any())
+            and got[zero_rows].abs().max().item() != 0):
         fail(f"{name} {shape} {dtype}: length-0 rows are not exactly 0")
     err = (got.float() - ref).abs().max().item()
     ratio = _tol_ratio(got, ref, limit)
@@ -458,7 +490,45 @@ def kernel_case(name, shape, dtype, gen):
     }
 
 
+def print_case(name, r, tag: str = "") -> None:
+    tf32 = r["tf32_control_tol_ratio"]
+    tf32 = "" if tf32 is None else (
+        f"; TF32 control {tf32:.3f} (rounded to nearest "
+        f"{r['tf32_rna_control_tol_ratio']:.3f}, not gated)")
+    simt = r["bound_simt_ms"]
+    simt = "" if simt is None else \
+        f" (at the CUDA cores' fp32 rate {simt:.4f})"
+    print(f"kernel {name} {r['shape']} {r['dtype']}{tag}: "
+          f"max_abs_err {r['max_abs_err']:.3e} "
+          f"({r['tol_ratio']:.3f} of tolerance, fp32 result "
+          f"rounded once {r['rounded_once_tol_ratio']:.3f}; "
+          f"dropped-key control {r['control_tol_ratio']:.1f}"
+          f"{tf32}; "
+          f"vs the plain version in {r['dtype']} "
+          f"{r['max_abs_err_vs_plain_in_dtype']:.3e}), "
+          f"ms back to back / device / host: kernel "
+          f"{r['ms']:.4f} / {r['device_ms']:.4f} / "
+          f"{r['host_ms']:.4f}, plain {r['plain_ms']:.4f} / "
+          f"{r['plain_device_ms']:.4f} / {r['plain_host_ms']:.4f}, "
+          f"sdpa {r['library_ms']:.4f} / "
+          f"{r['library_device_ms']:.4f} / "
+          f"{r['library_host_ms']:.4f}; bound {r['bound_ms']:.4f} "
+          f"by {r['bound_by']}{simt}", flush=True)
+
+
+# SenseVoice's encoder runs over 4 meta rows + the bucket, fp32: #1 at the
+# engine lane's T = 260 (B = 16), one 60 s upload and the 16 x 60 s batch
+# (T = 1028), #2 at a 150 s upload (T = 3076), #3 at 270 s (T = 5124)
+SVS_KERNEL_CASES = [("mh_flash_attention", (16, 260, 260, 512, 4)),
+                    ("mh_flash_attention", (1, 1028, 1028, 512, 4)),
+                    ("mh_flash_attention", (16, 1028, 1028, 512, 4)),
+                    ("_attention_ss", (1, 4, 3076, 128)),
+                    ("_attention_flash", (1, 4, 5124, 128))]
+
+
 def kernel_phase(gen):
+    """Returns ({entry point: [runs]}, [SenseVoice runs]); a SenseVoice
+    run carries its entry point as "name"."""
     cases = {
         # main path: encoder self-attention at bucket 1024, decoder cross
         # with Tq = 1024//2+8; split-head at bucket 3072; long at 5120.
@@ -476,31 +546,15 @@ def kernel_phase(gen):
                 for dt in ("float32", "bfloat16") for s in shapes]
         results[name] = runs
         for r in runs:
-            tf32 = r["tf32_control_tol_ratio"]
-            tf32 = "" if tf32 is None else (
-                f"; TF32 control {tf32:.3f} (rounded to nearest "
-                f"{r['tf32_rna_control_tol_ratio']:.3f}, not gated)")
-            simt = r["bound_simt_ms"]
-            simt = "" if simt is None else \
-                f" (at the CUDA cores' fp32 rate {simt:.4f})"
-            print(f"kernel {name} {r['shape']} {r['dtype']}: "
-                  f"max_abs_err {r['max_abs_err']:.3e} "
-                  f"({r['tol_ratio']:.3f} of tolerance, fp32 result "
-                  f"rounded once {r['rounded_once_tol_ratio']:.3f}; "
-                  f"dropped-key control {r['control_tol_ratio']:.1f}"
-                  f"{tf32}; "
-                  f"vs the plain version in {r['dtype']} "
-                  f"{r['max_abs_err_vs_plain_in_dtype']:.3e}), "
-                  f"ms back to back / device / host: kernel "
-                  f"{r['ms']:.4f} / {r['device_ms']:.4f} / "
-                  f"{r['host_ms']:.4f}, plain {r['plain_ms']:.4f} / "
-                  f"{r['plain_device_ms']:.4f} / {r['plain_host_ms']:.4f}, "
-                  f"sdpa {r['library_ms']:.4f} / "
-                  f"{r['library_device_ms']:.4f} / "
-                  f"{r['library_host_ms']:.4f}; bound {r['bound_ms']:.4f} "
-                  f"by {r['bound_by']}{simt}", flush=True)
+            print_case(name, r)
+    svs = []
+    for name, shape in SVS_KERNEL_CASES:
+        r = dict(kernel_case(name, shape, "float32", gen, meta=4),
+                 name=name, path="sensevoice")
+        print_case(name, r, " (SenseVoice: 4 meta rows)")
+        svs.append(r)
     sdpa_route()
-    return results
+    return results, svs
 
 
 def sdpa_route() -> None:
@@ -953,8 +1007,8 @@ def two_pass_phase(model_dir: str, tmp: str, gen, card: str):
         rec["finite"].extend(torch.isfinite(x).all() for x in xs)
 
     def forward(fn):
-        def call(feats, lengths, hw_emb=None):
-            out = fn(feats, lengths, hw_emb)
+        def call(feats, lengths, *a):
+            out = fn(feats, lengths, *a)
             rec["t_lfr"].append(max(lengths))
             finite(out.logits, out.us_alphas, out.us_cif_peak)
             return out
@@ -1201,11 +1255,13 @@ def burst_stream(seed: int, n_bursts: int, total_s: float = None):
 
 
 async def ws_client(port: int, name: str, data: bytes, mode: str,
-                    pace: float = None, delay: float = 0.0):
-    """The reference client's sequence for one connection: first message,
-    9600-sample frames (every `pace` s after `delay`, or as fast as the
-    server takes them), {"is_speaking": false}; messages are read as they
-    come until the final. Returns (frame send times, [(recv time, msg)])."""
+                    pace: float = None, delay: float = 0.0,
+                    first: str = None):
+    """The reference client's sequence for one connection: first message
+    (`first`, or reference_first_message's), 9600-sample frames (every
+    `pace` s after `delay`, or as fast as the server takes them),
+    {"is_speaking": false}; messages are read as they come until the
+    final. Returns (frame send times, [(recv time, msg)])."""
     import asyncio
 
     import websockets
@@ -1215,7 +1271,7 @@ async def ws_client(port: int, name: str, data: bytes, mode: str,
     sends, msgs = [], []
     async with websockets.connect(f"ws://127.0.0.1:{port}",
                                   max_size=1 << 30) as ws:
-        await ws.send(reference_first_message(mode, name))
+        await ws.send(first or reference_first_message(mode, name))
 
         async def reader():
             while True:
@@ -1238,11 +1294,12 @@ async def ws_client(port: int, name: str, data: bytes, mode: str,
     return sends, msgs
 
 
-def check_stream(name, msgs, spans, segs, fcfg):
+def check_stream(name, msgs, spans, segs, fcfg, stamps: bool = True):
     """Phase 8's per-connection gates: exactly one is_final, the last
     message; one non-empty 2pass-offline result per burst, with timestamp
     and stamp_sents in the reference schema and its times inside its VAD
-    segment; non-empty 2pass-online partials."""
+    segment (stamps=False: a pass 2 without timestamps, SenseVoice's,
+    must send none); non-empty 2pass-online partials."""
     ms = [m for _, m in msgs]
     finals = [i for i, m in enumerate(ms) if m.get("is_final")]
     if finals != [len(ms) - 1] or any(m["wav_name"] != name for m in ms):
@@ -1252,6 +1309,10 @@ def check_stream(name, msgs, spans, segs, fcfg):
         fail(f"server: {name}: {len(offs)} pass-2 results and {len(segs)} "
              f"segments for {len(spans)} bursts")
     for m, (g0, _g1, n) in zip(offs, segs):
+        if not stamps:
+            if not m["text"] or "timestamp" in m:
+                fail(f"server: {name}: pass-2 result {m}")
+            continue
         n_mel = 1 + (n - fcfg.frame_length) // fcfg.frame_shift
         end = g0 + -(-n_mel // fcfg.lfr_n) * fcfg.lfr_n * fcfg.frame_shift_ms
         stamps = json.loads(m.get("timestamp", "[]"))
@@ -1460,9 +1521,9 @@ def server_phase(model_dir: str, tmp: str, card: str):
 
         forward = eng.offline.asr._forward
 
-        def logged_forward(feats, lengths, hw_emb=None):
+        def logged_forward(feats, lengths, *a):
             rec["fwd"].append(tuple(feats.shape[:2]))
-            return forward(feats, lengths, hw_emb)
+            return forward(feats, lengths, *a)
 
         reset = eng._reset_slot
 
@@ -1698,6 +1759,689 @@ def server_phase(model_dir: str, tmp: str, card: str):
     return launches, fwd, numbers
 
 
+# ---------------------------------------------------------------------------
+# phase 9: the deployed hotword Paraformer and SenseVoice pass 2
+# ---------------------------------------------------------------------------
+
+# latin hotwords; all but the last have a seg_dict entry (two CJK pieces)
+LATIN_WORDS = ("hello", "world", "cloud", "speech", "model", "tpu")
+HW_SEGMENTS = 16          # 9a: 16 x 15 s, 4 with 5 hotwords, 4 with 20
+SVS_TP_BLOCKS = 20        # the tp stack of a converted SenseVoiceSmall
+SVS_BEAM = 10
+SVS_CONTEXT_WORDS = 5
+P9_CONNECTIONS = 16       # 9c and 9d: paced connections, two bursts each
+SVS_LANGS = ("zh", "en", "auto")
+HW_TOL = 1e-5             # compiled embeddings card vs CPU (of their range)
+
+
+def cjk_tokens(vocab_size: int) -> list:
+    return ["<blank>", "<s>", "</s>", "<unk>"] + [
+        chr(0x4E00 + i) for i in range(vocab_size - 4)]
+
+
+def hotword_list(n: int, seed: int) -> dict:
+    """n hotwords, mixed: CJK words of 2-4 characters, every fourth a
+    latin word (through the seg_dict, or <unk> for the last)."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    words = {}
+    while len(words) < n:
+        if len(words) % 4 == 3:
+            w = LATIN_WORDS[len(words) // 4 % len(LATIN_WORDS)]
+            w = w if w not in words else f"{w}{len(words)}"
+        else:
+            w = "".join(chr(0x4E00 + int(k))
+                        for k in rng.integers(0, 8000, rng.integers(2, 5)))
+        words[w] = 20
+    return words
+
+
+def hotword_phase(tmp: str, gen, card: str):
+    """9a. The deployed hotword model: paraformer_large(timestamp=True,
+    hotword=True) with a converted hotword compiler (no null row) and a
+    seg_dict, saved as a dir and loaded through build_models. Returns
+    (models, parsed args, launches of the 16 x 15 s run, numbers)."""
+    import numpy as np
+    import torch
+
+    from asr2pass_tpu_torch.config import HotwordConfig, paraformer_large
+    from asr2pass_tpu_torch.frontend.fbank import num_frames
+    from asr2pass_tpu_torch.models import hotword, paraformer
+    from asr2pass_tpu_torch.ops import attention as att
+    from asr2pass_tpu_torch.runtime import model_zoo
+    from asr2pass_tpu_torch.runtime.offline_asr import ParaformerOffline
+    from asr2pass_tpu_torch.runtime.streaming_frontend import (
+        offline_frontend_device)
+    from asr2pass_tpu_torch.server.run_server import build_models, parser
+
+    t0 = time.perf_counter()
+    cfg = paraformer_large(timestamp=True, hotword=True)
+    tokens = cjk_tokens(cfg.vocab_size)
+    d = cfg.frontend.lfr_dim
+    cmvn = (np.full(d, -12.0, np.float32), np.full(d, 0.25, np.float32))
+    hw_dir = os.path.join(tmp, "hotword")
+    model_zoo.save_offline_bundle(
+        hw_dir, paraformer.init(cfg, gen, "cuda"), cfg, tokens, cmvn,
+        hotword_params=hotword.init(HotwordConfig(), gen, "cuda",
+                                    learned_null=False))
+    with open(os.path.join(hw_dir, "seg_dict"), "w", encoding="utf-8") as f:
+        for k, w in enumerate(LATIN_WORDS[:-1]):
+            f.write(f"{w}\t{tokens[10 + 2 * k]} {tokens[11 + 2 * k]}\n")
+    args = parser().parse_args([
+        "--model-dir", hw_dir,
+        "--online-model-dir", os.path.join(tmp, "online"),
+        "--vad-dir", os.path.join(tmp, "vad"),
+        "--punc-dir", os.path.join(tmp, "punc"),
+        "--engine", "--engine-capacity", str(ENGINE_CAPACITY),
+        "--host", "127.0.0.1", "--port", "0"])
+    models = build_models(args)
+    if (models.hotword_params is None or models.hotword_params.null is not None
+            or models.asr_params.decoder.hotword is None
+            or models.seg_dict is None or models.device.type != "cuda"):
+        fail("hotword: build_models did not wire the dir's hotword compiler, "
+             "hotword block and seg_dict on the card")
+    print(f"hotword: paraformer_large(timestamp=True, hotword=True) + "
+          f"HotwordConfig() compiler, saved and loaded through "
+          f"build_models with the online, VAD and punctuation dirs, "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    numbers = {"card": card}
+
+    # compiled embeddings, card vs CPU, and the compile's time
+    hot20 = hotword_list(20, 1)
+    emb20 = models.compile_hotwords(hot20)
+    cpu_hw = hotword.from_state_dict(
+        {k: v.cpu() for k, v in models.hotword_params.state_dict().items()},
+        "cpu")
+    emb20_c = hotword.compile_hotwords(cpu_hw, models.hotword_cfg,
+                                       list(hot20), models.vocab,
+                                       seg_dict=models.seg_dict)
+    hw_limit = HW_TOL * max(1.0, float(np.abs(emb20_c).max()))
+    hw_err = float(np.abs(emb20 - emb20_c).max())
+    if (emb20.shape != (21, models.asr_cfg.encoder.output_size)
+            or not hw_err <= hw_limit):
+        fail(f"hotword: 20 compiled hotwords {emb20.shape}, card vs cpu "
+             f"{hw_err:.3e} (limit {hw_limit:.3e})")
+    for n in (20, 200):
+        hot = hotword_list(n, 2)
+        models.compile_hotwords(hot)
+        ms = []
+        for _ in range(5):
+            t1 = time.perf_counter()
+            models.compile_hotwords(hot)
+            ms.append((time.perf_counter() - t1) * 1e3)
+        numbers[f"compile_{n}_ms_p50"] = _pct(ms, 50)
+    print(f"hotword: compile 20 hotwords card vs cpu max |err| {hw_err:.3e} "
+          f"(limit {hw_limit:.3e}); compile ms (p50 of 5) 20 hotwords "
+          f"{numbers['compile_20_ms_p50']:.2f}, 200 hotwords "
+          f"{numbers['compile_200_ms_p50']:.2f} on {card}", flush=True)
+
+    # recognize_batch: 16 x 15 s, 4 with 5 hotwords (6 rows, bucket 8),
+    # 4 with 20 (21 rows, bucket 32), 8 with none: three forwards
+    emb5 = models.compile_hotwords(hotword_list(5, 3))
+    asr = ParaformerOffline(models.asr_params, models.asr_cfg, models.vocab,
+                            cmvn=models.asr_cmvn)
+    segs = [synth_audio(15.0, 500 + i) for i in range(HW_SEGMENTS)]
+    hw_embs = [emb5] * 4 + [emb20] * 4 + [None] * 8
+    forwards = []
+    forward = asr._forward
+
+    def logged(feats, lens, hw_batch=None, hw_lens=None):
+        out = forward(feats, lens, hw_batch, hw_lens)
+        forwards.append((feats.shape[0], feats.shape[1],
+                         None if hw_batch is None else hw_batch.shape[1],
+                         tuple(hw_lens or ())))
+        if not all(torch.isfinite(getattr(out, k)).all() for k in (
+                "logits", "us_alphas", "us_cif_peak")):
+            fail("hotword: non-finite forward outputs")
+        return out
+
+    asr._forward = logged
+    torch.cuda.synchronize()
+    att.reset_launch_counts()
+    outs = asr.recognize_batch(segs, hw_embs=hw_embs)
+    torch.cuda.synchronize()
+    launches = att.launch_counts_by_dtype()
+    asr._forward = forward
+    want_fwd = sorted([(4, 256, 8, (6,) * 4), (4, 256, 32, (21,) * 4),
+                       (8, 256, None, ())], key=str)
+    want = sum(50 + (16 if t // 2 + 8 >= 256 else 0)
+               for _, t, _, _ in forwards)
+    got = launches["mh_flash_attention"]["float32"]
+    others = sum(n for name, by in launches.items() for dt, n in by.items()
+                 if (name, dt) != ("mh_flash_attention", "float32"))
+    print(f"hotword: recognize_batch {HW_SEGMENTS} x 15 s: forwards (B, "
+          f"T, hotword rows, hotword counts) {forwards}; kernel launches "
+          f"{launches} (expected mh_flash_attention fp32 {want})",
+          flush=True)
+    if (sorted(forwards, key=str) != want_fwd or got != want or others
+            or not all(text and ts for text, ts in outs)):
+        fail(f"hotword: recognize_batch ran forwards {forwards} and "
+             f"launched {launches}; expected {want_fwd} and "
+             f"mh_flash_attention fp32 {want} times and nothing else")
+
+    # card vs CPU: one hotworded 15 s segment, front-end and forward
+    fcfg = models.asr_cfg.frontend
+    seg = segs[0]
+    n_mel = num_frames(len(seg), fcfg)
+    t_lfr = -(-n_mel // fcfg.lfr_n)
+    cpu = ParaformerOffline(
+        {k: v.cpu() for k, v in models.asr_params.state_dict().items()},
+        models.asr_cfg, models.vocab, cmvn=models.asr_cmvn, device="cpu")
+    res = []
+    for rec_, dev in ((cpu, "cpu"), (asr, "cuda")):
+        feats = offline_frontend_device([seg], [n_mel], 256, fcfg,
+                                        *models.asr_cmvn, batch_b=1,
+                                        device=dev)
+        with torch.inference_mode():
+            out = rec_._forward(feats, [t_lfr], emb5[None],
+                                [emb5.shape[0]])
+        res.append((int(out.token_num[0]), out.logits[0].cpu()))
+    del cpu
+    (n_c, l_c), (n_g, l_g) = res
+    limit = CPU_TOL * max(1.0, l_c[:n_c].abs().max().item())
+    err = ((l_g[:n_c] - l_c[:n_c]).abs().max().item() if n_g == n_c
+           else float("inf"))
+    print(f"hotword: card vs cpu, one 15 s segment with 5 hotwords: "
+          f"token_num {n_g}/{n_c}, max |logits| err {err:.3e} (limit "
+          f"{limit:.3e})", flush=True)
+    if not err <= limit:
+        fail(f"hotword: card vs cpu logits differ by {err:.3e}")
+    numbers.update(hw_emb_max_abs_err=hw_err, logits_max_abs_err=err,
+                   logits_limit=limit)
+
+    # 16 x 60 s, every segment with the 20 hotwords and with none: one
+    # forward at bucket 1024, 66 launches with hotwords too
+    batch = [synth_audio(60.0, 100 + i) for i in range(16)]
+    for label, embs in (("hotwords", [emb20] * 16), ("none", None)):
+        asr.recognize_batch(batch, hw_embs=embs)
+        torch.cuda.synchronize()
+        att.reset_launch_counts()
+        t1 = time.perf_counter()
+        for _ in range(2):
+            asr.recognize_batch(batch, hw_embs=embs)
+        rate = 16 * 60.0 / ((time.perf_counter() - t1) / 2)
+        n = att.launch_counts_by_dtype()["mh_flash_attention"]["float32"]
+        numbers[f"rate_16x60_{label}"] = rate
+        print(f"hotword: recognize_batch 16 x 60 s fp32, {label}: "
+              f"{rate:.1f} audio-s/s on {card}; {n / 2:.0f} "
+              f"mh_flash_attention launches a forward", flush=True)
+        if n != 2 * 66:
+            fail(f"hotword: 16 x 60 s ({label}) launched {n / 2} a forward")
+    print(f"hotword: 9a {time.perf_counter() - t0:.1f} s", flush=True)
+    return models, args, launches, numbers
+
+
+def sensevoice_phase(tmp: str, gen, card: str):
+    """9b. sensevoice_small() with a 20-block tp stack, saved as an svs
+    dir and loaded back. Returns (svs dir, launches of the 60/150/270 s
+    run, numbers)."""
+    import numpy as np
+    import torch
+
+    from asr2pass_tpu_torch.config import sensevoice_small
+    from asr2pass_tpu_torch.decode.context_graph import ContextGraph
+    from asr2pass_tpu_torch.decode.ctc import ctc_prefix_beam_search_pruned
+    from asr2pass_tpu_torch.frontend.fbank import num_frames
+    from asr2pass_tpu_torch.models import sensevoice
+    from asr2pass_tpu_torch.ops import attention as att
+    from asr2pass_tpu_torch.parallel.ctc_shard import ctc_first_prune_gather
+    from asr2pass_tpu_torch.runtime import model_zoo
+    from asr2pass_tpu_torch.runtime.sensevoice_asr import (
+        SenseVoiceOffline, _merge_candidates, context_unit_ids)
+    from asr2pass_tpu_torch.runtime.streaming_frontend import (
+        offline_frontend_device)
+    from asr2pass_tpu_torch.utils import to_host
+
+    t0 = time.perf_counter()
+    cfg = sensevoice_small()
+    tokens = cjk_tokens(cfg.vocab_size)
+    d = cfg.frontend.lfr_dim
+    cmvn = (np.full(d, -12.0, np.float32), np.full(d, 0.25, np.float32))
+    svs_dir = os.path.join(tmp, "svs")
+    model_zoo.save_svs_bundle(
+        svs_dir, sensevoice.init(cfg, gen, "cuda", tp_blocks=SVS_TP_BLOCKS),
+        cfg, tokens, cmvn)
+    sb = model_zoo.load_svs_bundle(svs_dir)
+    rec = SenseVoiceOffline(sb.params, sb.cfg, sb.vocab, cmvn=sb.cmvn)
+    n_params = sum(p.numel() for p in rec.model.parameters())
+    if rec.model.tp is None or len(rec.model.tp.rest) != SVS_TP_BLOCKS \
+            or sb.cfg != cfg:
+        fail("sensevoice: the svs dir does not load back its tp stack or "
+             "configuration")
+    print(f"sensevoice: sensevoice_small() + {SVS_TP_BLOCKS}-block tp "
+          f"stack, {n_params} params, init+save+load "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    numbers = {"card": card}
+
+    # 60, 150 and 270 s requests in one recognize_batch: one forward each
+    # at T = 1028 (#1), 3076 (#2) and 5124 (#3), 50 + 20 launches each
+    forwards = []
+    forward = rec._forward
+
+    def logged(feats, lens, *a):
+        out = forward(feats, lens, *a)
+        forwards.append(tuple(feats.shape[:2]))
+        if not torch.isfinite(out.logits).all():
+            fail("sensevoice: non-finite logits")
+        return out
+
+    rec._forward = logged
+    audio = [synth_audio(s, seed) for s, seed in ((60.0, 1), (150.0, 2),
+                                                  (270.0, 3))]
+    torch.cuda.synchronize()
+    att.reset_launch_counts()
+    t1 = time.perf_counter()
+    outs = rec.recognize_batch(audio, with_meta=True)
+    dt = time.perf_counter() - t1
+    launches = att.launch_counts_by_dtype()
+    rec._forward = forward
+    print(f"sensevoice: recognize_batch 60 + 150 + 270 s: {dt:.2f} s, "
+          f"forwards (B, T) {forwards}, chars "
+          f"{[len(t) for t, _, _ in outs]}, meta {[m for _, _, m in outs]}; "
+          f"kernel launches {launches}", flush=True)
+    blocks = cfg.encoder.num_blocks + SVS_TP_BLOCKS
+    want = {"mh_flash_attention": blocks, "_attention_ss": blocks,
+            "_attention_flash": blocks}
+    if (sorted(forwards) != [(1, 1024), (1, 3072), (1, 5120)]
+            or any(launches[k]["float32"] != n for k, n in want.items())
+            or any(by["bfloat16"] for by in launches.values())
+            or not all(t and len(m) == 4
+                       and all(0 <= x < cfg.vocab_size for x in m)
+                       for t, _, m in outs)):
+        fail(f"sensevoice: forwards {forwards}, launches {launches}, "
+             f"expected {want} in float32; texts and meta ids {outs}")
+
+    # card vs CPU on one 15 s segment: logits, greedy ids, and the beam's
+    # n-best with a 5-word context graph
+    seg = synth_audio(15.0, 4)
+    fcfg = cfg.frontend
+    n_mel = num_frames(len(seg), fcfg)
+    t_lfr = -(-n_mel // fcfg.lfr_n)
+    cpu = SenseVoiceOffline({k: v.cpu() for k, v in
+                             rec.model.state_dict().items()},
+                            sb.cfg, sb.vocab, cmvn=sb.cmvn, device="cpu")
+    res = []
+    for r, dev in ((cpu, "cpu"), (rec, "cuda")):
+        feats = offline_frontend_device([seg], [n_mel], 256, fcfg, *sb.cmvn,
+                                        batch_b=1, device=dev)
+        with torch.inference_mode():
+            out = r._forward(feats, [t_lfr])
+            greedy = sensevoice.greedy_ids(out)
+        res.append((out, [x.cpu() for x in greedy]))
+    (out_c, g_c), (out_g, g_g) = res
+    n = int(g_c[1][0])
+    ids_c = g_c[0][0, :n].tolist()
+    # the context words: pairs of the greedy tokens, so the bias acts
+    words = {"".join(sb.vocab.id2token(i) for i in ids_c[j: j + 2]): 40
+             for j in range(0, 2 * SVS_CONTEXT_WORDS, 2)}
+    ctx = ContextGraph().build(words)
+    hw_ids = context_unit_ids(ctx, sb.vocab.token2id)
+    nbest = []
+    for out in (out_c, out_g):
+        cid, clp, hw = to_host(list(ctc_first_prune_gather(out.logits,
+                                                           hw_ids)))
+        ln = int(out.lengths[0])
+        fid, flp = _merge_candidates(cid[0, 4:ln], clp[0, 4:ln], hw_ids,
+                                     hw[0, 4:ln])
+        t1 = time.perf_counter()
+        nbest.append(ctc_prefix_beam_search_pruned(
+            fid, flp, ln - 4, beam=SVS_BEAM, context=ctx,
+            id_to_token=sb.vocab.id2token))
+        beam_ms = (time.perf_counter() - t1) * 1e3
+    lc, lg = out_c.logits[0].cpu(), out_g.logits[0].cpu()
+    limit = CPU_TOL * max(1.0, lc.abs().max().item())
+    err = (lg - lc).abs().max().item()
+    same_greedy = all(torch.equal(a, b) for a, b in zip(g_c, g_g))
+    same_nbest = [h[0] for h in nbest[0]] == [h[0] for h in nbest[1]]
+    score_err = max(abs(a[1] - b[1]) for a, b in zip(*nbest))
+    print(f"sensevoice: card vs cpu, one 15 s segment (T={t_lfr + 4}): max "
+          f"|logits| err {err:.3e} (limit {limit:.3e}); greedy ids, counts "
+          f"and meta equal {same_greedy} ({n} ids); beam {SVS_BEAM} with "
+          f"a {len(words)}-word context graph: n-best equal {same_nbest}, "
+          f"max score diff {score_err:.3e}, best {len(nbest[1][0][0])} "
+          f"ids (greedy {n}); the beam took {beam_ms:.1f} ms on the host",
+          flush=True)
+    if not (err <= limit and same_greedy and same_nbest):
+        fail("sensevoice: card and cpu differ")
+    del cpu, out_c
+    numbers.update(logits_max_abs_err=err, logits_limit=limit,
+                   beam_15s_ms=beam_ms, beam_frames=t_lfr,
+                   beam_candidates=64 + len(hw_ids))
+
+    # throughput: 16 x 60 s, greedy
+    batch = [synth_audio(60.0, 100 + i) for i in range(16)]
+    rec.recognize_batch(batch)
+    torch.cuda.synchronize()
+    att.reset_launch_counts()
+    t1 = time.perf_counter()
+    for _ in range(2):
+        rec.recognize_batch(batch)
+    rate = 16 * 60.0 / ((time.perf_counter() - t1) / 2)
+    n1 = att.launch_counts_by_dtype()["mh_flash_attention"]["float32"]
+    numbers["rate_16x60_greedy"] = rate
+    print(f"speed: SenseVoice recognize_batch 16 x 60 s fp32 greedy: "
+          f"{rate:.1f} audio-s/s on {card}; {n1 / 2:.0f} "
+          f"mh_flash_attention launches a forward (T = 1028)", flush=True)
+    if n1 != 2 * blocks:
+        fail(f"sensevoice: 16 x 60 s launched {n1 / 2} a forward")
+    numbers["profile"] = device_profile(
+        lambda: rec.recognize_batch(batch),
+        "SenseVoice recognize_batch 16 x 60 s fp32")
+    print(f"sensevoice: 9b {time.perf_counter() - t0:.1f} s", flush=True)
+    return svs_dir, launches, numbers
+
+
+def p9_server(models, args, label: str, firsts: list, card: str):
+    """9c/9d: the server on `models`, P9_CONNECTIONS paced connections of
+    two bursts each with the given first messages. Returns (the clients'
+    (sends, msgs), bursts, record, launches, numbers)."""
+    import asyncio
+
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from asr2pass_tpu_torch.ops import attention as att
+    from asr2pass_tpu_torch.runtime.metrics import GLOBAL as METRICS
+    from asr2pass_tpu_torch.server.ws_server import AsrWsServer
+
+    rec = {"ticks": [], "segs": {}, "fwd": [], "pairs": [], "vad": [],
+           "uniform": []}
+    numbers = {"card": card}
+    streams = [burst_stream(3000 + i, 2) for i in range(len(firsts))]
+
+    async def main():
+        server = AsrWsServer(
+            models, host=args.host, port=args.port,
+            decode_workers=args.decode_workers, use_engine=True,
+            engine_capacity=args.engine_capacity,
+            max_message_bytes=args.max_message_mb << 20,
+            max_upload_bytes=args.max_upload_mb << 20)
+        srv = await server.serve()
+        port = srv.sockets[0].getsockname()[1]
+        eng = server.engine
+        asr = eng.offline.asr
+
+        def conn_name(sid, slot):
+            conn = server._engine_conns.get(sid)
+            return (conn[1].wav_name if conn is not None
+                    and eng.slots[sid] is slot else None)
+
+        step, process, recognize = (eng.step, eng._process_segments,
+                                    asr.recognize_batch)
+        forward, reset = asr._forward, eng._reset_slot
+        current = []
+
+        def timed_step():
+            t1 = time.perf_counter()
+            step()
+            rec["ticks"].append(time.perf_counter() - t1)
+
+        def logged_segments(pairs, settled=None):
+            current[:] = pairs
+            for sid, slot, fr in pairs:
+                rec["segs"].setdefault(conn_name(sid, slot), []).append(
+                    (fr.global_start, fr.global_end, len(fr.data)))
+            return process(pairs, settled)
+
+        def logged_recognize(segs, **kw):
+            # per pair: its connection, and what its options gave pass 2
+            for i, (sid, slot, _) in enumerate(current):
+                rec["pairs"].append((
+                    conn_name(sid, slot),
+                    (kw.get("hw_embs") or [None] * len(segs))[i] is not None,
+                    (kw.get("langs") or [None] * len(segs))[i],
+                    (kw.get("contexts") or [None] * len(segs))[i]
+                    is not None))
+            return recognize(segs, **kw)
+
+        def logged_forward(feats, lens, *a):
+            rec["fwd"].append(tuple(feats.shape[:2]))
+            if label == "9c" and a and a[0] is not None:
+                # a hotword forward: every real row carries hotwords
+                rec["uniform"].append(all(
+                    h > 0 for n, h in zip(lens, a[1]) if n))
+            return forward(feats, lens, *a)
+
+        def recording_reset(sid):
+            reset(sid)
+            slot = eng.slots[sid]
+            sm, name = slot.sm, []
+
+            def call(scores, samples, is_final=False, **kw):
+                ev = sm(scores, samples, is_final=is_final, **kw)
+                if not name:
+                    name.append(conn_name(sid, slot))
+                if name[0] == "c0":
+                    rec["vad"].append((samples.copy(), is_final, ev))
+                return ev
+
+            slot.sm = call
+
+        eng.step, eng._process_segments = timed_step, logged_segments
+        asr.recognize_batch, asr._forward = logged_recognize, logged_forward
+        eng._reset_slot = recording_reset
+        prof = profile(activities=[ProfilerActivity.CUDA])
+        trace = {}
+
+        async def traced_window():
+            await asyncio.sleep(15.0)
+            n0 = len(rec["ticks"])
+            prof.start()
+            t1 = time.perf_counter()
+            deadline = t1 + 60
+            while (len(rec["ticks"]) < n0 + TRACE_TICKS
+                   and time.perf_counter() < deadline):
+                await asyncio.sleep(0.01)
+            trace["wall_ms"] = (time.perf_counter() - t1) * 1e3
+            trace["ticks"] = len(rec["ticks"]) - n0
+            prof.stop()
+
+        try:
+            METRICS.reset()
+            torch.cuda.synchronize()
+            att.reset_launch_counts()
+            t1 = time.perf_counter()
+            tracer = asyncio.create_task(traced_window())
+            clients = await asyncio.gather(*[
+                ws_client(port, f"c{i}", data, "2pass", PACE_S,
+                          i * PACE_S / len(firsts), first=first(f"c{i}"))
+                for i, ((data, _), first) in enumerate(zip(streams,
+                                                           firsts))])
+            await tracer
+            numbers["wall_s"] = time.perf_counter() - t1
+            launches = att.launch_counts_by_dtype()
+            numbers["stages"] = {
+                k: [v["p50_ms"], v["p95_ms"], v["count"]]
+                for k, v in METRICS.report()["stages"].items()}
+            offline = None
+            if label == "9d":
+                # one 60 s offline upload through the SenseVoice pass 2
+                # (greedy: no hotwords)
+                _, offline = await ws_client(
+                    port, "off", s16_bytes(synth_audio(60.0, 1)), "offline",
+                    first=reference_first_message("offline", "off",
+                                                  hotwords=""))
+        finally:
+            server._engine_task.cancel()
+            srv.close()
+            await srv.wait_closed()
+            server.engine.shutdown()
+            server.executor.shutdown(wait=False)
+            server._offline_executor.shutdown(wait=False)
+        busy = sum(e.device_time_total for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA
+                   and e.device_time_total > 0) / 1e3
+        if trace.get("ticks"):
+            numbers["trace_idle_share"] = (1 - busy / trace["wall_ms"]
+                                           if busy else None)
+            numbers["trace_wall_ms"] = trace["wall_ms"]
+        return clients, launches, offline
+
+    clients, launches, offline = asyncio.run(main())
+    partial, final = [], []
+    for (sends, msgs), (_, spans) in zip(clients, streams):
+        p, f = server_latencies(sends, msgs, spans)
+        partial += p
+        final += f
+    numbers.update({
+        "partial_ms_p50": _pct(partial, 50), "partial_ms_p95": _pct(partial, 95),
+        "final_ms_p50": _pct(final, 50), "final_ms_p95": _pct(final, 95),
+        "tick_ms_p50": _pct([x * 1e3 for x in rec["ticks"]], 50),
+        "tick_ms_p95": _pct([x * 1e3 for x in rec["ticks"]], 95),
+        "pass2_forwards": [list(s) for s in rec["fwd"]]})
+    idle = numbers.get("trace_idle_share")
+    print(f"server: {label}, {len(firsts)} paced connections, "
+          f"{numbers['wall_s']:.1f} s: partial p50/p95 "
+          f"{numbers['partial_ms_p50']:.1f} / {numbers['partial_ms_p95']:.1f}"
+          f" ms; final p50/p95 {numbers['final_ms_p50']:.1f} / "
+          f"{numbers['final_ms_p95']:.1f} ms; tick p50/p95 "
+          f"{numbers['tick_ms_p50']:.1f} / {numbers['tick_ms_p95']:.1f} ms; "
+          f"engine idle share "
+          + (f"{idle:.3f}" if idle is not None else "not measured")
+          + f" over {TRACE_TICKS} ticks; pass-2 forwards (B, T) "
+          f"{rec['fwd']}; stages (p50, p95 ms, count) "
+          f"{json.dumps(numbers['stages'])} on {card}", flush=True)
+    return clients, streams, rec, launches, offline, numbers
+
+
+def hotword_server_phase(models, args, card: str):
+    """9c: the deployed hotword 2pass, --engine at capacity 128: 16 paced
+    connections, 8 with hotwords in the first message."""
+    t0 = time.perf_counter()
+    hots = [hotword_list(5, 10 + i) if i % 2 == 0 else None
+            for i in range(P9_CONNECTIONS)]
+    firsts = [lambda name, h=h: reference_first_message(
+        "2pass", name, hotwords=json.dumps(h) if h else "")
+        for h in hots]
+    clients, streams, rec, launches, _, numbers = p9_server(
+        models, args, "9c", firsts, card)
+    fcfg = models.asr_cfg.frontend
+    for i, ((_, msgs), (_, spans)) in enumerate(zip(clients, streams)):
+        check_stream(f"c{i}", msgs, spans, rec["segs"].get(f"c{i}", []),
+                     fcfg)
+    hotworded = {f"c{i}" for i, h in enumerate(hots) if h}
+    wrong = [(n, hw) for n, hw, _, _ in rec["pairs"]
+             if hw != (n in hotworded)]
+    if wrong or len(rec["pairs"]) != 2 * P9_CONNECTIONS \
+            or not all(rec["uniform"]):
+        fail(f"server: 9c hotword embeddings reached pass 2 for the wrong "
+             f"segments {wrong} ({len(rec['pairs'])} segments; forwards "
+             f"homogeneous {rec['uniform']})")
+    want = sum(50 + (16 if t // 2 + 8 >= 256 else 0)
+               for _, t in rec["fwd"] if t >= 256)
+    got = launches["mh_flash_attention"]["float32"]
+    others = sum(n for name, by in launches.items() for dt, n in by.items()
+                 if (name, dt) != ("mh_flash_attention", "float32"))
+    if want == 0 or got != want or others:
+        fail(f"server: 9c launched {launches}, expected mh_flash_attention "
+             f"{want} times in float32")
+    # c0 (hotworded) against a TwoPassSession with the same embeddings on
+    # the chunks the engine's automaton took for c0
+    sess = models.create_session(
+        mode="offline", vad_tail_sil=VAD_TAIL_SIL_MS, vad_max_len=20000,
+        hw_emb=models.compile_hotwords(hots[0]), use_itn=True)
+    sess_finals = [r.final_text for r in (
+        sess.feed(samples, fin) for samples, fin, _ in rec["vad"])
+        if r.final_text]
+    eng_finals = [m["text"] for _, m in clients[0][1]
+                  if m["mode"] == "2pass-offline"]
+    print(f"server: 9c kernel launches {launches} (expected "
+          f"mh_flash_attention fp32 {want}); hotworded segments "
+          f"{sum(hw for _, hw, _, _ in rec['pairs'])} of "
+          f"{len(rec['pairs'])}, each in a hotword forward; c0 finals equal "
+          f"a create_session(hw_emb=...) session's: "
+          f"{sess_finals == eng_finals}", flush=True)
+    if sess_finals != eng_finals or not eng_finals:
+        fail(f"server: 9c c0 finals {eng_finals} differ from the session's "
+             f"{sess_finals}")
+    print(f"server: 9c {json.dumps(numbers)}", flush=True)
+    print(f"server: 9c {time.perf_counter() - t0:.1f} s", flush=True)
+    return launches, numbers
+
+
+def svs_server_phase(args, svs_dir: str, card: str):
+    """9d: the same launch with --svs-dir (deploy/servers.yaml's
+    SenseVoice entry at capacity 128): 16 paced connections, svs_lang
+    cycling zh, en, auto, 4 with hotwords; then a 60 s offline upload."""
+    from asr2pass_tpu_torch.frontend.audio import load_pcm_bytes
+    from asr2pass_tpu_torch.runtime.sensevoice_asr import SenseVoiceOffline
+    from asr2pass_tpu_torch.server.run_server import build_models, parser
+
+    t0 = time.perf_counter()
+    argv = [a for k, v in vars(args).items() if k in (
+        "model_dir", "online_model_dir", "vad_dir", "punc_dir")
+        for a in (f"--{k.replace('_', '-')}", v)]
+    args = parser().parse_args(argv + [
+        "--svs-dir", svs_dir, "--engine", "--engine-capacity",
+        str(ENGINE_CAPACITY), "--host", "127.0.0.1", "--port", "0"])
+    models = build_models(args)
+    print(f"server: 9d models with --svs-dir loaded "
+          f"({time.perf_counter() - t0:.1f} s)", flush=True)
+    hots = [hotword_list(3, 20 + i) if i % 4 == 0 else None
+            for i in range(P9_CONNECTIONS)]
+    langs = [SVS_LANGS[i % 3] for i in range(P9_CONNECTIONS)]
+    firsts = [lambda name, h=h, lang=lang: reference_first_message(
+        "2pass", name, svs_lang=lang, hotwords=json.dumps(h) if h else "")
+        for h, lang in zip(hots, langs)]
+    clients, streams, rec, launches, offline, numbers = p9_server(
+        models, args, "9d", firsts, card)
+    fcfg = models.svs_cfg.frontend
+    for i, ((_, msgs), (_, spans)) in enumerate(zip(clients, streams)):
+        check_stream(f"c{i}", msgs, spans, rec["segs"].get(f"c{i}", []),
+                     fcfg, stamps=False)
+    wrong = [p for p in rec["pairs"]
+             if p[0] is None or p[2] != langs[int(p[0][1:])]
+             or p[3] != (hots[int(p[0][1:])] is not None)]
+    if wrong or len(rec["pairs"]) != 2 * P9_CONNECTIONS:
+        fail(f"server: 9d segments reached SenseVoice with the wrong "
+             f"options: {wrong}")
+    blocks = models.svs_cfg.encoder.num_blocks + len(
+        models.svs_params.tp.rest)
+    want = blocks * sum(t + 4 >= 256 for _, t in rec["fwd"])
+    got = launches["mh_flash_attention"]["float32"]
+    others = sum(n for name, by in launches.items() for dt, n in by.items()
+                 if (name, dt) != ("mh_flash_attention", "float32"))
+    print(f"server: 9d kernel launches {launches} (expected "
+          f"mh_flash_attention fp32 {want} = {blocks} x the forwards at "
+          f"T = 260)", flush=True)
+    if want == 0 or got != want or others:
+        fail(f"server: 9d launched {launches}, expected {want}")
+    ms = [m for _, m in offline]
+    ref = models.create_offline_recognizer(
+        vad_tail_sil=VAD_TAIL_SIL_MS, vad_max_len=20000,
+        use_svs=True).transcribe(
+        load_pcm_bytes(s16_bytes(synth_audio(60.0, 1))), use_itn=True)
+    if (not isinstance(models.create_offline_recognizer(use_svs=True).asr,
+                       SenseVoiceOffline)
+            or len(ms) != 1 or ms[0]["mode"] != "offline"
+            or ms[0]["text"] != ref.text or not ref.text):
+        fail(f"server: 9d offline upload gave {ms}, transcribe gives "
+             f"{ref.text!r}")
+    print(f"server: 9d, 60 s offline upload through SenseVoice: one final, "
+          f"{len(ms[0]['text'])} chars, equal to OfflineRecognizer."
+          f"transcribe", flush=True)
+    print(f"server: 9d {json.dumps(numbers)}", flush=True)
+    print(f"server: 9d {time.perf_counter() - t0:.1f} s", flush=True)
+    return launches, numbers
+
+
+def phase9(tmp: str, gen, card: str):
+    """Phase 9. Returns ({path: launches by entry point and dtype},
+    {sub-phase: numbers})."""
+    t0 = time.perf_counter()
+    models, args, l_hw, n_hw = hotword_phase(tmp, gen, card)
+    svs_dir, l_svs, n_svs = sensevoice_phase(tmp, gen, card)
+    l_hw_srv, n_hw_srv = hotword_server_phase(models, args, card)
+    del models
+    l_svs_srv, n_svs_srv = svs_server_phase(args, svs_dir, card)
+    print(f"phase 9: {time.perf_counter() - t0:.1f} s", flush=True)
+    return ({"hotword": l_hw, "svs": l_svs, "hotword_engine": l_hw_srv,
+             "svs_engine": l_svs_srv},
+            {"9a": n_hw, "9b": n_svs, "9c": n_hw_srv, "9d": n_svs_srv})
+
+
 def main() -> int:
     import torch
 
@@ -1724,13 +2468,14 @@ def main() -> int:
           flush=True)
 
     gen = torch.Generator(device="cuda").manual_seed(0)
-    kernels = kernel_phase(gen)
+    kernels, svs_kernels = kernel_phase(gen)
     with tempfile.TemporaryDirectory() as tmp:
         launches, speed = main_path(os.path.join(tmp, "model"), gen, card)
         launches_2pass, two_pass = two_pass_phase(
             os.path.join(tmp, "model"), tmp, gen, card)
         launches_engine, engine_fwd, server = server_phase(
             os.path.join(tmp, "model"), tmp, card)
+        launches_p9, p9 = phase9(tmp, gen, card)
     # kernel #1 fp32 at the engine's pass-2 shape: the largest batch the
     # lane ran at bucket 256
     b_eng = max(b for b, t in engine_fwd if t == 256)
@@ -1762,7 +2507,10 @@ def main() -> int:
     # at the entry point's first main-path shape, its other shapes as
     # variants; launches are the offline main path's run in that dtype,
     # launches_2pass the 2pass session's, launches_engine the paced server
-    # run's (8a); #1 fp32 carries the engine's pass-2 shape as a variant
+    # run's (8a), launches_<path> phase 9's (hotword: 9a's 16 x 15 s,
+    # svs: 9b's 60/150/270 s, hotword_engine: 9c, svs_engine: 9d); #1
+    # fp32 carries the engine's pass-2 shape as a variant, and the fp32
+    # entries SenseVoice's shapes (T = bucket + 4)
     line = []
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms", "device_ms", "host_ms", "plain_device_ms",
@@ -1783,12 +2531,18 @@ def main() -> int:
                     "launches_engine": launches_engine[name][dtype],
                     **{k: engine_case[k] for k in ("shape", "tol_ratio")
                        + keys}})
+            variants += [{"path": r["path"],
+                          **{k: r[k] for k in ("shape", "tol_ratio") + keys}}
+                         for r in svs_kernels
+                         if r["name"] == name and r["dtype"] == dtype]
             line.append({
                 "name": name, "route": "cuda", "source": source,
                 "replaces": REPLACES[name],
                 "launches": launches[dtype][name],
                 "launches_2pass": launches_2pass[name][dtype],
                 "launches_engine": launches_engine[name][dtype],
+                **{f"launches_{path}": by[name][dtype]
+                   for path, by in launches_p9.items()},
                 **{k: head[k] for k in keys},
                 "shape": head["shape"], "dtype": dtype,
                 "tol_ratio": head["tol_ratio"],
@@ -1796,6 +2550,7 @@ def main() -> int:
                 "variants": variants,
             })
     print(f"speed: {json.dumps(speed)}")
+    print(f"phase 9: {json.dumps(p9)}")
     print(f"total: {time.perf_counter() - t_start:.1f} s")
     print(card)
     print(json.dumps({"kernels": line}))

@@ -492,3 +492,88 @@ def test_engine_card_matches_cpu(dev, tick):
         res[device] = _engine_texts(models, kw, waves)
     assert res["cuda"] == res["cpu"]
     assert all(p and f for p, f in res["cpu"])
+
+
+# -- SenseVoice's shapes and the hotword compiler ------------------------------
+
+@pytest.mark.parametrize("entry,b,h,t_len,lens", [
+    # T = bucket + 4 (SenseVoice's meta rows): the last key tile holds 4
+    # valid keys, and a batch-padding row attends over the 4 meta keys
+    ("mh_flash_attention", 3, 4, 260, [260, 131, 4]),
+    ("mh_flash_attention", 2, 4, 516, [300, 4]),
+    ("mh_flash_attention", 1, 4, 1028, [1028]),
+    ("_attention_ss", 2, 4, 2052, [2052, 4]),
+    ("_attention_ss", 1, 4, 3076, [2000]),
+    ("_attention_flash", 1, 4, 5124, [5124]),
+    ("_attention_flash", 2, 4, 260, [4, 259]),
+])
+def test_kernel_at_sensevoice_shapes(dev, entry, b, h, t_len, lens):
+    """fp32, d_head 128 (SenseVoice-small's 512 / 4): the kernel against
+    its plain version within FP32_TOL."""
+    gen = torch.Generator(device=dev).manual_seed(2)
+    d = 128 * h
+    qkv = torch.randn(b, t_len, 3 * d, generator=gen, device=dev)
+    mask = _mask(lens, t_len, dev)
+    before = att.launch_counts()[entry]
+    if entry == "mh_flash_attention":
+        q, kv = qkv[..., :d], qkv[..., d:]
+        got = att.mh_flash_attention(q, kv, mask, h)
+        ref = _reference("mh", q, kv, mask, h)
+    else:
+        qh, kh, vh = (a.unflatten(-1, (h, 128)).transpose(1, 2)
+                      for a in qkv.split(d, dim=-1))
+        got = (att._attention_flash(qh, kh, vh, mask)
+               if entry == "_attention_flash"
+               else att._attention_ss(qh, kh, vh, mask, mask))
+        ref = _reference("split", qh, kh, vh, mask, mask)
+    assert att.launch_counts()[entry] == before + 1
+    _check(got, ref, torch.float32)
+
+
+def test_sensevoice_card_matches_cpu(dev):
+    """sensevoice_tiny with a 2-block tp stack at T = 256 + 4: all four
+    blocks reach kernel #1 on the card; logits within 1e-4, greedy ids,
+    counts and meta equal."""
+    from asr2pass_tpu_torch.config import sensevoice_tiny
+    from asr2pass_tpu_torch.models import sensevoice
+
+    cfg = sensevoice_tiny()
+    model = sensevoice.init(cfg, torch.Generator().manual_seed(3), "cpu",
+                            tp_blocks=2)
+    cuda_model = sensevoice.from_state_dict(model.state_dict(), cfg, dev)
+    feats = torch.from_numpy(np.random.default_rng(3).standard_normal(
+        (3, 256, 560)).astype(np.float32))
+    args = [torch.tensor(x) for x in ([256, 140, 0], [3, 4, 0],
+                                      [14, 15, 14])]
+    att.reset_launch_counts()
+    with torch.inference_mode():
+        got = sensevoice.apply(cuda_model, cfg, feats.to(dev),
+                               *(a.to(dev) for a in args))
+        ref = sensevoice.apply(model, cfg, feats, *args)
+        g_ids = [x.cpu() for x in sensevoice.greedy_ids(got)]
+        r_ids = sensevoice.greedy_ids(ref)
+    assert att.launch_counts()["mh_flash_attention"] == 2 + 2
+    torch.testing.assert_close(got.logits.cpu(), ref.logits, rtol=1e-4,
+                               atol=1e-4)
+    for a, r in zip(g_ids, r_ids):
+        assert torch.equal(a, r)
+
+
+def test_compile_hotwords_card_matches_cpu(dev):
+    """The hotword compiler (embedding + LSTM + gather, a derived null
+    row) on the card: embeddings within 1e-5 of the CPU's."""
+    from asr2pass_tpu_torch.config import HotwordConfig
+    from asr2pass_tpu_torch.models import hotword
+    from asr2pass_tpu_torch.text.vocab import make_test_vocab
+
+    cfg = HotwordConfig(vocab_size=64, embed_dim=32, hidden_dim=64)
+    model = hotword.init(cfg, torch.Generator().manual_seed(4), "cpu",
+                         learned_null=False)
+    cuda_model = hotword.from_state_dict(model.state_dict(), dev)
+    vocab = make_test_vocab(64)
+    words = [vocab.id2token(5) + vocab.id2token(9), "hello",
+             "".join(vocab.id2token(10 + i) for i in range(12))]
+    got = hotword.compile_hotwords(cuda_model, cfg, words, vocab)
+    ref = hotword.compile_hotwords(model, cfg, words, vocab)
+    assert got.shape == ref.shape == (4, 64)
+    np.testing.assert_allclose(got, ref, rtol=0, atol=1e-5)

@@ -28,6 +28,7 @@ import torch
 from asr2pass_tpu import config as jconfig
 from asr2pass_tpu.models import ct_transformer as jct
 from asr2pass_tpu.models import fsmn_vad as jvad
+from asr2pass_tpu.models import hotword as jhw
 from asr2pass_tpu.models import paraformer_online as jonline
 from asr2pass_tpu.runtime import engine as jengine
 from asr2pass_tpu.server.engine import ServerModels as JServerModels
@@ -46,7 +47,8 @@ from asr2pass_tpu_torch.server.engine import ServerModels
 from asr2pass_tpu_torch.text.itn import ChineseITN as TITN
 from asr2pass_tpu_torch.text.punc_tokenizer import PuncTokenizer as TTokenizer
 from asr2pass_tpu_torch.text.vocab import Vocab as TVocab
-from torch_parity import bursty, jax_params, port_model, tiny_cfgs
+from torch_parity import (bursty, jax_params, port_model, svs_tree,
+                          tiny_cfgs)
 
 MEL_ATOL = 1e-3
 VAD_ATOL = 1e-4
@@ -326,11 +328,13 @@ _TICKS = {
 }
 
 
-def _serve(eng, waves):
-    """Three streams in 9600-sample messages, one message per stream a
-    tick, then ticks until every stream is drained. Returns per stream
-    (concatenated partials, [(final text, timestamps)])."""
-    sids = [eng.open() for _ in waves]
+def _serve(eng, waves, opens=None):
+    """Streams in 9600-sample messages, one message per stream a tick,
+    then ticks until every stream is drained; opens[i] are stream i's
+    open() options. Returns per stream (concatenated partials, [(final
+    text, timestamps)])."""
+    sids = [eng.open(**(opens[i] if opens else {}))
+            for i in range(len(waves))]
     out = {sid: [] for sid in sids}
     n = max(len(w) for w in waves)
     for off in range(0, n, 9600):
@@ -368,6 +372,115 @@ def test_engine_matches_jax(parity_models, tick):
     assert got == ref
     for partial, finals in ref:
         assert partial and finals and all(ts for _, ts in finals)
+
+
+HW_CFG = dict(vocab_size=64, embed_dim=32, hidden_dim=64)
+
+
+@pytest.fixture(scope="module")
+def hw_parity_models():
+    """(JAX ServerModels, port ServerModels) of parity_models' kind with
+    the hotword block and a converted hotword compiler (no null row)."""
+    jcfg, tcfg = tiny_cfgs(timestamp=True, hotword=True)
+    tree = jax_params(jcfg, 0)
+    hw = jax.tree.map(np.asarray, jhw.init(jax.random.PRNGKey(5),
+                                           jconfig.HotwordConfig(**HW_CFG)))
+    hw = {"embed": hw["embed"], "lstm": hw["lstm"]}
+    vad_tree = jax.tree.map(np.asarray, jvad.init(jax.random.PRNGKey(1),
+                                                  jconfig.VadConfig()))
+    pj, pt = jconfig.punc_tiny(300), tconfig.punc_tiny(300)
+    punc_tree = jax.tree.map(np.asarray, jct.init(jax.random.PRNGKey(2), pj))
+    vocab = make_test_vocab(jcfg.vocab_size)
+    jm = JServerModels(
+        asr_params=tree, asr_cfg=jcfg, vocab=vocab,
+        vad_params=vad_tree, vad_cfg=jconfig.VadConfig(),
+        punc_params=punc_tree, punc_cfg=pj,
+        punc_tokenizer=JTokenizer(PUNC_TOKENS), itn=JITN(),
+        hotword_params=hw, hotword_cfg=jconfig.HotwordConfig(**HW_CFG))
+    tm = ServerModels(
+        asr_params=params_from_jax(tree), asr_cfg=tcfg,
+        vocab=TVocab(vocab.tokens), vad_params=params_from_jax(vad_tree),
+        vad_cfg=tconfig.VadConfig(), punc_params=params_from_jax(punc_tree),
+        punc_cfg=pt, punc_tokenizer=TTokenizer(PUNC_TOKENS), itn=TITN(),
+        hotword_params=params_from_jax(hw),
+        hotword_cfg=tconfig.HotwordConfig(**HW_CFG), device="cpu")
+    return jm, tm
+
+
+def _hotword_opens(models):
+    t = models.vocab.id2token
+    lists = [{t(10) + t(11): 20, t(30): 20}, None,
+             {t(12 + i) + t(40 + i): 20 for i in range(6)}]
+    return [dict(hw_emb=models.compile_hotwords(h) if h else None,
+                 hotwords=h) for h in lists]
+
+
+@pytest.mark.parametrize("tick", ["default", "fused_fetch"])
+def test_engine_hotwords_match_jax(hw_parity_models, tick):
+    """Three streams, two of them with compiled hotword embeddings in two
+    hotword-count buckets: JAX's finals, timestamps and partials, and
+    every pass-2 forward carries embeddings only for hotworded rows."""
+    jm, tm = hw_parity_models
+    waves = [_wave(60 + i, s) for i, s in enumerate(_STREAMS)]
+    ref = _serve(jengine.StreamEngine(jm, capacity=4, **_TICKS[tick]),
+                 waves, _hotword_opens(jm))
+    eng = StreamEngine(tm, capacity=4, **_TICKS[tick])
+    fwd, seen = eng.offline.asr._forward, []
+
+    def spy(feats, lens, hw_batch=None, hw_lens=None):
+        seen.append((len([n for n in lens if n]), list(hw_lens or [])))
+        return fwd(feats, lens, hw_batch, hw_lens)
+
+    eng.offline.asr._forward = spy
+    got = _serve(eng, waves, _hotword_opens(tm))
+    assert got == ref
+    for partial, finals in ref:
+        assert partial and finals and all(ts for _, ts in finals)
+    real = [(n, lens) for n, lens in seen if n]
+    assert any(lens for _, lens in real) and any(not lens for _, lens in real)
+    assert all(not lens or all(lens[:n]) for n, lens in real)
+
+
+SVS_TOKENS = make_test_vocab(64).tokens
+
+
+@pytest.fixture(scope="module")
+def svs_parity_models(parity_models):
+    """parity_models with SenseVoice (sensevoice_tiny with a 2-block tp
+    stack) as pass 2."""
+    jm, tm = parity_models
+    tree = svs_tree(2, seed=3)
+    rng = np.random.default_rng(8)
+    cmvn = (rng.uniform(-12, -8, 560).astype(np.float32),
+            rng.uniform(0.2, 0.4, 560).astype(np.float32))
+    jsvs = dataclasses.replace(
+        jm, svs_params=tree, svs_cfg=jconfig.sensevoice_tiny(),
+        svs_vocab=make_test_vocab(64), svs_cmvn=cmvn)
+    tsvs = dataclasses.replace(
+        tm, asr_params=tm.asr_params, svs_params=params_from_jax(tree),
+        svs_cfg=tconfig.sensevoice_tiny(), svs_vocab=TVocab(SVS_TOKENS),
+        svs_cmvn=cmvn)
+    return jsvs, tsvs
+
+
+@pytest.mark.parametrize("tick", ["default", "fused_fetch"])
+def test_engine_sensevoice_matches_jax(svs_parity_models, tick):
+    """SenseVoice pass 2 with per-slot svs_lang, svs_itn and a hotword
+    context graph on one slot: JAX's finals and partials."""
+    jm, tm = svs_parity_models
+    waves = [_wave(70 + i, s) for i, s in enumerate(_STREAMS)]
+    t = tm.svs_vocab.id2token
+    opens = [dict(svs_lang="en", svs_itn=False),
+             dict(svs_lang="zh", hotwords={t(7) + t(8): 60}),
+             dict()]
+    ref = _serve(jengine.StreamEngine(jm, capacity=4, **_TICKS[tick]),
+                 waves, opens)
+    eng = StreamEngine(tm, capacity=4, **_TICKS[tick])
+    assert isinstance(eng.offline.asr, tengine.SenseVoiceOffline)
+    got = _serve(eng, waves, opens)
+    assert got == ref
+    assert all(partial and finals for partial, finals in ref)
+    assert any(text for _, finals in ref for text, _ in finals)
 
 
 # -- the slot lifecycle (tests/test_engine.py on the port) -------------------
@@ -503,8 +616,11 @@ def test_engine_capacity_guard(models):
 
 
 def test_engine_open_with_hotword_embeddings_raises(models):
+    """Embeddings a Paraformer pass 2 cannot take are refused at open(),
+    and the slot stays free: this model has no hotword block. (A model
+    with the block takes them: test_engine_hotwords_match_jax.)"""
     eng = StreamEngine(models, capacity=1)
-    with pytest.raises(NotImplementedError, match="item 15"):
+    with pytest.raises(ValueError, match="no hotword block"):
         eng.open(hw_emb=np.zeros((2, 64), np.float32))
     assert not eng.slots[0].active
     eng.shutdown()

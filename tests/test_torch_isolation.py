@@ -72,13 +72,16 @@ def test_no_jax_import_in_source(path):
 
 
 def _entry_points():
-    from asr2pass_tpu_torch.config import (FrontendConfig, paraformer_tiny,
-                                           punc_tiny, vad_default)
-    from asr2pass_tpu_torch.models import ct_transformer, fsmn_vad, paraformer
+    from asr2pass_tpu_torch.config import (FrontendConfig, HotwordConfig,
+                                           paraformer_tiny, punc_tiny,
+                                           sensevoice_tiny, vad_default)
+    from asr2pass_tpu_torch.models import (ct_transformer, fsmn_vad, hotword,
+                                           paraformer, sensevoice)
     from asr2pass_tpu_torch.runtime import streaming_frontend as sf
     from asr2pass_tpu_torch.runtime.asr_stream import ParaformerOnlineStream
     from asr2pass_tpu_torch.runtime.offline_asr import ParaformerOffline
     from asr2pass_tpu_torch.runtime.punc import Punctuator
+    from asr2pass_tpu_torch.runtime.sensevoice_asr import SenseVoiceOffline
     from asr2pass_tpu_torch.runtime.vad_stream import (FsmnVadStream,
                                                        vad_segments_offline)
     from asr2pass_tpu_torch.server.engine import ServerModels
@@ -90,6 +93,10 @@ def _entry_points():
     sd = paraformer.init(cfg, device="cpu").state_dict()
     vsd = fsmn_vad.init(vcfg, device="cpu").state_dict()
     psd = ct_transformer.init(pcfg, device="cpu").state_dict()
+    hcfg = HotwordConfig(vocab_size=64, embed_dim=16, hidden_dim=16)
+    hsd = hotword.init(hcfg, device="cpu").state_dict()
+    scfg = sensevoice_tiny()
+    ssd = sensevoice.init(scfg, device="cpu", tp_blocks=1).state_dict()
     vocab = Vocab(["a"] * cfg.vocab_size)
     wave = np.zeros(4000, np.float32)
     return {
@@ -119,11 +126,20 @@ def _entry_points():
             lambda **kw: ct_transformer.from_state_dict(psd, pcfg, **kw),
         "Punctuator": lambda **kw: Punctuator(
             psd, pcfg, PuncTokenizer(["a"] * pcfg.vocab_size), **kw),
+        "hotword.init": lambda **kw: hotword.init(hcfg, **kw),
+        "hotword.from_state_dict": lambda **kw: hotword.from_state_dict(
+            hsd, **kw),
+        "sensevoice.init": lambda **kw: sensevoice.init(scfg, **kw),
+        "sensevoice.from_state_dict":
+            lambda **kw: sensevoice.from_state_dict(ssd, scfg, **kw),
+        "SenseVoiceOffline": lambda **kw: SenseVoiceOffline(
+            ssd, scfg, vocab, **kw),
         # the server's registry; StreamEngine and AsrWsServer run on its
         # device
         "ServerModels": lambda **kw: ServerModels(
             asr_params=sd, asr_cfg=cfg, vocab=vocab, vad_params=vsd,
-            vad_cfg=vcfg, **kw),
+            vad_cfg=vcfg, hotword_params=hsd, svs_params=ssd, svs_cfg=scfg,
+            **kw),
         # the launcher: --device defaults to cuda
         "build_models": lambda **kw: build_models(parser().parse_args(
             ["--demo"] + [f"--device={v}" for v in kw.values()])),
@@ -136,6 +152,8 @@ def _entry_points():
     "ParaformerOnlineStream", "fsmn_vad.init", "fsmn_vad.from_state_dict",
     "fsmn_vad.init_caches", "FsmnVadStream", "vad_segments_offline",
     "ct_transformer.init", "ct_transformer.from_state_dict", "Punctuator",
+    "hotword.init", "hotword.from_state_dict", "sensevoice.init",
+    "sensevoice.from_state_dict", "SenseVoiceOffline",
     "ServerModels", "build_models"])
 def test_entry_points_default_to_the_card(name):
     """Without device="cpu" an entry point asks for CUDA, and on a machine

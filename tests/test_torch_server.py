@@ -109,19 +109,19 @@ def _serve(models, coro_fn, server_cls=AsrWsServer, **kw):
 
 # -- the reference client's replay -------------------------------------------
 
-def _reference_first_message(mode, wav_name):
+def _reference_first_message(mode, wav_name, **fields):
     """funasr_wss_client.py:241-244 field set with its argparse defaults
-    (tests/test_protocol_replay.py:63-82)."""
+    (tests/test_protocol_replay.py:63-82); `fields` replace some."""
     return json.dumps({
         "mode": mode, "chunk_size": [5, 10, 5], "chunk_interval": 10,
         "audio_fs": 16000, "wav_name": wav_name, "wav_format": "pcm",
         "is_speaking": True, "hotwords": json.dumps({"阿里巴巴": 20}),
         "itn": True, "svs_itn": True, "vad_tail_sil": 350,
-        "vad_max_len": 20000, "svs_lang": "auto",
+        "vad_max_len": 20000, "svs_lang": "auto", **fields,
     })
 
 
-async def _reference_replay(port, mode, wav_name, audio_bytes):
+async def _reference_replay(port, mode, wav_name, audio_bytes, **fields):
     """The reference client's send loop (9600-sample frames for chunk_size
     [5, 10, 5] and chunk_interval 10, then {"is_speaking": false}) and its
     receive loop's termination (tests/test_protocol_replay.py:85-121)."""
@@ -130,7 +130,7 @@ async def _reference_replay(port, mode, wav_name, audio_bytes):
     stride = int(60 * 10 / 10 / 1000 * 16000 * 2)
     msgs = []
     async with websockets.connect(f"ws://127.0.0.1:{port}") as ws:
-        await ws.send(_reference_first_message(mode, wav_name))
+        await ws.send(_reference_first_message(mode, wav_name, **fields))
         chunk_num = (len(audio_bytes) - 1) // stride + 1
         for i in range(chunk_num):
             await ws.send(audio_bytes[i * stride: (i + 1) * stride])
@@ -211,6 +211,137 @@ def test_replay_matches_jax_server(models, jax_models, case):
         assert partial
     if mode != "online":
         assert finals and all(ts for _, _, ts in finals)
+
+
+# -- the deployed hotword model and SenseVoice pass 2 ----------------------
+
+@pytest.fixture(scope="module")
+def dir_models(trees, tmp_path_factory):
+    """(port, JAX) ServerModels pairs built from saved dirs: "hotword"
+    is a converted hotword model dir (paraformer_tiny with the hotword
+    block, a hotword_compiler subtree without a null row, a seg_dict)
+    through build_models; "svs" adds --svs-dir (sensevoice_tiny with a
+    2-block tp stack) to the trees' model. Both with the trees' VAD and
+    punctuation dirs and ITN."""
+    from asr2pass_tpu.models import hotword as jhw
+    from asr2pass_tpu.runtime import model_zoo as jzoo
+    from asr2pass_tpu.text.itn import ChineseITN as JITN
+    from torch_parity import svs_tree
+
+    tmp = tmp_path_factory.mktemp("dirs")
+    vocab = make_test_vocab(trees["jcfg"].vocab_size)
+    hcfg, _ = tiny_cfgs(timestamp=True, hotword=True)
+    hw = jhw.init(jax.random.PRNGKey(5), jconfig.HotwordConfig(
+        vocab_size=64, embed_dim=32, hidden_dim=64))
+    hw = jax.tree.map(np.asarray, {"embed": hw["embed"], "lstm": hw["lstm"]})
+    jzoo.save_offline_bundle(str(tmp / "hw"), dict(
+        jax_params(hcfg, 0), hotword_compiler=hw), hcfg, vocab.tokens)
+    (tmp / "hw" / "seg_dict").write_text(
+        f"hello\t{vocab.id2token(12)} {vocab.id2token(13)}\n",
+        encoding="utf-8")
+    jzoo.save_offline_bundle(str(tmp / "asr"), trees["asr"], trees["jcfg"],
+                             vocab.tokens)
+    cmvn = (np.full(560, -10.0, np.float32), np.full(560, 0.3, np.float32))
+    jzoo.save_svs_bundle(str(tmp / "svs"), svs_tree(2, seed=4),
+                         jconfig.sensevoice_tiny(), vocab.tokens, cmvn)
+    model_zoo.save_vad_dir(str(tmp / "vad"), params_from_jax(trees["vad"]),
+                           tconfig.VadConfig())
+    model_zoo.save_punc_dir(str(tmp / "punc"), params_from_jax(trees["punc"]),
+                            tconfig.punc_tiny(300), PUNC_TOKENS)
+    common = ["--vad-dir", str(tmp / "vad"), "--punc-dir", str(tmp / "punc"),
+              "--device", "cpu"]
+    out = {}
+    for name, argv in (("hotword", ["--model-dir", str(tmp / "hw")]),
+                       ("svs", ["--model-dir", str(tmp / "asr"),
+                                "--svs-dir", str(tmp / "svs")])):
+        port = build_models(parser().parse_args(argv + common))
+        jb = jzoo.load_offline_bundle(argv[1])
+        jm = JServerModels(
+            asr_params=jb.params, asr_cfg=jb.cfg, vocab=jb.vocab,
+            vad_params=trees["vad"], vad_cfg=jconfig.VadConfig(),
+            punc_params=trees["punc"], punc_cfg=jconfig.punc_tiny(300),
+            punc_tokenizer=JTokenizer(PUNC_TOKENS), itn=JITN())
+        if name == "hotword":
+            jm.hotword_params = jb.params["hotword_compiler"]
+            jm.hotword_cfg = jconfig.HotwordConfig()
+            jm.seg_dict = jhw.SegDict(str(tmp / "hw" / "seg_dict"))
+        else:
+            sb = jzoo.load_svs_bundle(str(tmp / "svs"))
+            jm.svs_params, jm.svs_cfg = sb.params, sb.cfg
+            jm.svs_vocab, jm.svs_cmvn = sb.vocab, sb.cmvn
+        out[name] = (port, jm)
+    return out
+
+
+_DIR_REPLAYS = {
+    "2pass": ("2pass", {}), "offline": ("offline", {}),
+    "engine": ("2pass", dict(use_engine=True, engine_capacity=4)),
+}
+
+
+def _replay_both(pair, case, seconds, seed, on_serving=None, **fields):
+    """The reference client's replay against the port's server and the
+    JAX server; on_serving() runs once the port's server (and its
+    engine's warmup) is up, before the client connects."""
+    mode, kw = _DIR_REPLAYS[case]
+    audio = _pcm(seconds, seed)
+    msgs = {}
+    for name, cls, m in (("port", AsrWsServer, pair[0]),
+                         ("jax", JAsrWsServer, pair[1])):
+        async def replay(server, port, name=name):
+            if on_serving is not None and name == "port":
+                on_serving()
+            return await _reference_replay(port, mode, "w", audio, **fields)
+
+        msgs[name] = _serve(m, replay, server_cls=cls, **kw)
+    return msgs
+
+
+@pytest.mark.parametrize("case", list(_DIR_REPLAYS))
+def test_replay_with_hotwords_matches_jax(dir_models, case, monkeypatch):
+    """The deployed hotword model served from its dir, with and without
+    the engine: first-message hotwords compile into embeddings (one word
+    through the seg_dict) and the finals, timestamps and partials equal
+    the JAX server's. Every pass-2 forward of the hotworded connection
+    carries its 4 embedding rows (null + 3 words); without hotwords none
+    does."""
+    from asr2pass_tpu_torch.runtime.offline_asr import ParaformerOffline
+
+    rows = []
+    fwd = ParaformerOffline._forward
+
+    def spy(self, feats, lens, hw_batch=None, hw_lens=None):
+        if any(lens):
+            rows.append(None if hw_batch is None else hw_lens[0])
+        return fwd(self, feats, lens, hw_batch, hw_lens)
+
+    monkeypatch.setattr(ParaformerOffline, "_forward", spy)
+    t = dir_models["hotword"][0].vocab.id2token
+    for hot, want_rows in ((json.dumps({t(10) + t(11): 20, "hello": 30,
+                                        t(40): 20}), 4), ("", None)):
+        msgs = _replay_both(dir_models["hotword"], case, 2.4, 11,
+                            on_serving=rows.clear, hotwords=hot)
+        got = _summary(msgs["port"])
+        assert got == _summary(msgs["jax"])
+        assert got[1] and all(ts for _, _, ts in got[1])
+        assert rows and set(rows) == {want_rows}
+
+
+@pytest.mark.parametrize("case", list(_DIR_REPLAYS))
+def test_replay_with_svs_dir_matches_jax(dir_models, case):
+    """--svs-dir: pass 2 (2pass finals and offline uploads) through
+    SenseVoice with the connection's svs_lang and svs_itn, equal to the
+    JAX server's; the first message's hotwords bias SenseVoice through a
+    context graph."""
+    t = dir_models["svs"][0].vocab.id2token
+    msgs = _replay_both(dir_models["svs"], case, 2.4, 12, svs_lang="en",
+                        svs_itn=False,
+                        hotwords=json.dumps({t(7) + t(8): 40}))
+    got = _summary(msgs["port"])
+    assert got == _summary(msgs["jax"])
+    assert got[1] and any(text for _, text, _ in got[1])
+    finals = [m for m in msgs["port"] if m["is_final"]]
+    assert finals and finals[-1] is msgs["port"][-1]
 
 
 # -- tests/test_server.py on the port ---------------------------------------

@@ -15,6 +15,8 @@ import torch
 
 from asr2pass_tpu import config as jconfig
 from asr2pass_tpu.models import paraformer as jparaformer
+from asr2pass_tpu.models import sanm_encoder as jenc
+from asr2pass_tpu.models import sensevoice as jsv
 from asr2pass_tpu_torch import config as tconfig
 from asr2pass_tpu_torch.models import paraformer as tparaformer
 from asr2pass_tpu_torch.runtime.model_zoo import params_from_jax
@@ -38,6 +40,22 @@ def tiny_cfgs(timestamp: bool = False, hotword: bool = False):
 def jax_params(jcfg, seed: int = 0):
     """JAX parameter tree of numpy arrays."""
     params = jparaformer.init(jax.random.PRNGKey(seed), jcfg)
+    return jax.tree.map(np.asarray, params)
+
+
+def svs_tree(tp_blocks: int = 0, seed: int = 0):
+    """JAX SenseVoice parameters (numpy) of sensevoice_tiny, with a
+    tp stack of tp_blocks SAN-M layers (the converter's layout)."""
+    cfg = jconfig.sensevoice_tiny()
+    params = jsv.init(jax.random.PRNGKey(seed), cfg)
+    if tp_blocks:
+        enc = jenc.init(jax.random.PRNGKey(seed + 100), jconfig.EncoderConfig(
+            input_size=64, output_size=64, num_blocks=tp_blocks + 1,
+            attention_heads=2, linear_units=128))
+        params["tp"] = {"rest": jax.tree.map(lambda a: a[:tp_blocks],
+                                             enc["rest"]),
+                        "norm": {"g": np.full(64, 1.1, np.float32),
+                                 "b": np.full(64, 0.05, np.float32)}}
     return jax.tree.map(np.asarray, params)
 
 
