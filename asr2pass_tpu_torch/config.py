@@ -2,7 +2,7 @@
 CT-Transformer punctuation, SenseVoice and hotword-compiler models (port
 copy).
 
-Counterpart of asr2pass_tpu/config.py: the front-end, encoder, decoder,
+Counterpart of the JAX package's config.py: the front-end, encoder, decoder,
 predictor, VAD, punctuation, SenseVoice and hotword configs, the
 reference-layout config.yaml loaders (load_svs_yaml is the JAX
 package's runtime/model_zoo.load_svs_yaml) and the presets. Same fields, same defaults, same yaml keys, so

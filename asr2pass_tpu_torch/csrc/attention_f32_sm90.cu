@@ -4,8 +4,8 @@
 // builds it. bfloat16 inputs go to csrc/attention_sm90.cu; both kernels
 // take their tensor maps and PTX helpers from csrc/tma.cuh.
 //
-// Replaces, for float32 inputs, the three Pallas TPU kernels of
-// asr2pass_tpu/ops/attention.py:
+// Replaces, for float32 inputs, the three Pallas TPU kernels of the JAX
+// package's ops/attention.py:
 //   _mhss_kernel (mh_flash_attention, :129)  unsplit [B,T,D] / [B,T,2D]
 //                                            projections, heads in d_k
 //                                            column blocks, merged output

@@ -2,8 +2,8 @@
 // (wgmma) products fed by TMA. Bound to Python with a plain C interface
 // (ctypes) by asr2pass_tpu_torch/ops/attention.py, which also builds it.
 //
-// Replaces, for bfloat16 inputs, the three Pallas TPU kernels of
-// asr2pass_tpu/ops/attention.py (float32 inputs go to the 3xTF32 kernel
+// Replaces, for bfloat16 inputs, the three Pallas TPU kernels of the JAX
+// package's ops/attention.py (float32 inputs go to the 3xTF32 kernel
 // of csrc/attention_f32_sm90.cu; both include csrc/tma.cuh):
 //   _mhss_kernel (mh_flash_attention, :129)  unsplit [B,T,D] / [B,T,2D]
 //                                            projections, heads in d_k

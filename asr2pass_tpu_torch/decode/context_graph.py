@@ -1,6 +1,6 @@
 """Hotword context graph: prefix trie with Aho-Corasick-style fallback.
 
-Port copy of asr2pass_tpu/decode/context_graph.py (host code, unchanged).
+Port copy of the JAX package's decode/context_graph.py (host code, unchanged).
 
 Role of context_graph.cpp (WeNet-style): hotwords over vocab symbols form a
 prefix tree; each matched token adds an incremental boost

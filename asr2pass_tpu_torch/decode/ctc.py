@@ -7,10 +7,11 @@ beam search is the WeNet-derived algorithm of ctc-prefix-decoder.cpp:
 per-prefix viterbi times for timestamps, and context-graph hotword scoring
 (UpdateContext role, :280-299).
 
-Port copy of asr2pass_tpu/decode/ctc.py, host code. The pruned beam runs
-the Python spec (_prefix_beam_over_frames) only: the JAX package's
-native C++ branch (native/src/ctc_beam.cc) is not ported yet, so there
-is no `use_native` switch here.
+Port copy of the JAX package's decode/ctc.py, host code. The pruned beam
+runs in the native library (native/src/ctc_beam.cc) by default, as the
+JAX package's serving path does; the Python spec
+(_prefix_beam_over_frames) is the plain version, taken only with
+use_native=False.
 """
 from __future__ import annotations
 
@@ -106,18 +107,52 @@ def ctc_prefix_beam_search_pruned(
     blank_id: int = 0,
     context: Optional[ContextGraph] = None,
     id_to_token=None,
+    token2id=None,
+    use_native: bool = True,
 ) -> List[Tuple[List[int], float, List[int]]]:
     """Prefix beam over PRE-PRUNED per-frame candidates ([T, k] ids +
     log-probs): the first prune runs on the device
     (parallel/ctc_shard.py), so only k candidates per frame reach the
     host instead of the [T, V] row. Equivalent to ctc_prefix_beam_search
-    with first_beam = k. Hotword biasing keys the context trie by token
-    string through `id_to_token`."""
+    with first_beam = k.
+
+    use_native=True (the serving path) runs the C++ beam, an exact
+    mirror of _prefix_beam_over_frames that releases the interpreter
+    lock; its hotword bias keys the context trie by unit id, so a context
+    needs `token2id`. use_native=False runs the Python spec, which keys
+    the trie by token string through `id_to_token` (same reachability).
+    """
+    if use_native:
+        if context is not None and token2id is None:
+            raise ValueError("the native beam keys the context trie by "
+                             "unit id: pass token2id with the context")
+        return _native_pruned_beam(cand_ids, cand_logp, length, beam,
+                                   blank_id, context, token2id)
     frames = [[(int(cand_ids[t, j]), float(cand_logp[t, j]))
                for j in range(cand_ids.shape[1])]
               for t in range(length)]
     return _prefix_beam_over_frames(frames, beam, blank_id, context,
                                     id_to_token)
+
+
+def _native_pruned_beam(cand_ids, cand_logp, length, beam, blank_id,
+                        context, token2id):
+    from asr2pass_tpu_torch.native import bindings
+
+    trie = None
+    if context is not None:
+        # the serialized trie, cached on the (immutable, shared) graph and
+        # keyed by the identity of the vocabulary's token2id
+        cache = getattr(context, "_a2p_trie", None)
+        if cache is None or cache[0] is not token2id:
+            cache = (token2id,
+                     bindings.serialize_context_trie(context, token2id))
+            context._a2p_trie = cache
+        trie = cache[1]
+    return bindings.ctc_beam_decode(np.asarray(cand_ids),
+                                    np.asarray(cand_logp, np.float32),
+                                    length, beam=beam, blank_id=blank_id,
+                                    trie=trie)
 
 
 def _prefix_beam_over_frames(frames, beam, blank_id, context, id_to_token):

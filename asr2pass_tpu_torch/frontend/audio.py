@@ -1,11 +1,12 @@
 """Audio IO helpers (port copy): WAV/PCM parsing, PCM quantization,
 ffmpeg decoding, resampling and the kaldi-nnet am.mvn CMVN file.
 
-Counterpart of asr2pass_tpu/frontend/audio.py (load_wav_bytes,
+Counterpart of the JAX package's frontend/audio.py (load_wav_bytes,
 load_pcm_bytes, quantize_pcm, ffmpeg_decode, load_audio_file,
-linear_resample, parse_kaldi_cmvn, write_kaldi_cmvn); pure numpy. The
-resampler is the numpy path only: the native C++ branch comes with the
-native bindings.
+linear_resample, parse_kaldi_cmvn, write_kaldi_cmvn). The resampler runs
+in the native library (native/bindings.resample), as the JAX package's
+default does; its numpy path is the plain version, taken only with
+native=False.
 """
 from __future__ import annotations
 
@@ -116,10 +117,19 @@ def _hann_sinc_filter(t, cutoff, window_width):
 
 
 def linear_resample(x: np.ndarray, fs_in: int, fs_out: int,
-                    num_zeros: int = 6) -> np.ndarray:
-    """Rational-rate windowed-sinc resampling of a whole utterance."""
+                    num_zeros: int = 6, native: bool = True) -> np.ndarray:
+    """Rational-rate windowed-sinc resampling of a whole utterance.
+
+    native=True (the default, the serving path) runs the C++ resampler
+    of the native library; native=False this numpy version, the plain
+    one, which computes the same sums (the tests hold it to the native
+    output's length within 1 and its interior to 2e-4)."""
     if fs_in == fs_out:
         return np.asarray(x, dtype=np.float32)
+    if native:
+        from asr2pass_tpu_torch.native import bindings
+
+        return bindings.resample(x, fs_in, fs_out, num_zeros)
     x = np.asarray(x, dtype=np.float64)
     n_in = x.shape[0]
     g = np.gcd(fs_in, fs_out)

@@ -1,6 +1,6 @@
 """Kaldi-compatible log-mel fbank as matrix products.
 
-Counterpart of asr2pass_tpu/frontend/fbank.py (FbankExtractor.
+Counterpart of the JAX package's frontend/fbank.py (FbankExtractor.
 frames_to_mel): per frame remove the DC offset, preemphasis 0.97, window,
 power spectrum, mel-triangular bins, natural log with the float32-eps
 floor. The power spectrum is two products with DFT cos/sin matrices that

@@ -1,6 +1,6 @@
 """CIF (continuous integrate-and-fire) predictor.
 
-Counterpart of asr2pass_tpu/models/cif.py: a conv + linear + sigmoid head
+Counterpart of the JAX package's models/cif.py: a conv + linear + sigmoid head
 gives per-frame firing weights `alphas`; the integrate-and-fire pass
 accumulates weighted encoder frames and emits one acoustic embedding per
 threshold crossing, packed to the front of a [B, max_tokens, D] buffer.

@@ -1,6 +1,6 @@
 """CT-Transformer punctuation model, offline and streaming (VadMask).
 
-Counterpart of asr2pass_tpu/models/ct_transformer.py (FunASR
+Counterpart of the JAX package's models/ct_transformer.py (FunASR
 CTTransformer): token embedding -> the SAN-M encoder of
 models/sanm_encoder.py (sqrt(d) scale, 1-based sinusoidal position
 encoding, blocks, after_norm) -> linear class head. The streaming

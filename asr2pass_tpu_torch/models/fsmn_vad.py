@@ -1,6 +1,6 @@
 """FSMN-VAD scoring network.
 
-Counterpart of asr2pass_tpu/models/fsmn_vad.py (FunASR FSMN semantics):
+Counterpart of the JAX package's models/fsmn_vad.py (FunASR FSMN semantics):
 in-affine 400->140->250 (two stacked linears, one ReLU after the second),
 then `fsmn_layers` sequential blocks of (linear 250->128 without bias,
 depthwise causal memory conv of lorder taps with an inner residual,

@@ -1,6 +1,6 @@
 """Hotword embedding compiler (the model_eb equivalent).
 
-Counterpart of asr2pass_tpu/models/hotword.py. Role of
+Counterpart of the JAX package's models/hotword.py. Role of
 Paraformer::CompileHotwordEmbedding (paraformer.cpp:592-693): each
 hotword is tokenized to AM-unit ids (chars for Chinese; seg-dict/BPE or
 <unk> for English words), padded to max length 10, run through an

@@ -1,7 +1,7 @@
 """Building blocks: small nn.Modules that hold the weights, and plain
 functions on tensors that do the math.
 
-Counterpart of asr2pass_tpu/models/layers.py. Each module keeps the JAX
+Counterpart of the JAX package's models/layers.py. Each module keeps the JAX
 package's parameter names and layouts (Dense keeps the [d_in, d_out]
 weight), so a JAX parameter tree becomes this package's state dict by a
 rename (runtime/model_zoo.params_from_jax). Each function takes its

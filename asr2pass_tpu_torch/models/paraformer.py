@@ -1,6 +1,6 @@
 """Offline Paraformer: SAN-M encoder + CIF predictor + parallel decoder.
 
-Counterpart of asr2pass_tpu/models/paraformer.py (init, apply,
+Counterpart of the JAX package's models/paraformer.py (init, apply,
 greedy_ids). One forward = encoder -> alphas -> integrate-and-fire ->
 parallel decoder -> logits, batched and masked; timestamp models also
 return the upsampled alphas and their peak trace.

@@ -1,6 +1,6 @@
 """Streaming Paraformer: one batched chunk step over explicit state.
 
-Counterpart of asr2pass_tpu/models/paraformer_online.py. Every
+Counterpart of the JAX package's models/paraformer_online.py. Every
 per-stream cache (the [lookback+lookahead] feature window, the absolute
 position, the CIF (integrate, frame) remainder, the decoder's per-layer
 FSMN caches) is a tensor with the streams on a leading axis, in an

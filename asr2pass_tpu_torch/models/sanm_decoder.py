@@ -1,7 +1,7 @@
 """Paraformer parallel decoder in FunASR block order, offline and
 streaming.
 
-Counterpart of asr2pass_tpu/models/sanm_decoder.py (`apply`,
+Counterpart of the JAX package's models/sanm_decoder.py (`apply`,
 `init_caches`, `apply_streaming`). Non-autoregressive: the
 CIF acoustic embeddings [B, U, D] are refined by N blocks and projected
 to vocab logits in one parallel pass. Block math (FunASR

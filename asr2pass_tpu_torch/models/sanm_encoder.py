@@ -1,6 +1,6 @@
 """SAN-M encoder, offline full-utterance mode.
 
-Counterpart of asr2pass_tpu/models/sanm_encoder.py: input LFR+CMVN
+Counterpart of the JAX package's models/sanm_encoder.py: input LFR+CMVN
 features are scaled by sqrt(d_model), summed with the 1-based sinusoidal
 position encoding, then N SAN-M blocks (self-attention + FSMN memory
 branch + FFN, pre-norm residuals) and a final LayerNorm. Layer 0 (the

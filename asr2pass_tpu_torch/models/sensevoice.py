@@ -1,7 +1,7 @@
 """SenseVoice-small: multilingual (zh/en/ja/ko/yue) non-autoregressive CTC
 model with meta prefix tokens.
 
-Counterpart of asr2pass_tpu/models/sensevoice.py (init, apply,
+Counterpart of the JAX package's models/sensevoice.py (init, apply,
 greedy_ids). Role of sensevoice-small.cpp: the offline forward takes
 [feats, len, language-id, textnorm-id] (:596-642) and the decoder strips
 the first 4 meta outputs (language, emotion, event, textnorm; CTCSearch

@@ -1,7 +1,7 @@
 """Masked multi-head attention: a hand-written CUDA kernel on the card, a
 plain PyTorch version for tensors on the CPU.
 
-Counterpart of asr2pass_tpu/ops/attention.py. The JAX package has three
+Counterpart of the JAX package's ops/attention.py. The JAX package has three
 Pallas TPU kernels there; each entry point below keeps its JAX signature:
 
   mh_flash_attention(q, kv, kv_mask, heads)  replaces _mhss_kernel
@@ -26,8 +26,8 @@ maps from csrc/tma.cuh. Both read Q, K, V and write the output through
 merge or copy (a view that TMA cannot address is copied, see plan_tma).
 What bounds each and how it is designed is described at the top of its
 source. On a CPU tensor each entry point runs its plain version (einsum,
-masked fp32 softmax, einsum: the XLA-path semantics of
-asr2pass_tpu/models/layers.py:258-267).
+masked fp32 softmax, einsum: the XLA-path semantics of the JAX
+package's models/layers.py:258-267).
 A CUDA tensor launches the kernel or raises; nothing falls back.
 
 Masking contract of all three (attention.py:34,69,189): masked scores are
@@ -546,9 +546,10 @@ reset_launch_counts()
 
 
 # ---------------------------------------------------------------------------
-# dispatch gates (asr2pass_tpu/ops/attention.py:380-419), with the tensor's
-# device in place of the JAX backend; below MIN_T the layers run their own
-# plain branch, which is the JAX package's XLA branch, not a fallback
+# dispatch gates (the JAX package's ops/attention.py:380-419), with the
+# tensor's device in place of the JAX backend; below MIN_T the layers run
+# their own plain branch, which is the JAX package's XLA branch, not a
+# fallback
 # ---------------------------------------------------------------------------
 
 def use_flash(t: int, d_head: int, att_mask, is_cuda: bool) -> bool:

@@ -1,6 +1,6 @@
 """Device-side first prune of the CTC prefix beam.
 
-Counterpart of the unsharded half of asr2pass_tpu/parallel/ctc_shard.py
+Counterpart of the unsharded half of the JAX package's parallel/ctc_shard.py
 (ctc_first_prune, ctc_first_prune_gather, ctc_gather_logp). The host
 prefix beam (decode/ctc.py) consumes only each frame's top-k candidates,
 so the device computes that set and [B, T, k] ids and log-probs reach the

@@ -1,6 +1,6 @@
 """Host wrapper of one streaming-ASR stream (pass 1).
 
-Counterpart of asr2pass_tpu/runtime/asr_stream.py: feeds raw samples
+Counterpart of the JAX package's runtime/asr_stream.py: feeds raw samples
 through the streaming front-end, assembles `center`-frame chunks and
 drives the batched online step with B=1. The state lives on the model's
 device; each chunk brings back its token ids and count in one copy.

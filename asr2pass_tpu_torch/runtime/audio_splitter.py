@@ -1,6 +1,6 @@
 """2pass audio splitter: VAD events -> online chunks + offline segments.
 
-Port copy of asr2pass_tpu/runtime/audio_splitter.py (numpy only).
+Port copy of the JAX package's runtime/audio_splitter.py (numpy only).
 Behavioral port of Audio::Split(vad, chunk_len, input_finished, mode)
 (audio.cpp:1257-1425): maintains the utterance sample ring with a 2 s
 retention window and maps VAD events {[s,e], [s,-1], [-1,e]} to

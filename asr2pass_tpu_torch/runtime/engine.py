@@ -1,6 +1,6 @@
 """StreamEngine: S concurrent 2pass streams through shared batched steps.
 
-Counterpart of asr2pass_tpu/runtime/engine.py, without its LM hooks. All
+Counterpart of the JAX package's runtime/engine.py, without its LM hooks. All
 active streams advance together, each tick:
 
   * one batched fused VAD step for every slot's new audio (fbank, LFR,
@@ -573,6 +573,10 @@ class StreamEngine:
         m = self.models
         vmeans, vvars = (m.vad_cmvn if m.vad_cmvn is not None
                          else (None, None))
+        # the previous connection's native automaton is freed here: open()
+        # reclaims a slot only once no lane holds work of it
+        if self.slots[sid].sm is not None:
+            self.slots[sid].sm.close()
         self.slots[sid] = _Slot(
             gen=self.slots[sid].gen + 1,
             vad_frontend=sf.StreamingFrontend(m.vad_cfg.frontend, vmeans,
@@ -1215,6 +1219,11 @@ class StreamEngine:
         if self._upload_pool is not None:
             self._upload_pool.shutdown(wait=True)
             self._upload_pool = None
+        # free every slot's native automaton; a tick still running in
+        # another thread gets an error from a freed one, not freed memory
+        for slot in self.slots:
+            if slot.sm is not None:
+                slot.sm.close()
 
     def _p1_collector(self):
         """Background pass-1 result lane: a single FIFO worker (per-slot

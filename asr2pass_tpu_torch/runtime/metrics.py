@@ -1,7 +1,7 @@
 """Serving metrics: per-stage latency, audio accounting and a profiler
 hook.
 
-Counterpart of asr2pass_tpu/runtime/metrics.py (StageStats, Metrics,
+Counterpart of the JAX package's runtime/metrics.py (StageStats, Metrics,
 GLOBAL, device_trace). The engine's tick_* and vd_* stages, the server's
 2pass_feed / offline_decode stages and its `stats` action read them.
 device_trace wraps torch.profiler instead of jax.profiler.

@@ -1,9 +1,9 @@
 """Model directories: weights.npz + config.yaml + am.mvn + tokens.json.
 
-Counterpart of asr2pass_tpu/runtime/model_zoo.py (save_params,
+Counterpart of the JAX package's runtime/model_zoo.py (save_params,
 load_params, save_offline_bundle, load_offline_bundle, load_punc_dir,
-save_svs_bundle, load_svs_bundle) and of the VAD-dir reading of
-asr2pass_tpu/tools/transcribe.py. Both packages read and write the same
+save_svs_bundle, load_svs_bundle) and of the VAD-dir reading of the
+JAX package's tools/transcribe.py. Both packages read and write the same
 directories: weights.npz holds the JAX parameter tree flattened with
 '/'-joined keys, with the uniform layer stacks (encoder/rest,
 decoder/blocks, SenseVoice's tp/rest) stored STACKED on a leading layer

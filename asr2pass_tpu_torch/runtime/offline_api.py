@@ -1,6 +1,6 @@
 """Whole-file offline transcription (FunOfflineInferBuffer equivalent).
 
-Counterpart of asr2pass_tpu/runtime/offline_api.py. The VAD runs on the
+Counterpart of the JAX package's runtime/offline_api.py. The VAD runs on the
 recognizer's device. Pipeline per funasrruntime.cpp:208-337: load audio
 -> VAD segmentation (1 s-windowed online VAD, CutSplit role) -> batched
 pass over segments

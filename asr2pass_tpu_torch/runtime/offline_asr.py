@@ -1,6 +1,6 @@
 """Offline (pass-2) recognizer: samples -> text (+ timestamps).
 
-Counterpart of asr2pass_tpu/runtime/offline_asr.py (ParaformerOffline:
+Counterpart of the JAX package's runtime/offline_asr.py (ParaformerOffline:
 recognize_batch = dispatch_batch + one fetch + finish_batch, with the
 engine's feats_override and per-item hotword embeddings), without the LM
 rescoring and sequence-parallel branches, which come with later slices.

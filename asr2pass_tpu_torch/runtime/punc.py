@@ -1,6 +1,6 @@
 """Punctuation restoration: offline windows + streaming cache.
 
-Counterpart of asr2pass_tpu/runtime/punc.py: the model runs on the
+Counterpart of the JAX package's runtime/punc.py: the model runs on the
 device over ids padded to a 10-token bucket, and the class ids come back
 to the host in one copy a window. Host-side orchestration around the
 CT-Transformer model:

@@ -1,6 +1,6 @@
 """SenseVoice recognizer: pass-2-compatible multilingual CTC.
 
-Counterpart of asr2pass_tpu/runtime/sensevoice_asr.py, without its
+Counterpart of the JAX package's runtime/sensevoice_asr.py, without its
 LM/TLG rescoring (the native library's slice) and tensor-parallel
 (multi-GPU) branches. Role of the SenseVoice paths in
 sensevoice-small.cpp: the offline forward with language/textnorm meta ids
@@ -15,8 +15,9 @@ A beam item also fetches the device-pruned [B, T, 64] candidate ids and
 log-probs (parallel/ctc_shard.py) plus the [B, T, E] log-probs of its
 context graph's unit ids, force-included so the prune never hides a
 hotword unit from the bias. No path fetches the [B, T, V] logits. All of
-a call's outputs come back in one copy. The beam itself is host Python
-(decode/ctc.py's spec).
+a call's outputs come back in one copy. The beam itself runs on the
+host in the native library (decode/ctc.py, native/src/ctc_beam.cc),
+which releases the interpreter lock while it decodes.
 """
 from __future__ import annotations
 
@@ -235,7 +236,8 @@ class SenseVoiceOffline:
                         fid, flp, ln - NUM_META,
                         beam=max(self.beam, 10),
                         blank_id=self.cfg.blank_id, context=ctx,
-                        id_to_token=self.vocab.id2token)
+                        id_to_token=self.vocab.id2token,
+                        token2id=self.vocab.token2id)
                     tok_ids = nbest[0][0] if nbest else []
                 else:
                     tok_ids = [int(x) for x in ids[k, : int(counts[k])]]

@@ -1,7 +1,7 @@
 """Front-end: samples -> fbank -> LFR -> CMVN features, chunk by chunk
 and whole.
 
-Counterpart of asr2pass_tpu/runtime/streaming_frontend.py:
+Counterpart of the JAX package's runtime/streaming_frontend.py:
 StreamingFrontend (chunk-incremental, with exact offline parity),
 offline_window_samples, the fused device front-end _frontend_feats /
 offline_frontend_device (int16 upload, then fbank, LFR and CMVN on the

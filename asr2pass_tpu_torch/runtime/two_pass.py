@@ -1,6 +1,6 @@
 """TwoPassSession: the per-connection 2pass orchestrator.
 
-Counterpart of asr2pass_tpu/runtime/two_pass.py: each model runs on the
+Counterpart of the JAX package's runtime/two_pass.py: each model runs on the
 device of its own wrapper (FsmnVadStream, ParaformerOnlineStream,
 ParaformerOffline, Punctuator), and the splitter and the text work stay
 on the host. Equivalent of FunTpassInferBuffer (funasrruntime.cpp:491-646) plus the

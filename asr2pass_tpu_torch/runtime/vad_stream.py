@@ -1,6 +1,6 @@
 """Per-stream VAD: streaming front-end -> FSMN net -> decision automaton.
 
-Counterpart of asr2pass_tpu/runtime/vad_stream.py. The net runs on the
+Counterpart of the JAX package's runtime/vad_stream.py. The net runs on the
 device over chunks padded to 25-frame buckets with its caches there; the
 posteriors come back to the host once a chunk for the automaton. The
 offline variant streams 1 s windows through the same path and joins the

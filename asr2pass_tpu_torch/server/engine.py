@@ -1,6 +1,6 @@
 """Server-side model registry + per-connection session factory.
 
-Counterpart of asr2pass_tpu/server/engine.py (ServerModels), with the
+Counterpart of the JAX package's server/engine.py (ServerModels), with the
 fields of the ported modules: the offline (pass-2) and streaming
 (pass-1) Paraformers, FSMN-VAD, punctuation, ITN, the hotword compiler
 and its seg_dict, SenseVoice as the pass-2 alternative, server-side

@@ -10,7 +10,7 @@ Speaks the exact JSON+binary protocol of the reference servers
   server -> {"text", "mode": online|offline|2pass-online|2pass-offline,
             "wav_name", "is_final"(, "timestamp", "stamp_sents")}
 
-Counterpart of asr2pass_tpu/server/ws_server.py. The models run on the
+Counterpart of the JAX package's server/ws_server.py. The models run on the
 device of the ServerModels (the card unless it was built with
 device="cpu"); with a SenseVoice model loaded, pass 2 runs SenseVoice
 with the connection's svs_lang and svs_itn. Threading model:

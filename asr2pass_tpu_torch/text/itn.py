@@ -1,6 +1,6 @@
 """Inverse text normalization (ITN) for Chinese (+ mixed English digits).
 
-Counterpart of asr2pass_tpu/text/itn.py (ChineseITN and its helpers):
+Counterpart of the JAX package's text/itn.py (ChineseITN and its helpers):
 the rule engine that the launcher installs by default (--itn). Role of
 the reference's WeTextProcessing-runtime port (itn-processor.cpp: 53-87
 tagger -> reorder -> verbalizer, with ITN_ORDERS = date/fraction/money/

@@ -1,6 +1,6 @@
 """Punctuation tokenizer: text -> punc-model token ids.
 
-Port copy of asr2pass_tpu/text/punc_tokenizer.py. Role of CTokenizer
+Port copy of the JAX package's text/punc_tokenizer.py. Role of CTokenizer
 (onnxruntime/src/tokenizer.{h,cpp}): yaml/json token tables, Chinese
 segmentation, per-char fallback, punc id<->symbol maps.
 Where the reference uses jieba for Chinese word segmentation, we use greedy

@@ -73,7 +73,7 @@ def cast_floats(params: Union[nn.Module, Mapping[str, torch.Tensor]],
                 dtype: torch.dtype):
     """Cast the floating-point parameters of a module (in place, returned)
     or of a state dict (a new dict) to `dtype`; other entries pass
-    through. Counterpart of asr2pass_tpu/utils.py:8-16, used to run the
+    through. Counterpart of the JAX package's utils.py:8-16, used to run the
     serving path in bfloat16."""
     if isinstance(params, nn.Module):
         for p in params.parameters():

@@ -1,8 +1,10 @@
 """E2E VAD decision state machine (host-side, per stream).
 
-Port copy of asr2pass_tpu/vad/e2e_vad.py, the Python/numpy path only:
-the JAX package can bind a C++ automaton instead (asr2pass_tpu/native/),
-whose port comes later; both give the same decisions.
+Port copy of the JAX package's vad/e2e_vad.py. The per-frame decision
+loop runs in the native library (native/src/e2e_vad.cc, through
+native/bindings.NativeVad) by default, as the JAX package's default
+does; the Python frame loop below is the plain version, taken only with
+E2EVadStateMachine(native=False). Both give the same decisions.
 
 Behavioral port of the reference's header-only decision logic
 (onnxruntime/src/e2e-vad.h): per-frame decibel, sil-pdf score thresholding
@@ -105,7 +107,8 @@ class E2EVadStateMachine:
     """Chunk-incremental segmenter. Feed (posteriors, waveform) per chunk;
     returns newly finalized segments."""
 
-    def __init__(self, opts: Optional[VadOptions] = None):
+    def __init__(self, opts: Optional[VadOptions] = None,
+                 native: bool = True):
         self.opts = opts or VadOptions()
         self.windows_detector = _WindowDetector(
             self.opts.window_size_ms,
@@ -113,7 +116,18 @@ class E2EVadStateMachine:
             self.opts.speech_to_sil_time_thres,
             self.opts.frame_in_ms,
         )
+        self._native = None
+        if native:
+            from asr2pass_tpu_torch.native import bindings
+
+            self._native = bindings.NativeVad(self.opts)
         self._all_reset()
+
+    def close(self):
+        """Free the native automaton's handle (a no-op on the Python
+        path); later calls raise."""
+        if self._native is not None:
+            self._native.close()
 
     # -- reset ------------------------------------------------------------
     def _all_reset(self):
@@ -141,6 +155,8 @@ class E2EVadStateMachine:
         self.max_end_sil_frame_cnt_thresh = (
             self.opts.max_end_silence_time - self.opts.speech_to_sil_time_thres
         )
+        if self._native is not None:
+            self._native.reset()
         self._reset_detection()
 
     def _reset_detection(self):
@@ -166,36 +182,55 @@ class E2EVadStateMachine:
         scores = np.asarray(scores, dtype=np.float32)
         block = scores.shape[0]
 
-        if max_end_sil is not None:
-            self.max_end_sil_frame_cnt_thresh = (
-                max_end_sil - o.speech_to_sil_time_thres
-            )
-        if max_single_segment_time is not None:
-            o.max_single_segment_time = max_single_segment_time
-        if speech_noise_thres is not None:
-            self.speech_noise_thres = speech_noise_thres
-        self.scores = scores
-        self.frm_cnt += block
-        if not is_final:
-            self._detect_common_frames(block)
+        if self._native is not None:
+            self._native.overrides(max_end_sil, max_single_segment_time,
+                                   speech_noise_thres)
+            base = self.frm_cnt
+            self.frm_cnt += block
+            sil = scores[:, list(o.sil_pdf_ids)].sum(-1, dtype=np.float32)
+            self._native.chunk(sil, self._decibel_chunk(base, block),
+                               is_final)
         else:
-            self._detect_last_frames(block)
-        self.idx_pre_chunk = (self.frm_cnt if not is_final
-                              else self.idx_pre_chunk)
+            if max_end_sil is not None:
+                self.max_end_sil_frame_cnt_thresh = (
+                    max_end_sil - o.speech_to_sil_time_thres
+                )
+            if max_single_segment_time is not None:
+                o.max_single_segment_time = max_single_segment_time
+            if speech_noise_thres is not None:
+                self.speech_noise_thres = speech_noise_thres
+            self.scores = scores
+            self.frm_cnt += block
+            if not is_final:
+                self._detect_common_frames(block)
+            else:
+                self._detect_last_frames(block)
+            self.idx_pre_chunk = (self.frm_cnt if not is_final
+                                  else self.idx_pre_chunk)
 
         out = self._emit(online, is_final)
         if is_final:
             self._all_reset()
         return out
 
+    def _seg_total(self) -> int:
+        if self._native is not None:
+            return self._native.seg_count()
+        return len(self.output_data_buf)
+
+    def _seg_at(self, i: int):
+        """(start_ms, end_ms, contain_start, contain_end)"""
+        if self._native is not None:
+            return self._native.seg(i)
+        s = self.output_data_buf[i]
+        return s.start_ms, s.end_ms, s.contain_start, s.contain_end
+
     def _emit(self, online: bool, is_final: bool) -> List[List[int]]:
         out: List[List[int]] = []
         i = self.output_data_buf_offset
-        total = len(self.output_data_buf)
+        total = self._seg_total()
         while i < total:
-            seg = self.output_data_buf[i]
-            start, end = seg.start_ms, seg.end_ms
-            contain_start, contain_end = seg.contain_start, seg.contain_end
+            start, end, contain_start, contain_end = self._seg_at(i)
             if online:
                 if not contain_start:
                     i += 1

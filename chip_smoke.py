@@ -9,7 +9,12 @@ Phases, each of which fails the run if it fails:
               csrc/attention_f32_sm90.cu (fp32, 3xTF32 wgmma + TMA) and
               csrc/attention_sm90.cu (bf16, wgmma + TMA), both including
               csrc/tma.cuh; print each instantiation's registers, spills
-              and shared memory
+              and shared memory. Beside them, g++ builds the native host
+              library from asr2pass_tpu_torch/native/src (the resampler,
+              the VAD automaton, the CTC prefix beam); its seconds are
+              printed. Then the native resampler against its numpy
+              version on 60 s at 44.1 -> 16 kHz and 8 -> 16 kHz: lengths
+              within 1, interior within 2e-4; ms of each
   2. kernels  hold each kernel entry point against its plain PyTorch version
               on the card at main-path shapes, fp32 and bf16, each with a
               length-0 row, a dropped-key control that the tolerance must
@@ -50,7 +55,10 @@ Phases, each of which fails the run if it fails:
               first 10 chunks (counts, logits) and pass-2 logits on one
               segment. Prints pass-1/pass-2/VAD/punctuation latencies, the
               real-time factor, the batched pass-1 step at B = 1, 16, 64
-              and a traced run of the session
+              and a traced run of the session. The session's automaton
+              runs natively (one library call a message); its input is
+              replayed through the native and the plain automaton, online
+              and offline: equal events, ms a message of each
   8. server   the websocket server with the batched StreamEngine
               (capacity 128), built by the launcher's build_models from
               the phase-3 and phase-7 model dirs with ChineseITN, on a
@@ -67,9 +75,12 @@ Phases, each of which fails the run if it fails:
               kernel launched 50 times per pass-2 forward at bucket 256
               and nothing else; the offline result equal to
               OfflineRecognizer.transcribe; online partials only; one
-              fused engine tick on the card and on the CPU. Prints tick,
-              partial and final latency, the pass-2 lane's batches,
-              audio-s/s, peak memory and a traced window of 10 ticks;
+              fused engine tick on the card and on the CPU; a 30 s
+              8 kHz WAV upload, resampled once by the native library,
+              equal to transcribe of linear_resample's samples; 8a's
+              automatons all native. Prints tick, partial and final
+              latency, the pass-2 lane's batches, audio-s/s, peak memory,
+              vd_automaton p50/p95 and a traced window of 10 ticks;
               kernel #1 fp32 is timed at the lane's batch shape too
   9. hotword  9a: the deployed hotword model, paraformer_large(timestamp,
    and svs    hotword) with a converted HotwordConfig() compiler (no null
@@ -86,18 +97,23 @@ Phases, each of which fails the run if it fails:
               70 times each (T = 1028, 3076, 5124) and return meta ids;
               one 15 s segment card vs CPU (logits, greedy ids, beam-10
               n-best with a 5-word context graph) and the beam's host ms
-              there; 16 x 60 s greedy audio-s/s and a profile.
+              there; the native beam against its Python spec on 15 s and
+              60 s, with and without the context (n-best ids and times
+              equal, scores within 1e-4 or one fp32 step of the score;
+              ms of each); 16 x 60 s greedy audio-s/s and a profile.
               9c: the server on the 9a models, --engine at capacity 128,
               16 paced connections, 8 with hotwords: one final per burst,
               embeddings in exactly the hotworded segments' forwards, c0's
               finals equal a create_session(hw_emb=...) session's.
               9d: the same launch with --svs-dir: svs_lang cycling zh,
               en, auto, 4 connections with hotwords; #1 fp32 launched 70
-              times per pass-2 forward at T = 260; a 60 s offline upload
-              equal to OfflineRecognizer.transcribe. Prints latencies and
-              the engine's idle share
+              times per pass-2 forward at T = 260; one native beam call
+              per hotworded segment; a 60 s offline upload equal to
+              OfflineRecognizer.transcribe. Prints latencies (beside the
+              Python beam's) and the engine's idle share
 
-Prints the card's name and power limit, one JSON line of kernel numbers
+Prints the card's name and power limit, one JSON line of the native
+library's numbers ({"native": {...}}), one JSON line of kernel numbers
 ({"kernels": [...]}, with each kernel's launches on the offline path, in
 the 2pass session, in the engine run and on phase 9's paths), and as its last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -112,6 +128,7 @@ import os
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 
 REPO = os.path.dirname(os.path.abspath(__file__))
@@ -184,6 +201,21 @@ ONLINE_SECONDS = 10.0
 PACE_S = 0.6
 VAD_TAIL_SIL_MS = 350
 TRACE_TICKS = 10
+UPLOAD_8K_SECONDS = 30.0  # 8c: an 8 kHz WAV upload, resampled to 16 kHz
+# the native host library against its plain Python versions: the
+# resampler on 60 s at two rates (interior limit: the JAX package's own,
+# tests/test_native.py), the beam's scores (fp32 out of double sums: 1e-4
+# or one fp32 step at the score's magnitude, see beam_gate)
+RESAMPLE_SECONDS = 60.0
+RESAMPLE_RATES = ((44100, 16000), (8000, 16000))
+RESAMPLE_INTERIOR_TOL = 2e-4
+BEAM_SCORE_TOL = 1e-4
+# 9d with the Python beam (PERF.md section 6: NVIDIA H100 80GB HBM3,
+# 700 W, three runs), printed beside this run's for comparison
+PYTHON_BEAM_9D_MS = {"final_ms_p50": (10200, 12200),
+                     "final_ms_p95": (16700, 18900),
+                     "partial_ms_p50": (512, 551),
+                     "partial_ms_p95": (5800, 7800)}
 
 
 def reference_first_message(mode: str, wav_name: str, **fields) -> str:
@@ -319,6 +351,164 @@ def device_profile(fn, label: str, host_ops: bool = True) -> dict:
         print(f"profile:   {ms:9.3f} ms {n:7d}x {name[:100]}", flush=True)
     return {"wall_ms": wall_ms, "busy_ms": busy_ms, "attention_ms": att_ms,
             "launches": n_launch}
+
+
+# ---------------------------------------------------------------------------
+# the native host library: each part against its plain Python version on
+# the card's host
+# ---------------------------------------------------------------------------
+
+def host_ms(fn, reps: int):
+    """(fn's result, median host ms of reps calls)."""
+    import numpy as np
+
+    times, out = [], None
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        out = fn()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return out, float(np.median(times))
+
+
+def resample_gate(card: str) -> dict:
+    """The native resampler against its numpy plain version on
+    RESAMPLE_SECONDS of audio at each of RESAMPLE_RATES: lengths within
+    1, the interior within RESAMPLE_INTERIOR_TOL; ms of each path."""
+    import numpy as np
+
+    from asr2pass_tpu_torch.frontend.audio import linear_resample
+    from asr2pass_tpu_torch.native import bindings as nb
+
+    out = {}
+    for fs_in, fs_out in RESAMPLE_RATES:
+        rng = np.random.default_rng(fs_in)
+        n = int(RESAMPLE_SECONDS * fs_in)
+        t = np.arange(n) / fs_in
+        x = (0.3 * np.sin(2 * np.pi * 440 * t)
+             + 0.05 * rng.standard_normal(n)).astype(np.float32)
+        nb.reset_call_counts()
+        nat, nat_ms = host_ms(lambda: linear_resample(x, fs_in, fs_out), 5)
+        calls = nb.call_counts()["resample"]
+        plain, plain_ms = host_ms(
+            lambda: linear_resample(x, fs_in, fs_out, native=False), 3)
+        m = min(len(nat), len(plain))
+        err = float(np.abs(nat[100:m - 100] - plain[100:m - 100]).max())
+        key = f"{fs_in}->{fs_out}"
+        out[key] = {"native_ms": nat_ms, "plain_ms": plain_ms,
+                    "plain_over_native": plain_ms / nat_ms,
+                    "samples": [len(nat), len(plain)],
+                    "interior_max_abs_err": err,
+                    "identical": bool(len(nat) == len(plain)
+                                      and np.array_equal(nat, plain))}
+        print(f"native: resample {RESAMPLE_SECONDS:.0f} s {key}: native "
+              f"{nat_ms:.2f} ms, numpy {plain_ms:.2f} ms "
+              f"({plain_ms / nat_ms:.1f}x), lengths {len(nat)}/"
+              f"{len(plain)}, interior max |err| {err:.3e} (limit "
+              f"{RESAMPLE_INTERIOR_TOL}), identical "
+              f"{out[key]['identical']}; {calls} native calls on {card}",
+              flush=True)
+        if (calls != 5 or abs(len(nat) - len(plain)) > 1
+                or not err <= RESAMPLE_INTERIOR_TOL):
+            fail(f"native: resample {key} differs from its numpy version "
+                 f"or did not run natively: {out[key]}, {calls} calls")
+    return out
+
+
+def automaton_gate(calls: list, opts, session_events: list,
+                   card: str) -> dict:
+    """Replay a VAD stream's automaton input (posteriors, waveform
+    chunks, flags and overrides, one call a message) through the native
+    automaton and the plain Python one, online and offline: the events
+    must be equal, and the online native replay must give the events the
+    stream gave. ms a message of each path."""
+    import dataclasses
+
+    from asr2pass_tpu_torch.native import bindings as nb
+    from asr2pass_tpu_torch.vad.e2e_vad import E2EVadStateMachine
+
+    out = {"messages": len(calls)}
+    for online in (True, False):
+        events, ms = {}, {}
+        for native in (True, False):
+            # a copy: the plain path writes the max_single_segment_time
+            # override into its options
+            sm = E2EVadStateMachine(dataclasses.replace(opts), native=native)
+            evs, times = [], []
+            nb.reset_call_counts()
+            for scores, samples, kw in calls:
+                t0 = time.perf_counter()
+                evs += sm(scores, samples, **dict(kw, online=online))
+                times.append((time.perf_counter() - t0) * 1e3)
+            n_calls = nb.call_counts()["vad_chunk"]
+            sm.close()
+            if n_calls != (len(calls) if native else 0):
+                fail(f"native: automaton replay made {n_calls} native "
+                     f"calls for {len(calls)} messages (native {native})")
+            events[native], ms[native] = evs, sum(times) / len(times)
+        mode = "online" if online else "offline"
+        out[mode] = {"native_ms_per_message": ms[True],
+                     "plain_ms_per_message": ms[False],
+                     "plain_over_native": ms[False] / ms[True],
+                     "events": len(events[True])}
+        print(f"native: automaton replay, {len(calls)} messages {mode}: "
+              f"events equal {events[True] == events[False]} "
+              f"({len(events[True])}); ms a message native "
+              f"{ms[True]:.4f}, plain {ms[False]:.4f} "
+              f"({ms[False] / ms[True]:.1f}x) on {card}", flush=True)
+        if events[True] != events[False] or not events[True]:
+            fail(f"native: automaton events differ ({mode}): native "
+                 f"{events[True]}, plain {events[False]}")
+        if online and events[True] != session_events:
+            fail(f"native: the replayed events {events[True]} differ from "
+                 f"the session's {session_events}")
+    return out
+
+
+def beam_gate(label: str, cid, clp, length: int, context, vocab,
+              card: str) -> dict:
+    """The native pruned beam (beam SVS_BEAM) against its Python spec
+    (use_native=False) on one segment's candidates: n-best ids and times
+    equal, scores within BEAM_SCORE_TOL; ms of each path."""
+    import numpy as np
+
+    from asr2pass_tpu_torch.decode.ctc import ctc_prefix_beam_search_pruned
+    from asr2pass_tpu_torch.native import bindings as nb
+
+    kw = dict(beam=SVS_BEAM, context=context, id_to_token=vocab.id2token,
+              token2id=vocab.token2id)
+    nb.reset_call_counts()
+    nat, nat_ms = host_ms(lambda: ctc_prefix_beam_search_pruned(
+        cid, clp, length, **kw), 5)
+    calls = nb.call_counts()["ctc_beam_decode"]
+    plain, plain_ms = host_ms(lambda: ctc_prefix_beam_search_pruned(
+        cid, clp, length, use_native=False, **kw), 1)
+    same = ([h[0] for h in nat] == [h[0] for h in plain]
+            and [h[2] for h in nat] == [h[2] for h in plain])
+    # the library returns fp32 scores of double sums: a score is held to
+    # BEAM_SCORE_TOL or, where its magnitude makes one fp32 step larger
+    # (a biased 60 s segment scores in the thousands), to one step
+    diffs = [abs(a[1] - b[1]) for a, b in zip(nat, plain)]
+    limits = [max(BEAM_SCORE_TOL, float(np.spacing(np.float32(abs(b[1])))))
+              for b in plain]
+    score_err = max(diffs, default=float("inf"))
+    fp32_equal = all(np.float32(b[1]) == np.float32(a[1])
+                     for a, b in zip(nat, plain))
+    print(f"native: beam {SVS_BEAM}, {label}: {length} frames x "
+          f"{cid.shape[1]} candidates; n-best ids and times equal {same}, "
+          f"max score diff {score_err:.3e} (limits {min(limits):.1e}-"
+          f"{max(limits):.1e}: {BEAM_SCORE_TOL} or one fp32 step of the "
+          f"score; best score {plain[0][1]:.3f}), scores equal in fp32 "
+          f"{fp32_equal}; native {nat_ms:.2f} ms, Python {plain_ms:.1f} ms "
+          f"({plain_ms / nat_ms:.1f}x); {calls} native calls on {card}",
+          flush=True)
+    if not (same and nat and calls == 5
+            and all(d <= lim for d, lim in zip(diffs, limits))):
+        fail(f"native: beam {label} differs from its Python spec or did "
+             f"not run natively ({calls} calls)")
+    return {"native_ms": nat_ms, "plain_ms": plain_ms,
+            "plain_over_native": plain_ms / nat_ms, "frames": length,
+            "candidates": int(cid.shape[1]), "max_score_diff": score_err,
+            "best_score": plain[0][1], "scores_equal_in_fp32": fp32_equal}
 
 
 # ---------------------------------------------------------------------------
@@ -917,6 +1107,7 @@ def two_pass_phase(model_dir: str, tmp: str, gen, card: str):
     from asr2pass_tpu_torch.models import (ct_transformer, fsmn_vad,
                                            paraformer, paraformer_online,
                                            sanm_decoder)
+    from asr2pass_tpu_torch.native import bindings as nb
     from asr2pass_tpu_torch.ops import attention as att
     from asr2pass_tpu_torch.runtime import model_zoo
     from asr2pass_tpu_torch.runtime.asr_stream import ParaformerOnlineStream
@@ -925,7 +1116,9 @@ def two_pass_phase(model_dir: str, tmp: str, gen, card: str):
     from asr2pass_tpu_torch.runtime.streaming_frontend import (
         offline_frontend_device)
     from asr2pass_tpu_torch.runtime.two_pass import TwoPassSession
-    from asr2pass_tpu_torch.runtime.vad_stream import FsmnVadStream
+    from asr2pass_tpu_torch.runtime.vad_stream import (FsmnVadStream,
+                                                       vad_options)
+    from asr2pass_tpu_torch.vad.e2e_vad import E2EVadStateMachine
 
     t0 = time.perf_counter()
     # the four models at full width, each saved as a model dir and loaded
@@ -985,7 +1178,8 @@ def two_pass_phase(model_dir: str, tmp: str, gen, card: str):
     wave, spans = two_pass_audio()
     audio_s = len(wave) / FS
     rec = {"vad_ms": [], "events": [], "p1_ms": [], "p1_inputs": [],
-           "punc_ms": [], "segments": [], "t_lfr": [], "finite": []}
+           "punc_ms": [], "segments": [], "t_lfr": [], "finite": [],
+           "sm_calls": []}
 
     def timed(key, fn):
         def call(*a, **kw):
@@ -1005,6 +1199,16 @@ def two_pass_phase(model_dir: str, tmp: str, gen, card: str):
 
     def finite(*xs):
         rec["finite"].extend(torch.isfinite(x).all() for x in xs)
+
+    def automaton_input(fn):
+        # the session's automaton calls: posteriors, waveform chunk, flags
+        def call(sm, scores, waveform, **kw):
+            if sm is vad.sm:
+                rec["sm_calls"].append((np.array(scores, np.float32),
+                                        np.array(waveform, np.float32),
+                                        dict(kw)))
+            return fn(sm, scores, waveform, **kw)
+        return call
 
     def forward(fn):
         def call(feats, lengths, *a):
@@ -1036,9 +1240,12 @@ def two_pass_phase(model_dir: str, tmp: str, gen, card: str):
                 (sanm_decoder, "apply_streaming",
                  after(lambda o: finite(o[0]))),
                 (fsmn_vad, "apply", after(lambda o: finite(o[0]))),
-                (ct_transformer, "apply", after(finite))):
+                (ct_transformer, "apply", after(finite)),
+                (E2EVadStateMachine, "__call__", automaton_input)):
             stack.enter_context(wrapped(obj, name, around))
+        nb.reset_call_counts()
         results, secs = feed_all(sess, wave)
+        vad_calls = nb.call_counts()["vad_chunk"]
     torch.cuda.synchronize()
     launches = att.launch_counts_by_dtype()
     print(f"2pass: session run ({time.perf_counter() - t0:.1f} s)",
@@ -1101,6 +1308,13 @@ def two_pass_phase(model_dir: str, tmp: str, gen, card: str):
         feed_all(TwoPassSession(vad_cpu, None, None, mode="2pass"), wave)
     if cpu_events != rec["events"]:
         fail(f"2pass: the CPU's VAD events {cpu_events} differ")
+    # the session's automaton ran natively, one call a message; its
+    # input replayed through the native and the plain automaton
+    if vad_calls != len(rec["sm_calls"]) or not vad_calls:
+        fail(f"2pass: {vad_calls} native automaton calls for "
+             f"{len(rec['sm_calls'])} automaton steps")
+    automaton = automaton_gate(rec["sm_calls"], vad_options(vad_cfg2),
+                               rec["events"], card)
     t_vad = time.perf_counter() - t0
     # pass 1: the first 10 chunks' steps from the card's state, copied to
     # the CPU, on both devices
@@ -1182,6 +1396,7 @@ def two_pass_phase(model_dir: str, tmp: str, gen, card: str):
         "pass2_logits_max_abs_err": p2_err, "pass2_logits_limit": p2_limit,
     }
     print(f"2pass: {json.dumps(numbers)}", flush=True)
+    numbers["automaton"] = automaton
 
     # the batched pass-1 step: ms a step of B streams (10 steps each, one
     # chunk of `center` frames per stream), and the streams whose 600 ms
@@ -1231,6 +1446,20 @@ def s16_bytes(wave) -> bytes:
 
     return np.clip(np.round(wave * 32768.0), -32768, 32767).astype(
         "<i2").tobytes()
+
+
+def wav_bytes(wave, fs: int) -> bytes:
+    """A mono 16-bit WAV file of the wave at fs."""
+    import io
+    import wave as wavefile
+
+    buf = io.BytesIO()
+    with wavefile.open(buf, "wb") as w:
+        w.setnchannels(1)
+        w.setsampwidth(2)
+        w.setframerate(fs)
+        w.writeframes(s16_bytes(wave))
+    return buf.getvalue()
 
 
 def burst_stream(seed: int, n_bursts: int, total_s: float = None):
@@ -1458,7 +1687,10 @@ def server_phase(model_dir: str, tmp: str, card: str):
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    from asr2pass_tpu_torch.frontend.audio import load_pcm_bytes
+    from asr2pass_tpu_torch.frontend.audio import (linear_resample,
+                                                   load_pcm_bytes,
+                                                   load_wav_bytes)
+    from asr2pass_tpu_torch.native import bindings as nb
     from asr2pass_tpu_torch.ops import attention as att
     from asr2pass_tpu_torch.runtime.metrics import GLOBAL as METRICS
     from asr2pass_tpu_torch.runtime.two_pass import TwoPassSession
@@ -1542,6 +1774,7 @@ def server_phase(model_dir: str, tmp: str, card: str):
                     rec["vad"].append((samples.copy(), is_final, ev))
                 return ev
 
+            call.close = sm.close   # the engine frees what it made
             slot.sm = call
 
         def print_stages(part):
@@ -1562,6 +1795,7 @@ def server_phase(model_dir: str, tmp: str, card: str):
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
             att.reset_launch_counts()
+            nb.reset_call_counts()
             prof = profile(activities=[ProfilerActivity.CUDA])
             trace = {}
 
@@ -1587,6 +1821,7 @@ def server_phase(model_dir: str, tmp: str, card: str):
             await tracer
             numbers["paced_wall_s"] = time.perf_counter() - t1
             launches = att.launch_counts_by_dtype()
+            native_calls = nb.call_counts()
             numbers["paced_peak_mem_gib"] = (torch.cuda.max_memory_allocated()
                                              / 2 ** 30)
             ticks_a = list(rec["ticks"])
@@ -1622,6 +1857,17 @@ def server_phase(model_dir: str, tmp: str, card: str):
                   f"{lane_a}; forwards (B, T) {fwd_a}; peak memory "
                   f"{numbers['paced_peak_mem_gib']:.2f} GiB", flush=True)
             print_stages("8a")
+            # every automaton step of 8a ran natively: one call a slot a
+            # decided batch
+            vd = numbers["stages_8a"].get("vd_automaton")
+            numbers["native_calls_8a"] = native_calls
+            print(f"native: 8a automaton {native_calls['vad_chunk']} native "
+                  f"calls over {len(ticks_a)} ticks "
+                  f"({native_calls['vad_chunk'] / len(ticks_a):.1f} a "
+                  f"tick); vd_automaton p50/p95 {vd[0]:.3f} / {vd[1]:.3f} "
+                  f"ms over {vd[2]} decided batches on {card}", flush=True)
+            if not native_calls["vad_chunk"] or native_calls["resample"]:
+                fail(f"server: 8a native calls {native_calls}")
             # the engine's VAD against a TwoPassSession's on the card, on
             # the chunks the engine staged for connection c0
             events = [e for _, _, ev in rec["vad"] for e in ev]
@@ -1726,6 +1972,33 @@ def server_phase(model_dir: str, tmp: str, card: str):
                   f"{len(ms[0]['text'])} chars, "
                   f"{len(json.loads(ms[0]['timestamp']))} stamps, equal to "
                   "OfflineRecognizer.transcribe", flush=True)
+            # an 8 kHz WAV upload: the server resamples it to 16 kHz on
+            # the native resampler, once
+            x8 = linear_resample(synth_audio(UPLOAD_8K_SECONDS, 11), FS,
+                                 8000, native=False)
+            data = wav_bytes(x8, 8000)
+            nb.reset_call_counts()
+            _, msgs = await ws_client(
+                port, "off8k", data, "offline",
+                first=reference_first_message(
+                    "offline", "off8k", audio_fs=8000, wav_format="wav"))
+            resamples = nb.call_counts()["resample"]
+            ms = [m for _, m in msgs]
+            ref = models.create_offline_recognizer(
+                vad_tail_sil=VAD_TAIL_SIL_MS, vad_max_len=20000).transcribe(
+                linear_resample(load_wav_bytes(data)[0], 8000, FS),
+                use_itn=True)
+            print(f"server: 8c, {UPLOAD_8K_SECONDS:.0f} s 8 kHz WAV "
+                  f"upload: {resamples} native resample call, "
+                  f"{len(ms[0]['text']) if ms else 0} chars, equal to "
+                  f"transcribe of linear_resample's 16 kHz samples: "
+                  f"{bool(ms) and ms[0]['text'] == ref.text}", flush=True)
+            if (resamples != 1 or len(ms) != 1 or not ref.text
+                    or ms[0]["mode"] != "offline"
+                    or ms[0]["text"] != ref.text):
+                fail(f"server: 8c 8 kHz upload gave {ms} after {resamples} "
+                     f"native resample calls, transcribe gives "
+                     f"{ref.text!r}")
 
             # -- 8d: one online connection ---------------------------------
             data = s16_bytes(np.concatenate([
@@ -2087,7 +2360,7 @@ def sensevoice_phase(tmp: str, gen, card: str):
         t1 = time.perf_counter()
         nbest.append(ctc_prefix_beam_search_pruned(
             fid, flp, ln - 4, beam=SVS_BEAM, context=ctx,
-            id_to_token=sb.vocab.id2token))
+            id_to_token=sb.vocab.id2token, token2id=sb.vocab.token2id))
         beam_ms = (time.perf_counter() - t1) * 1e3
     lc, lg = out_c.logits[0].cpu(), out_g.logits[0].cpu()
     limit = CPU_TOL * max(1.0, lc.abs().max().item())
@@ -2108,6 +2381,32 @@ def sensevoice_phase(tmp: str, gen, card: str):
     numbers.update(logits_max_abs_err=err, logits_limit=limit,
                    beam_15s_ms=beam_ms, beam_frames=t_lfr,
                    beam_candidates=64 + len(hw_ids))
+
+    # the native beam against its Python spec on the card's candidates of
+    # the 15 s segment and of a 60 s one, with no context and with the
+    # 5-word context graph
+    seg60 = synth_audio(60.0, 5)
+    n_mel60 = num_frames(len(seg60), fcfg)
+    t60 = -(-n_mel60 // fcfg.lfr_n)
+    feats = offline_frontend_device([seg60], [n_mel60], 1024, fcfg,
+                                    *sb.cmvn, batch_b=1, device="cuda")
+    with torch.inference_mode():
+        out_60 = rec._forward(feats, [t60])
+    beams = {}
+    for seconds, out in ((15, out_g), (60, out_60)):
+        cid, clp, hw = to_host(list(ctc_first_prune_gather(out.logits,
+                                                           hw_ids)))
+        ln = int(out.lengths[0])
+        beams[f"{seconds}s_no_context"] = beam_gate(
+            f"{seconds} s, no context", cid[0, 4:ln], clp[0, 4:ln],
+            ln - 4, None, sb.vocab, card)
+        fid, flp = _merge_candidates(cid[0, 4:ln], clp[0, 4:ln], hw_ids,
+                                     hw[0, 4:ln])
+        beams[f"{seconds}s_context"] = beam_gate(
+            f"{seconds} s, {len(words)}-word context", fid, flp, ln - 4,
+            ctx, sb.vocab, card)
+    numbers["beam"] = beams
+    del out_60
 
     # throughput: 16 x 60 s, greedy
     batch = [synth_audio(60.0, 100 + i) for i in range(16)]
@@ -2142,6 +2441,7 @@ def p9_server(models, args, label: str, firsts: list, card: str):
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    from asr2pass_tpu_torch.native import bindings as nb
     from asr2pass_tpu_torch.ops import attention as att
     from asr2pass_tpu_torch.runtime.metrics import GLOBAL as METRICS
     from asr2pass_tpu_torch.server.ws_server import AsrWsServer
@@ -2217,6 +2517,7 @@ def p9_server(models, args, label: str, firsts: list, card: str):
                     rec["vad"].append((samples.copy(), is_final, ev))
                 return ev
 
+            call.close = sm.close   # the engine frees what it made
             slot.sm = call
 
         eng.step, eng._process_segments = timed_step, logged_segments
@@ -2242,6 +2543,7 @@ def p9_server(models, args, label: str, firsts: list, card: str):
             METRICS.reset()
             torch.cuda.synchronize()
             att.reset_launch_counts()
+            nb.reset_call_counts()
             t1 = time.perf_counter()
             tracer = asyncio.create_task(traced_window())
             clients = await asyncio.gather(*[
@@ -2252,6 +2554,7 @@ def p9_server(models, args, label: str, firsts: list, card: str):
             await tracer
             numbers["wall_s"] = time.perf_counter() - t1
             launches = att.launch_counts_by_dtype()
+            numbers["native_calls"] = nb.call_counts()
             numbers["stages"] = {
                 k: [v["p50_ms"], v["p95_ms"], v["count"]]
                 for k, v in METRICS.report()["stages"].items()}
@@ -2302,7 +2605,10 @@ def p9_server(models, args, label: str, firsts: list, card: str):
           + (f"{idle:.3f}" if idle is not None else "not measured")
           + f" over {TRACE_TICKS} ticks; pass-2 forwards (B, T) "
           f"{rec['fwd']}; stages (p50, p95 ms, count) "
-          f"{json.dumps(numbers['stages'])} on {card}", flush=True)
+          f"{json.dumps(numbers['stages'])}; native calls "
+          f"{numbers['native_calls']} on {card}", flush=True)
+    if not numbers["native_calls"]["vad_chunk"]:
+        fail(f"server: {label}'s automatons made no native call")
     return clients, streams, rec, launches, offline, numbers
 
 
@@ -2397,6 +2703,20 @@ def svs_server_phase(args, svs_dir: str, card: str):
     if wrong or len(rec["pairs"]) != 2 * P9_CONNECTIONS:
         fail(f"server: 9d segments reached SenseVoice with the wrong "
              f"options: {wrong}")
+    # each hotworded segment took the native beam, once; the others greedy
+    n_ctx = sum(1 for p in rec["pairs"] if p[3])
+    beams = numbers["native_calls"]["ctc_beam_decode"]
+    print(f"native: 9d beam {beams} native calls for {n_ctx} hotworded "
+          f"segments; final p50/p95 {numbers['final_ms_p50']:.1f} / "
+          f"{numbers['final_ms_p95']:.1f} ms, partial p50/p95 "
+          f"{numbers['partial_ms_p50']:.1f} / "
+          f"{numbers['partial_ms_p95']:.1f} ms (the Python beam's, ms: "
+          + ", ".join(f"{k} {a}-{b}" for k, (a, b)
+                      in PYTHON_BEAM_9D_MS.items())
+          + f") on {card}", flush=True)
+    if beams != n_ctx or not n_ctx:
+        fail(f"server: 9d ran the native beam {beams} times for {n_ctx} "
+             "hotworded segments")
     blocks = models.svs_cfg.encoder.num_blocks + len(
         models.svs_params.tp.rest)
     want = blocks * sum(t + 4 >= 256 for _, t in rec["fwd"])
@@ -2453,6 +2773,7 @@ def main() -> int:
               f"{PACKAGE})", file=sys.stderr)
         return 2
     sys.path.insert(0, REPO)
+    from asr2pass_tpu_torch.native import bindings as nb
     from asr2pass_tpu_torch.ops import attention as att
 
     t_start = time.perf_counter()
@@ -2461,11 +2782,31 @@ def main() -> int:
     card = card_line()
     print(f"card: {card}", flush=True)
 
+    # the native host library builds with g++ beside the kernels' nvcc
+    native_build = {}
+
+    def build_native():
+        t1 = time.perf_counter()
+        try:
+            native_build["lib"] = nb.build()
+        except RuntimeError as e:
+            native_build["error"] = e
+        native_build["s"] = time.perf_counter() - t1
+
+    builder = threading.Thread(target=build_native)
     t0 = time.perf_counter()
+    builder.start()
     lib = att.build()
     print(f"build: {lib.name} in {time.perf_counter() - t0:.1f} s; ptxas: "
           f"{' | '.join(ptxas_usage(lib.with_suffix('.log').read_text()))}",
           flush=True)
+    builder.join()
+    if "error" in native_build:
+        fail(f"the native library does not build: {native_build['error']}")
+    native = {"card": card, "build_s": native_build["s"]}
+    print(f"build: {native_build['lib'].name} (g++) in "
+          f"{native_build['s']:.1f} s", flush=True)
+    native["resample"] = resample_gate(card)
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     kernels, svs_kernels = kernel_phase(gen)
@@ -2549,10 +2890,25 @@ def main() -> int:
                 "control_tol_ratio": head["control_tol_ratio"],
                 "variants": variants,
             })
+    # the native host library: its gates' numbers, and the automaton's
+    # stage times and native calls in the server runs
+    native["automaton"] = two_pass["automaton"]
+    native["vd_automaton_ms_p50_p95_count"] = {
+        "8a": server["stages_8a"].get("vd_automaton"),
+        "8b": server["stages_8b"].get("vd_automaton"),
+        "9c": p9["9c"]["stages"].get("vd_automaton"),
+        "9d": p9["9d"]["stages"].get("vd_automaton")}
+    native["calls"] = {"8a": server["native_calls_8a"],
+                       "9c": p9["9c"]["native_calls"],
+                       "9d": p9["9d"]["native_calls"]}
+    native["beam"] = p9["9b"]["beam"]
+    native["9d_ms"] = {k: p9["9d"][k] for k in PYTHON_BEAM_9D_MS}
+    native["9d_ms_python_beam"] = PYTHON_BEAM_9D_MS
     print(f"speed: {json.dumps(speed)}")
     print(f"phase 9: {json.dumps(p9)}")
     print(f"total: {time.perf_counter() - t_start:.1f} s")
     print(card)
+    print(json.dumps({"native": native}))
     print(json.dumps({"kernels": line}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

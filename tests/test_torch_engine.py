@@ -607,6 +607,28 @@ def test_engine_slot_reuse(models):
     assert _texts(r1, "2pass-online") == _texts(r2, "2pass-online")
 
 
+def test_engine_frees_native_automatons(models):
+    """Each slot runs the native automaton; its handle is freed when the
+    slot is reopened and, for the slots still held, at shutdown."""
+    from asr2pass_tpu_torch.native import bindings
+
+    eng = StreamEngine(models, capacity=2)
+    a = eng.open()
+    first = eng.slots[a].sm._native
+    assert isinstance(first, bindings.NativeVad)
+    bindings.reset_call_counts()
+    _drive(eng, a, _wave(3))
+    assert bindings.call_counts()["vad_chunk"] > 0
+    eng.close(a)
+    assert first._handle is not None
+    b = eng.open()
+    assert b == a and first._handle is None
+    held = [eng.slots[b].sm._native, eng.slots[eng.open()].sm._native]
+    assert all(n._handle is not None for n in held)
+    eng.shutdown()
+    assert all(n._handle is None for n in held)
+
+
 def test_engine_capacity_guard(models):
     eng = StreamEngine(models, capacity=1)
     eng.open()
@@ -927,6 +949,7 @@ def test_engine_vad_takes_the_config_options(models):
         events.extend(out)
         return out
 
+    record.close = sm.close     # the engine frees the automaton it made
     eng.slots[sid].sm = record
     got = _drive(eng, sid, wave)
     eng.shutdown()

@@ -146,6 +146,21 @@ def test_linear_resample(fs_in, fs_out, monkeypatch):
 
     monkeypatch.setattr(bindings, "available", lambda: False)
     x = _speechy(0.25, 6)
+    got = taudio.linear_resample(x, fs_in, fs_out, native=False)
+    ref = jaudio.linear_resample(x, fs_in, fs_out)
+    assert got.dtype == np.float32 and got.shape == ref.shape
+    np.testing.assert_array_equal(got, ref)
+
+
+@pytest.mark.parametrize("fs_in,fs_out", [(8000, 16000), (44100, 16000),
+                                          (16000, 22050), (16000, 16000)])
+def test_linear_resample_default(fs_in, fs_out):
+    """The port's default (the native resampler) against the JAX
+    package's default (its native resampler): equal samples."""
+    from asr2pass_tpu.native import bindings
+
+    assert bindings.available()
+    x = _speechy(0.25, 6)
     got = taudio.linear_resample(x, fs_in, fs_out)
     ref = jaudio.linear_resample(x, fs_in, fs_out)
     assert got.dtype == np.float32 and got.shape == ref.shape
@@ -170,3 +185,18 @@ def test_load_audio_file(tmp_path, monkeypatch):
         np.testing.assert_array_equal(taudio.load_audio_file(str(path)),
                                       jaudio.load_audio_file(str(path)))
     assert len(taudio.load_audio_file(str(wav))) == 2 * len(x)
+
+
+def test_load_audio_file_default(tmp_path):
+    """The 8 kHz .wav of test_load_audio_file through both packages'
+    defaults (their native resamplers): equal samples."""
+    x = (_speechy(0.3, 7) * 32767).astype("<i2")
+    wav = tmp_path / "a.wav"
+    with wave.open(str(wav), "wb") as w:
+        w.setnchannels(1)
+        w.setsampwidth(2)
+        w.setframerate(8000)
+        w.writeframes(x.tobytes())
+    got = taudio.load_audio_file(str(wav))
+    np.testing.assert_array_equal(got, jaudio.load_audio_file(str(wav)))
+    assert len(got) == 2 * len(x)

@@ -1,11 +1,16 @@
 """The port stands alone: asr2pass_tpu_torch and chip_smoke.py import
-neither jax nor any module of the JAX package, its entry points run on
-the card unless the caller asks for the CPU, and chip_smoke.py refuses to
-run (printing no result) without a card or outside a checkout."""
+neither jax nor any module of the JAX package and name no path under it
+(so they cannot read its sources or load its native build), its entry
+points run on the card unless the caller asks for the CPU, and
+chip_smoke.py refuses to run (printing no result) without a card or
+outside a checkout."""
 import ast
+import io
 import os
+import re
 import subprocess
 import sys
+import tokenize
 from pathlib import Path
 
 import numpy as np
@@ -69,6 +74,67 @@ def test_no_jax_import_in_source(path):
         else:
             continue
         assert not any(_forbidden(n) for n in names), (path, node.lineno)
+
+
+# a path under the JAX package: "asr2pass_tpu/..." (not
+# "asr2pass_tpu_torch/"), or a string that is the bare directory name (a
+# path component to join)
+_JAX_PATH = re.compile(r"(?<![\w.])asr2pass_tpu/")
+# the one form allowed: a whole string that cites a line of a JAX file,
+# as chip_smoke.py's kernel line names the TPU kernel each CUDA kernel
+# replaces ("replaces": "file:line"); it cannot be opened as a path
+_CITATION = re.compile(r"^asr2pass_tpu/[\w/]+\.py:\d+$")
+
+
+def _names_jax_path(text: str) -> bool:
+    return text.strip() == "asr2pass_tpu" or (
+        not _CITATION.match(text) and _JAX_PATH.search(text) is not None)
+
+
+@pytest.mark.parametrize("text,names", [
+    ("asr2pass_tpu/native/build/libasr2native.so", True),
+    ("../asr2pass_tpu/native/src", True),
+    ("asr2pass_tpu", True),
+    ("see asr2pass_tpu/decode/ctc.py", True),
+    ("asr2pass_tpu/ops/attention.py:129", False),
+    ("asr2pass_tpu/ops/attention.py:129 and asr2pass_tpu/x.py", True),
+    ("asr2pass_tpu_torch/native/src", False),
+    ("the JAX package's native/src/ctc_beam.cc", False),
+    ("asr2pass_tpu.native", False)])
+def test_jax_path_rule(text, names):
+    assert _names_jax_path(text) is names
+
+
+def _all_port_files():
+    """Every file of the port (sources of any kind, build output left
+    out) and chip_smoke.py."""
+    return sorted(p for p in PORT.rglob("*") if p.is_file()
+                  and "_build" not in p.parts and "__pycache__" not in p.parts
+                  and p.suffix != ".pyc") + [REPO / "chip_smoke.py"]
+
+
+def _texts(path: Path):
+    """(line, text) of every string literal and comment of a Python
+    file; of every line of any other file."""
+    src = path.read_text()
+    if path.suffix != ".py":
+        yield from enumerate(src.splitlines(), 1)
+        return
+    for node in ast.walk(ast.parse(src, filename=str(path))):
+        if isinstance(node, ast.Constant) and isinstance(node.value, str):
+            yield node.lineno, node.value
+    for tok in tokenize.generate_tokens(io.StringIO(src).readline):
+        if tok.type == tokenize.COMMENT:
+            yield tok.start[0], tok.string
+
+
+@pytest.mark.parametrize("path", _all_port_files(),
+                         ids=lambda p: str(p.relative_to(REPO)))
+def test_no_jax_package_path(path):
+    """No string, comment or source line names a path under the JAX
+    package: the port builds and runs from its own files only."""
+    bad = [(n, t) for n, t in _texts(path) if _names_jax_path(t)]
+    assert not bad, (path, bad)
 
 
 def _entry_points():

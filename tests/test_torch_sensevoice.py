@@ -188,7 +188,8 @@ def _graphs(vocab):
 @pytest.mark.parametrize("with_context", [False, True])
 def test_prefix_beam_matches_jax_spec(with_context):
     """Full-row and pruned prefix beams, n-best ids, scores and times,
-    against JAX's Python spec (use_native=False)."""
+    the port's Python spec (use_native=False, the plain version) against
+    JAX's (use_native=False): equal."""
     vocab = make_test_vocab(12)
     tg, jg = _graphs(vocab) if with_context else (None, None)
     kw = dict(id_to_token=vocab.id2token)
@@ -201,11 +202,34 @@ def test_prefix_beam_matches_jax_spec(with_context):
         assert got == want
         ids = np.argsort(-logp, axis=-1)[:, :6].astype(np.int32)
         lp = np.take_along_axis(logp, ids, -1)
-        got = tctc.ctc_prefix_beam_search_pruned(ids, lp, len(logp), beam=5,
-                                                 context=tg, **kw)
+        got = tctc.ctc_prefix_beam_search_pruned(
+            ids, lp, len(logp), beam=5, context=tg, use_native=False, **kw)
         want = jctc.ctc_prefix_beam_search_pruned(
             ids, lp, len(logp), beam=5, context=jg, use_native=False, **kw)
         assert got == want and got
+
+
+@pytest.mark.parametrize("with_context", [False, True])
+def test_prefix_beam_native_matches_jax_spec(with_context):
+    """The pruned beam on the port's default, the native library, against
+    JAX's Python spec: n-best ids and times equal, scores within 1e-4
+    (the C++ beam sums in double and returns fp32 scores)."""
+    vocab = make_test_vocab(12)
+    tg, jg = _graphs(vocab) if with_context else (None, None)
+    for seed in range(3):
+        logp = _logp_rows(10 + seed)
+        ids = np.argsort(-logp, axis=-1)[:, :6].astype(np.int32)
+        lp = np.take_along_axis(logp, ids, -1)
+        got = tctc.ctc_prefix_beam_search_pruned(
+            ids, lp, len(logp), beam=5, context=tg,
+            token2id=vocab.token2id)
+        want = jctc.ctc_prefix_beam_search_pruned(
+            ids, lp, len(logp), beam=5, context=jg,
+            id_to_token=vocab.id2token, use_native=False)
+        assert got and [h[0] for h in got] == [h[0] for h in want]
+        assert [h[2] for h in got] == [h[2] for h in want]
+        np.testing.assert_allclose([h[1] for h in got],
+                                   [h[1] for h in want], atol=1e-4)
 
 
 def test_greedy_matches_jax():

@@ -6,8 +6,10 @@ partials; message boundaries depend on timing and are not compared); the
 protocol cases of tests/test_server.py that need no SenseVoice, LM or CER
 harness; and the launcher's build_models on saved model dirs."""
 import asyncio
+import io
 import json
 import time
+import wave
 
 import jax
 import numpy as np
@@ -22,6 +24,7 @@ from asr2pass_tpu.server.ws_server import AsrWsServer as JAsrWsServer
 from asr2pass_tpu.text.punc_tokenizer import PuncTokenizer as JTokenizer
 from asr2pass_tpu.text.vocab import make_test_vocab
 from asr2pass_tpu_torch import config as tconfig
+from asr2pass_tpu_torch.native import bindings as tnb
 from asr2pass_tpu_torch.runtime import model_zoo
 from asr2pass_tpu_torch.runtime.model_zoo import params_from_jax
 from asr2pass_tpu_torch.server.engine import ServerModels
@@ -172,25 +175,45 @@ def _summary(msgs):
     return partial, finals
 
 
+def _wav_8k(seconds, seed):
+    """A WAV file at 8 kHz: the upload the server resamples to 16 kHz."""
+    buf = io.BytesIO()
+    with wave.open(buf, "wb") as w:
+        w.setnchannels(1)
+        w.setsampwidth(2)
+        w.setframerate(8000)
+        w.writeframes(_pcm(seconds / 2, seed))
+    return buf.getvalue()
+
+
 _REPLAYS = {
     "2pass": ("2pass", {}, 2.4, 1),
     "online": ("online", {}, 1.8, 3),
     "offline": ("offline", {}, 2.0, 2),
     "engine": ("2pass", dict(use_engine=True, engine_capacity=4), 2.4, 4),
+    # an 8 kHz WAV upload: both servers resample on their default, the
+    # native resampler
+    "offline_8k": ("offline", {}, 2.0, 5,
+                   dict(audio_fs=8000, wav_format="wav")),
 }
 
 
 @pytest.mark.parametrize("case", list(_REPLAYS))
 def test_replay_matches_jax_server(models, jax_models, case):
-    mode, kw, seconds, seed = _REPLAYS[case]
-    audio = _pcm(seconds, seed)
+    mode, kw, seconds, seed, *fields = _REPLAYS[case]
+    fields = fields[0] if fields else {}
+    audio = (_wav_8k(seconds, seed) if fields.get("audio_fs") == 8000
+             else _pcm(seconds, seed))
     msgs = {}
+    tnb.reset_call_counts()
     for name, cls, m in (("port", AsrWsServer, models),
                          ("jax", JAsrWsServer, jax_models)):
         msgs[name] = _serve(
             m, lambda server, port: _reference_replay(port, mode, "w",
-                                                      audio),
+                                                      audio, **fields),
             server_cls=cls, **kw)
+    # the upload went through the port's native resampler, once
+    assert tnb.call_counts()["resample"] == (1 if fields else 0)
     got = msgs["port"]
     for m in got:
         assert m["wav_name"] == "w"

@@ -6,8 +6,10 @@ The net's weights come from the JAX `init` of vad_default() (FunASR's
 FSMN-VAD widths), carried across with `params_from_jax`. The automaton
 is compared with both of the JAX package's paths: its Python automaton
 (ASR2PASS_NATIVE_VAD=0) and its default, the C++ automaton where the
-native library is built. Events must be equal; the net is held to
-rtol/atol 1e-5.
+native library is built; and both of the port's: its default, its own
+build of the C++ automaton, and its plain Python frame loop
+(native=False). Events must be equal; the net is held to rtol/atol
+1e-5.
 """
 import dataclasses
 
@@ -141,10 +143,28 @@ def _constructed_cases():
 def test_automaton_matches(monkeypatch, case, online, native):
     """The same chunks, the last one final, give the same events as the
     JAX package's automaton, on its Python path (native "0") and on its
-    default (native "1"); the port's has no native path."""
+    default (native "1"); the port's on its default, the native
+    automaton."""
+    _automaton_case(monkeypatch, case, online, native,
+                    te2e.E2EVadStateMachine(te2e.VadOptions()))
+
+
+@pytest.mark.parametrize("native", ["0", "1"])
+@pytest.mark.parametrize("online", [True, False])
+@pytest.mark.parametrize("case", ["open_then_close", "max_segment_split",
+                                  "all_silence_final", "random"])
+def test_automaton_plain_matches(monkeypatch, case, online, native):
+    """test_automaton_matches with the port's plain version, the Python
+    frame loop (native=False)."""
+    tsm = te2e.E2EVadStateMachine(te2e.VadOptions(), native=False)
+    assert tsm._native is None
+    _automaton_case(monkeypatch, case, online, native, tsm)
+
+
+def _automaton_case(monkeypatch, case, online, native, tsm):
     monkeypatch.setenv("ASR2PASS_NATIVE_VAD", native)
     jsm = je2e.E2EVadStateMachine(je2e.VadOptions())
-    tsm = te2e.E2EVadStateMachine(te2e.VadOptions())
+    assert (jsm._native is not None) == (native == "1")
     chunks = _constructed_cases()[case]
     events = []
     for i, (scores, wave, kw) in enumerate(chunks):
