@@ -1,5 +1,4 @@
-// Trimmed copy of the JAX package's native/src/api.h: the functions of
-// native.cc, ctc_beam.cc and e2e_vad.cc only.
+// Copy of the JAX package's native/src/api.h; unchanged below this line.
 /* C ABI for the asr2pass_tpu native host library.
  *
  * Native equivalents of the reference's CPU-bound host pieces:
@@ -8,8 +7,6 @@
  *    failure arcs carrying negative back-off scores, consulted per symbol)
  *  - Levenshtein alignment (utils/compute-wer.py Calculator + the
  *    TimestampSmooth edit-distance backbone, util.cpp:415-462)
- *  - the E2E VAD decision automaton (e2e_vad.cc)
- *  - the CTC prefix beam over pruned candidates (ctc_beam.cc)
  *
  * All functions are plain C so Python binds via ctypes (no pybind11).
  */
@@ -41,6 +38,48 @@ float a2p_ac_step(const A2pAcBias* ac, int32_t* state, int32_t symbol);
 /* Final retraction for a dangling partial match. */
 float a2p_ac_final(const A2pAcBias* ac, int32_t state);
 
+/* ---- LM beam decoder (L-trie x backoff n-gram token passing) ----
+ * Native port of decode/lm_decoder.py (the reference runs this search in
+ * a patched Kaldi LatticeFasterOnlineDecoder, wfst-decoder.cpp). Unit ids
+ * index the AM vocab; word ids index the LM vocab. */
+typedef struct A2pLmDec A2pLmDec;
+
+/* lexicon: n_lex entries of unit-id sequences (concatenated in lex_units,
+ * lengths in lex_lens) mapping to lex_word_ids[i].
+ * ngrams: n_ng entries of word-id sequences (concat ng_words, lengths
+ * ng_lens) with log10 prob ng_logp[i] and log10 backoff ng_bow[i].
+ * unk_id/bos_id are LM word ids. */
+A2pLmDec* a2p_lmdec_create(
+    int32_t order, const int32_t* lex_units, const int32_t* lex_lens,
+    const int32_t* lex_word_ids, int32_t n_lex, const int32_t* ng_words,
+    const int32_t* ng_lens, const float* ng_logp, const float* ng_bow,
+    int64_t n_ng, int32_t unk_id, int32_t bos_id, float lm_weight,
+    float oov_penalty, int32_t beam, int32_t am_topk);
+void a2p_lmdec_free(A2pLmDec* d);
+
+/* Per-connection decoder sharing src's (read-only) lexicon/LM tables:
+ * O(1), empty bias — attach hotwords with a2p_lmdec_set_bias. Clones
+ * may decode concurrently with src and each other. */
+A2pLmDec* a2p_lmdec_clone(const A2pLmDec* src);
+
+/* Optional hotword bias (ContextGraph role): per-phrase unit-id
+ * sequences; sym_scores is aligned with units (per-symbol incremental
+ * boost, already x char-count like context_graph.py build). */
+void a2p_lmdec_set_bias(A2pLmDec* d, const int32_t* units,
+                        const int32_t* lens, const float* sym_scores,
+                        int32_t n_phrases);
+void a2p_lmdec_clear_bias(A2pLmDec* d);
+
+/* Decode rows[n*v] of log-posteriors; skip_ids are unit ids never taken
+ * (<blank>/<s>/</s>/<unk>). Writes the best path: out_units[n] = unit
+ * chosen per row; out_words[n] = LM word id completed at that row, -1 if
+ * mid-word, -2 if an OOV word (its units) ended there. Returns number of
+ * rows consumed (== n) or -1 on error. */
+int64_t a2p_lmdec_decode(A2pLmDec* d, const float* rows, int64_t n,
+                         int32_t v, const int32_t* skip_ids,
+                         int32_t n_skip, int32_t* out_units,
+                         int32_t* out_words);
+
 /* ---- E2E VAD decision automaton (e2e-vad.h role) ----
  * Per-stream utterance state machine; the engine steps one per stream per
  * tick. Python (vad/e2e_vad.py) keeps decibel extraction and online
@@ -69,18 +108,6 @@ void a2p_vad_chunk(A2pVad* v, const float* sil_prob, const double* decibel,
 int32_t a2p_vad_seg_count(const A2pVad* v);
 /* out4 = {start_ms, end_ms, contain_start, contain_end} */
 void a2p_vad_seg(const A2pVad* v, int32_t i, int32_t* out4);
-
-/* ---- CTC prefix beam over pruned candidates (ctc_beam.cc) ----
- * cand_ids/cand_logp [T, K]; an optional context trie of n_nodes rows
- * (row 0 the root, parents before children). Writes up to `beam` n-best
- * rows of max_len ids/times; returns their count, or -1 on bad input. */
-int32_t a2p_ctcbeam_decode(
-    const int32_t* cand_ids, const float* cand_logp, int32_t T, int32_t K,
-    int32_t beam, int32_t blank_id, int32_t n_nodes,
-    const int32_t* node_parent, const int32_t* node_unit,
-    const float* node_score, const uint8_t* node_is_end, int32_t* out_ids,
-    int32_t* out_times, int32_t* out_lens, float* out_scores,
-    int32_t max_len);
 
 /* ---- Levenshtein alignment ---- */
 /* a[n], b[m] are int32 symbol ids. ops_out must hold n+m entries.

@@ -1,7 +1,7 @@
 """StreamEngine: S concurrent 2pass streams through shared batched steps.
 
-Counterpart of the JAX package's runtime/engine.py, without its LM hooks. All
-active streams advance together, each tick:
+Counterpart of the JAX package's runtime/engine.py. All active streams
+advance together, each tick:
 
   * one batched fused VAD step for every slot's new audio (fbank, LFR,
     CMVN, FSMN-VAD), with the decision automatons on the host
@@ -12,7 +12,9 @@ active streams advance together, each tick:
     recognize_batch, their features gathered from the device audio ring:
     ParaformerOffline with each slot's hotword embeddings, or, when the
     models carry SenseVoice, SenseVoiceOffline with each slot's language,
-    ITN token and hotword context graph
+    ITN token and hotword context graph; with an LM loaded, each with the
+    slot's LM decoder (the shared native decoder, a clone biased by the
+    connection's hotwords, or a TlgDecoder of its own)
 
 Slots are fixed (capacity), so the tick's launches do not grow with the
 number of streams: every ring write and gather is one batched indexed op
@@ -265,6 +267,7 @@ class _Slot:
     svs_lang: Any = None               # SenseVoice language (None: auto)
     svs_itn: Any = None                # SenseVoice ITN token (None: on)
     svs_context: Any = None            # SenseVoice hotword ContextGraph
+    lm_decoder: Any = None             # the connection's LM decoder
     vad_tail_sil: Any = None           # max_end_silence override (ms)
     vad_max_len: Any = None            # max_single_segment override (ms)
     speech_noise_thres: Any = None
@@ -529,6 +532,11 @@ class StreamEngine:
             self._check_hw_emb(hw_emb)
         svs_context = (self.models.svs_context_graph(hotwords)
                        if svs and hotwords else None)
+        lm_decoder = None
+        if mode == "2pass" and self.models.has_lm:
+            lm_decoder = (self.models._svs_lm_decoder(hotwords or None)
+                          if svs else self.models._make_lm_decoder(
+                              hotwords or None))
         with self._results_lock:
             # the reclaim check and the claim are one step: the staging
             # scan counts a slot's work under the same lock
@@ -548,10 +556,12 @@ class StreamEngine:
                     slot.svs_itn = svs_itn
                     # compiled once per connection, shared read-only
                     slot.svs_context = svs_context
+                    slot.lm_decoder = lm_decoder
                     slot.vad_tail_sil = vad_tail_sil
                     slot.vad_max_len = vad_max_len
                     slot.speech_noise_thres = speech_noise_thres
                     return sid
+        self.models.release_lm_decoder(lm_decoder)
         raise EngineAtCapacity(
             f"engine at capacity ({self.capacity} streams)")
 
@@ -573,10 +583,10 @@ class StreamEngine:
         m = self.models
         vmeans, vvars = (m.vad_cmvn if m.vad_cmvn is not None
                          else (None, None))
-        # the previous connection's native automaton is freed here: open()
-        # reclaims a slot only once no lane holds work of it
-        if self.slots[sid].sm is not None:
-            self.slots[sid].sm.close()
+        # the previous connection's native automaton and LM decoder are
+        # freed here: open() reclaims a slot only once no lane holds work
+        # of it
+        self._free_native(self.slots[sid])
         self.slots[sid] = _Slot(
             gen=self.slots[sid].gen + 1,
             vad_frontend=sf.StreamingFrontend(m.vad_cfg.frontend, vmeans,
@@ -1219,11 +1229,17 @@ class StreamEngine:
         if self._upload_pool is not None:
             self._upload_pool.shutdown(wait=True)
             self._upload_pool = None
-        # free every slot's native automaton; a tick still running in
-        # another thread gets an error from a freed one, not freed memory
+        # free every slot's native automaton and LM decoder; a tick still
+        # running in another thread gets an error from a freed one, not
+        # freed memory
         for slot in self.slots:
-            if slot.sm is not None:
-                slot.sm.close()
+            self._free_native(slot)
+
+    def _free_native(self, slot):
+        if slot.sm is not None:
+            slot.sm.close()
+        self.models.release_lm_decoder(slot.lm_decoder)
+        slot.lm_decoder = None
 
     def _p1_collector(self):
         """Background pass-1 result lane: a single FIFO worker (per-slot
@@ -1379,7 +1395,8 @@ class StreamEngine:
     @torch.inference_mode()
     def _process_segments(self, pairs, settled=None):
         """Offline-decode segments with each owner's per-connection
-        options (hotwords, svs language and ITN) and post results
+        options (hotwords, LM decoder, svs language and ITN) and post
+        results
         (punctuation, ITN, timestamps) to the slots that queued them.
 
         `settled` (when given) collects the pair indices whose inflight
@@ -1399,6 +1416,8 @@ class StreamEngine:
                       contexts=[s.svs_context for s in slots])
         elif any(s.hw_emb is not None for s in slots):
             kw["hw_embs"] = [s.hw_emb for s in slots]
+        if any(s.lm_decoder is not None for s in slots):
+            kw["lm_decoders"] = [s.lm_decoder for s in slots]
         with METRICS.stage("p2_recognize"):
             outs = self.offline.asr.recognize_batch(segs, **kw)
         t_post = time.perf_counter()

@@ -2,13 +2,23 @@
 
 Counterpart of the JAX package's runtime/offline_asr.py (ParaformerOffline:
 recognize_batch = dispatch_batch + one fetch + finish_batch, with the
-engine's feats_override and per-item hotword embeddings), without the LM
-rescoring and sequence-parallel branches, which come with later slices.
-Segments are grouped by (feature-length bucket, hotword-count bucket) and
-run as true batches: front-end on the device, one forward, greedy ids,
-then host detokenization and bicif timestamps. Segments with and without
-hotwords never share a forward: the hotword cross-attention block runs
-only for a batch that has embeddings.
+engine's feats_override, per-item hotword embeddings and per-item LM
+decoders), without the sequence-parallel branch, which comes with a
+later slice. Segments are grouped by (feature-length bucket,
+hotword-count bucket) and run as true batches: front-end on the device,
+one forward, greedy ids, then host detokenization and bicif timestamps.
+Segments with and without hotwords never share a forward: the hotword
+cross-attention block runs only for a batch that has embeddings.
+
+LM rescoring (the BeamSearch/WfstDecoder path, paraformer.cpp:410-419):
+an item with an LM decoder (decode/lm_decoder.py, its native version, or
+decode/tlg.TlgDecoder) is decoded on the host over the log-softmax of
+its token rows. The log-softmax is taken on the device, for the LM items
+only (a TLG decoder's rows gathered there to its graph's input labels),
+and once the token counts are on the host, one more copy brings back the
+first `count` rows of each LM item: never the [B, U, V] logits. A
+rescored text that differs from the greedy one takes its timestamps
+through timestamp_smooth.
 
 The length and batch buckets are kept from the JAX package, where they
 bound the number of XLA programs. Here they decide the T that the
@@ -25,6 +35,7 @@ import torch
 from torch import nn
 
 from asr2pass_tpu_torch.config import ParaformerConfig
+from asr2pass_tpu_torch.decode.tlg import TlgDecoder
 from asr2pass_tpu_torch.frontend.fbank import num_frames
 from asr2pass_tpu_torch.frontend.lfr import lfr_len
 from asr2pass_tpu_torch.models import paraformer
@@ -69,11 +80,13 @@ def _hw_bucket(n: int) -> int:
 class ParaformerOffline:
     """params: a Paraformer module, or its state dict (as
     model_zoo.load_offline_bundle returns it). The model runs on `device`
-    (default the card; pass device="cpu" for the plain PyTorch path)."""
+    (default the card; pass device="cpu" for the plain PyTorch path).
+    lm_decoder: the LM decoder of every item without one of its own in
+    recognize_batch's lm_decoders (greedy when None)."""
 
     def __init__(self, params: Union[nn.Module, Mapping[str, torch.Tensor]],
                  cfg: ParaformerConfig, vocab: Vocab, cmvn=None,
-                 device="cuda"):
+                 lm_decoder=None, device="cuda"):
         self.device = resolve_device(device)
         fp32_products()
         if isinstance(params, nn.Module):
@@ -83,6 +96,9 @@ class ParaformerOffline:
         self.cfg = cfg
         self.vocab = vocab
         self.cmvn = cmvn if cmvn is not None else (None, None)
+        self.lm_decoder = lm_decoder
+        # bytes of LM rows copied to the host, over the recognizer's life
+        self.lm_bytes_copied = 0
 
     def _forward(self, feats: torch.Tensor, lengths: List[int],
                  hw_batch: Optional[np.ndarray] = None,
@@ -107,25 +123,30 @@ class ParaformerOffline:
     def recognize_batch(self, segments: List[np.ndarray],
                         hw_emb: Optional[np.ndarray] = None,
                         hw_embs: Optional[List] = None,
+                        lm_decoders: Optional[List] = None,
                         feats_override=None
                         ) -> List[Tuple[str, List[List[float]]]]:
         """Batch of raw-sample segments -> [(text, token_timestamps_s)].
         hw_embs[i]: segment i's compiled hotword embeddings [N_i, D] or
         None (hw_emb is the shorthand for one set shared by all); used
-        when the model has the hotword block. feats_override: see
-        dispatch_batch. All outputs come back in one copy."""
+        when the model has the hotword block. lm_decoders[i]: segment
+        i's LM decoder (a connection's, with its hotwords), or None for
+        the recognizer's. feats_override: see dispatch_batch. All
+        outputs but the LM rows come back in one copy."""
         pending, handles = self.dispatch_batch(
             segments, hw_emb=hw_emb, hw_embs=hw_embs,
-            feats_override=feats_override)
+            lm_decoders=lm_decoders, feats_override=feats_override)
         return self.finish_batch(pending, to_host(handles))
 
     @torch.inference_mode()
     def dispatch_batch(self, segments: List[np.ndarray],
                        hw_emb: Optional[np.ndarray] = None,
                        hw_embs: Optional[List] = None,
+                       lm_decoders: Optional[List] = None,
                        feats_override=None):
         """Phase A: front-end and forward on the device. Returns (pending,
-        handles): `handles` are the device tensors finish_batch needs.
+        handles): `handles` are the device tensors finish_batch needs
+        (the LM items' log-prob rows stay in `pending` on the device).
         feats_override(idxs, bucket, bb), when given, supplies a chunk's
         device feats (the engine's pass-2 lane gathers them from its
         device audio ring); where it returns None the segments' samples
@@ -138,6 +159,9 @@ class ParaformerOffline:
                   for n in ns]
         if hw_embs is None:
             hw_embs = [hw_emb] * len(bufs)
+        lms = [lm_decoders[i] if lm_decoders is not None
+               and lm_decoders[i] is not None else self.lm_decoder
+               for i in range(len(bufs))]
         results: List[Optional[Tuple[str, List[List[float]]]]] = \
             [None] * len(bufs)
         # group by (feature bucket, hotword-count bucket; 0 = none)
@@ -179,15 +203,16 @@ class ParaformerOffline:
             if self.cfg.predictor.use_timestamp:
                 hlist += [out.us_alphas, out.us_cif_peak]
             records.append({"idxs": idxs, "lens": lens,
+                            "lm_rows": _lm_rows(out.logits, idxs, lms),
                             "off": len(handles), "n": len(hlist)})
             handles.extend(hlist)
-        return {"records": records, "results": results}, handles
+        return {"records": records, "results": results, "lms": lms}, handles
 
     def finish_batch(self, pending, fetched
                      ) -> List[Tuple[str, List[List[float]]]]:
         """Phase B: host post-processing of the fetched (numpy) handles:
-        detokenization and timestamps."""
-        results = pending["results"]
+        detokenization, LM decoding and timestamps."""
+        results, lms = pending["results"], pending["lms"]
         for rec in pending["records"]:
             idxs, lens = rec["idxs"], rec["lens"]
             vals = list(fetched[rec["off"]: rec["off"] + rec["n"]])
@@ -196,19 +221,69 @@ class ParaformerOffline:
             if self.cfg.predictor.use_timestamp:
                 us_a_np = np.asarray(vals.pop(0))
                 us_p_np = np.asarray(vals.pop(0))
+            rows = self._fetch_lm_rows(rec["lm_rows"], counts)
             for k, i in enumerate(idxs):
                 tok_ids = [int(x) for x in ids[k, : int(counts[k])]]
+                lm_text = None
+                if k in rows:
+                    lm_text = _lm_decode(lms[i], rows[k], self.vocab)
                 if not self.cfg.predictor.use_timestamp:
-                    results[i] = (self.vocab.to_string(tok_ids), [])
+                    results[i] = (self.vocab.to_string(tok_ids)
+                                  if lm_text is None else lm_text, [])
                     continue
                 char_list = self.vocab.to_char_list(tok_ids)
                 _, _, token_ts = ts_mod.timestamp_from_peaks(
                     us_a_np[k, : lens[k] * 3], us_p_np[k, : lens[k] * 3],
                     list(char_list))
-                results[i] = ts_mod.post_process(char_list, token_ts)
+                text, merged = ts_mod.post_process(char_list, token_ts)
+                if lm_text is not None and lm_text != text:
+                    # the CIF timestamps re-aligned to the rescored text
+                    # (the reference re-derives them through the decoder,
+                    # wfst-decoder.cpp:59-92; this reuses ITN's alignment)
+                    merged = ts_mod.timestamp_smooth(text, lm_text,
+                                                     merged) or merged
+                    text = lm_text
+                results[i] = (text, merged)
         return [r if r is not None else ("", []) for r in results]
+
+    def _fetch_lm_rows(self, lm_rows: dict, counts: np.ndarray) -> dict:
+        """{k: device log-prob rows [U, *]} -> {k: host rows [count_k, *]}
+        for the items with a token, in one copy."""
+        keep = [k for k in lm_rows if int(counts[k]) > 0]
+        if not keep:
+            return {}
+        parts = [lm_rows[k][: int(counts[k])] for k in keep]
+        flat = torch.cat([x.reshape(-1) for x in parts]).cpu().numpy()
+        self.lm_bytes_copied += flat.nbytes
+        out, at = {}, 0
+        for k, x in zip(keep, parts):
+            out[k] = flat[at: at + x.numel()].reshape(tuple(x.shape))
+            at += x.numel()
+        return out
 
     def recognize(self, samples: np.ndarray,
                   hw_emb: Optional[np.ndarray] = None
                   ) -> Tuple[str, List[List[float]]]:
         return self.recognize_batch([samples], hw_emb=hw_emb)[0]
+
+
+def _lm_rows(logits: torch.Tensor, idxs: List[int], lms: List) -> dict:
+    """{k: the log-softmax rows of batch row k} on the device, for the
+    rows whose item has an LM decoder; a TLG decoder's gathered to its
+    graph's input labels."""
+    rows = {}
+    for k, i in enumerate(idxs):
+        if lms[i] is not None:
+            lp = torch.log_softmax(logits[k].float(), dim=-1)
+            rows[k] = (lms[i].graph.gather_rows(lp)
+                       if isinstance(lms[i], TlgDecoder) else lp)
+    return rows
+
+
+def _lm_decode(lm, rows: np.ndarray, vocab: Vocab) -> str:
+    """One utterance's text from an LM decoder over its host rows
+    (_lm_rows' layout for that decoder)."""
+    lm.start_utterance()
+    if isinstance(lm, TlgDecoder):
+        return lm.decode_ilabel_rows(rows)
+    return lm.decode(rows, vocab.id2token)

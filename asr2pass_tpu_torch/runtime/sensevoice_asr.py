@@ -1,8 +1,7 @@
 """SenseVoice recognizer: pass-2-compatible multilingual CTC.
 
 Counterpart of the JAX package's runtime/sensevoice_asr.py, without its
-LM/TLG rescoring (the native library's slice) and tensor-parallel
-(multi-GPU) branches. Role of the SenseVoice paths in
+tensor-parallel (multi-GPU) branch. Role of the SenseVoice paths in
 sensevoice-small.cpp: the offline forward with language/textnorm meta ids
 (:596-642), greedy CTC (:323-377) or the context-graph-biased prefix beam
 (:392-440). It has the recognize/recognize_batch and
@@ -14,10 +13,19 @@ greedy_ids), so a greedy item fetches [B, U] ids, counts and [B, 4] meta.
 A beam item also fetches the device-pruned [B, T, 64] candidate ids and
 log-probs (parallel/ctc_shard.py) plus the [B, T, E] log-probs of its
 context graph's unit ids, force-included so the prune never hides a
-hotword unit from the bias. No path fetches the [B, T, V] logits. All of
-a call's outputs come back in one copy. The beam itself runs on the
-host in the native library (decode/ctc.py, native/src/ctc_beam.cc),
-which releases the interpreter lock while it decodes.
+hotword unit from the bias. An item with an LM decoder (TLG rescoring,
+the reference's BeamSearch path, sensevoice-small.cpp:442-494) fetches
+its frames' log-softmax rows gathered on the device to its graph's input
+labels: [T, labels], where the JAX package fetches the whole [B, T, V]
+logits. No path fetches those. All of a call's outputs come back in one
+copy. The beam and the TLG search run on the host in the native library
+(native/src/ctc_beam.cc, tlg_decoder.cc), which releases the interpreter
+lock while it decodes.
+
+The TLG search is frame-synchronous over CTC rows, so it needs a graph
+with the CTC topology (tools/build_tlg.py --ctc-blank): a decoder of any
+other kind, or over a graph without the blank unit, raises ValueError
+instead of decoding garbage.
 """
 from __future__ import annotations
 
@@ -30,6 +38,7 @@ from torch import nn
 from asr2pass_tpu_torch.config import SenseVoiceConfig
 from asr2pass_tpu_torch.decode.context_graph import ContextGraph
 from asr2pass_tpu_torch.decode.ctc import ctc_prefix_beam_search_pruned
+from asr2pass_tpu_torch.decode.tlg import TlgDecoder
 from asr2pass_tpu_torch.frontend.fbank import num_frames
 from asr2pass_tpu_torch.frontend.lfr import lfr_len
 from asr2pass_tpu_torch.models import sensevoice
@@ -65,13 +74,15 @@ def context_unit_ids(context: Optional[ContextGraph], token2id
 class SenseVoiceOffline:
     """params: a SenseVoice module, or its state dict (as
     model_zoo.load_svs_bundle returns it). The model runs on `device`
-    (default the card; device="cpu" for the plain PyTorch path)."""
+    (default the card; device="cpu" for the plain PyTorch path).
+    lm_decoder: a TlgDecoder over a CTC-topology graph, for every item
+    without one of its own in recognize_batch's lm_decoders."""
 
     def __init__(self, params: Union[nn.Module, Mapping[str, torch.Tensor]],
                  cfg: SenseVoiceConfig, vocab: Vocab, cmvn=None,
                  lang: str = "auto", use_itn_token: bool = True,
                  context: Optional[ContextGraph] = None, beam: int = 0,
-                 device="cuda"):
+                 lm_decoder=None, device="cuda"):
         self.device = resolve_device(device)
         fp32_products()
         if isinstance(params, nn.Module):
@@ -85,6 +96,25 @@ class SenseVoiceOffline:
         self.use_itn_token = use_itn_token
         self.context = context
         self.beam = beam
+        self.lm_decoder = self._check_lm(lm_decoder)
+        # bytes of LM rows copied to the host, over the recognizer's life
+        self.lm_bytes_copied = 0
+
+    def _check_lm(self, lm):
+        """lm, when it can decode this model's CTC frames: a TlgDecoder
+        over a graph with the blank unit; raises ValueError otherwise."""
+        if lm is None:
+            return lm
+        blank = self.vocab.id2token(self.cfg.blank_id)
+        if not isinstance(lm, TlgDecoder):
+            raise ValueError(f"SenseVoice rescoring takes a TlgDecoder over "
+                             f"a CTC graph, not {type(lm).__name__}")
+        if not lm.graph.is_ctc(blank):
+            raise ValueError(
+                f"the TLG graph {lm.graph.graph_dir} has no {blank!r} "
+                "unit: SenseVoice needs the CTC topology of build_tlg "
+                "--ctc-blank")
+        return lm
 
     def set_lang(self, lang: str):
         self.lang = lang
@@ -118,10 +148,13 @@ class SenseVoiceOffline:
                        langs: Optional[List[Optional[str]]] = None,
                        itn_flags: Optional[List[Optional[bool]]] = None,
                        contexts: Optional[List] = None,
+                       lm_decoders: Optional[List] = None,
                        feats_override=None):
         """Phase A: front-end and forward on the device. Returns
         (pending, handles); `handles` are the device tensors finish_batch
         needs. feats_override as in ParaformerOffline.dispatch_batch.
+        lm_decoders[i]: segment i's TlgDecoder, or None for the
+        recognizer's.
 
         `hw_emb` is accepted for ParaformerOffline's interface and has no
         meaning here: SenseVoice hotword biasing is the context graph in
@@ -133,6 +166,9 @@ class SenseVoiceOffline:
         ns = [num_frames(len(b), fcfg) for b in bufs]
         t_lfrs = [lfr_len(n, fcfg.lfr_m, fcfg.lfr_n) if n else 0
                   for n in ns]
+        lms = [self._check_lm(lm_decoders[i]) if lm_decoders is not None
+               and lm_decoders[i] is not None else self.lm_decoder
+               for i in range(len(bufs))]
         results: List[Optional[Tuple[str, list]]] = [None] * len(bufs)
         metas: List[Optional[List[int]]] = [None] * len(bufs)
         groups = {}
@@ -170,9 +206,16 @@ class SenseVoiceOffline:
             ids, counts, meta = sensevoice.greedy_ids(
                 out, blank_id=self.cfg.blank_id)
             hlist = [ids, counts, meta, out.lengths]
-            beam_items = [i for i in idxs
-                          if self.beam > 1
-                          or self._ctx_for(contexts, i) is not None]
+            # an LM item's frames (meta rows stripped): log-softmax and
+            # the graph's gather on the device
+            lm_ks = [k for k, i in enumerate(idxs) if lms[i] is not None]
+            for k in lm_ks:
+                lp = torch.log_softmax(
+                    out.logits[k, NUM_META: NUM_META + lens[k]].float(), -1)
+                hlist.append(lms[idxs[k]].graph.gather_rows(lp))
+            beam_items = [i for i in idxs if lms[i] is None
+                          and (self.beam > 1
+                               or self._ctx_for(contexts, i) is not None)]
             hw_ids: List[int] = []
             if beam_items:
                 # force-include every context unit id so the top-k prune
@@ -197,11 +240,11 @@ class SenseVoiceOffline:
                 else:
                     hlist.extend(ctc_first_prune(out.logits, k=_KCAND))
             records.append({"idxs": idxs, "beam": bool(beam_items),
-                            "hw_ids": hw_ids, "off": len(handles),
-                            "n": len(hlist)})
+                            "hw_ids": hw_ids, "lm_ks": lm_ks,
+                            "off": len(handles), "n": len(hlist)})
             handles.extend(hlist)
         pending = {"records": records, "results": results, "metas": metas,
-                   "contexts": contexts}
+                   "contexts": contexts, "lms": lms}
         return pending, handles
 
     def finish_batch(self, pending, fetched, with_meta: bool = False):
@@ -211,11 +254,14 @@ class SenseVoiceOffline:
         results = pending["results"]
         metas = pending["metas"]
         contexts = pending["contexts"]
+        lms = pending["lms"]
         for rec in pending["records"]:
             idxs = rec["idxs"]
             vals = list(fetched[rec["off"]: rec["off"] + rec["n"]])
             ids, counts, meta, lengths = (np.asarray(vals.pop(0))
                                           for _ in range(4))
+            lm_rows = {k: vals.pop(0) for k in rec["lm_ks"]}
+            self.lm_bytes_copied += sum(r.nbytes for r in lm_rows.values())
             cid = clp = hw_lp = None
             if rec["beam"]:
                 cid = np.asarray(vals.pop(0))
@@ -224,6 +270,16 @@ class SenseVoiceOffline:
                     hw_lp = np.asarray(vals.pop(0), np.float32)
             for k, i in enumerate(idxs):
                 ctx = self._ctx_for(contexts, i)
+                # the meta positions' argmax (lang, emotion, event,
+                # textnorm: what CTCSearch strips,
+                # sensevoice-small.cpp:323-377), returned per segment
+                metas[i] = [int(x) for x in meta[k]]
+                if k in lm_rows:
+                    # the frame-synchronous search over the CTC rows; the
+                    # graph's T layer absorbs blanks and repeats
+                    lms[i].start_utterance()
+                    results[i] = (lms[i].decode_ilabel_rows(lm_rows[k]), [])
+                    continue
                 if self.beam > 1 or ctx is not None:
                     ln = int(lengths[k])
                     fid = cid[k, NUM_META:ln]
@@ -241,10 +297,6 @@ class SenseVoiceOffline:
                     tok_ids = nbest[0][0] if nbest else []
                 else:
                     tok_ids = [int(x) for x in ids[k, : int(counts[k])]]
-                # the meta positions' argmax (lang, emotion, event,
-                # textnorm: what CTCSearch strips,
-                # sensevoice-small.cpp:323-377), returned per segment
-                metas[i] = [int(x) for x in meta[k]]
                 results[i] = (self.vocab.to_string(tok_ids), [])
         out = [r if r is not None else ("", []) for r in results]
         if with_meta:
@@ -255,6 +307,7 @@ class SenseVoiceOffline:
                         langs: Optional[List[Optional[str]]] = None,
                         itn_flags: Optional[List[Optional[bool]]] = None,
                         contexts: Optional[List] = None,
+                        lm_decoders: Optional[List] = None,
                         feats_override=None,
                         with_meta: bool = False
                         ) -> List[Tuple[str, list]]:
@@ -264,10 +317,12 @@ class SenseVoiceOffline:
         message options in one batch (the lid/textnorm prefix inputs,
         sensevoice-small.cpp:596-642). with_meta=True appends each
         segment's [lid, emotion, event, textnorm] argmax ids to its
-        result tuple."""
+        result tuple. lm_decoders[i]: segment i's TlgDecoder (a
+        connection's, with its hotwords), or None for the recognizer's."""
         pending, handles = self.dispatch_batch(
             segments, hw_emb=hw_emb, langs=langs, itn_flags=itn_flags,
-            contexts=contexts, feats_override=feats_override)
+            contexts=contexts, lm_decoders=lm_decoders,
+            feats_override=feats_override)
         return self.finish_batch(pending, to_host(handles),
                                  with_meta=with_meta)
 

@@ -7,8 +7,20 @@ and its seg_dict, SenseVoice as the pass-2 alternative, server-side
 hotwords and the device. Models are built once, on the device, and
 shared read-only; each websocket connection gets its own TwoPassSession
 (per-connection VAD/ASR/punc caches), mirroring TpassOnlineStream-per-
-connection (websocket-server-2pass.h:49-65). LM/TLG rescoring and model
-parallelism come with later slices (ROADMAP queue 1 items 16 and 18).
+connection (websocket-server-2pass.h:49-65). Model parallelism comes
+with a later slice (ROADMAP queue 1 item 18).
+
+LM rescoring (the TLG role): either an ARPA LM with its lexicon, decoded
+by the native lexicon-trie x n-gram beam (NativeLmDecoder; the Python
+LmDecoder only with lm_native=False), or a compiled TLG graph dir
+decoded by TlgDecoder (FunASRWfstDecoderInit, funasrruntime.cpp:836-894).
+The tables and graphs load once, when the models are built, and every
+connection shares them: a connection without hotwords shares the base
+NativeLmDecoder, one with hotwords gets a clone with its own bias, and a
+TlgDecoder (which keeps per-utterance state) is made per connection or
+request. A graph for the SenseVoice role must have the CTC topology
+(build_tlg --ctc-blank); building the models raises otherwise. Nothing
+falls back: a graph or LM that does not load raises.
 """
 from __future__ import annotations
 
@@ -25,8 +37,11 @@ from asr2pass_tpu_torch.config import (HotwordConfig, ParaformerConfig,
                                        PuncConfig, SenseVoiceConfig,
                                        VadConfig)
 from asr2pass_tpu_torch.decode.context_graph import ContextGraph
+from asr2pass_tpu_torch.decode.lm_decoder import LmDecoder
+from asr2pass_tpu_torch.decode.tlg import TlgDecoder, TlgGraph
 from asr2pass_tpu_torch.models import (ct_transformer, fsmn_vad, hotword,
                                        paraformer, sensevoice)
+from asr2pass_tpu_torch.native.bindings import NativeLmDecoder
 from asr2pass_tpu_torch.runtime.asr_stream import ParaformerOnlineStream
 from asr2pass_tpu_torch.runtime.offline_api import OfflineRecognizer
 from asr2pass_tpu_torch.runtime.offline_asr import ParaformerOffline
@@ -84,6 +99,14 @@ class ServerModels:
     # between CTCSearch and CtcPrefixBeamSearch,
     # sensevoice-small.cpp:323-440)
     svs_beam: int = 0
+    # n-gram LM rescoring: lm (decode/ngram.NgramLM) + lexicon
+    # (decode/lm_decoder.Lexicon), or tlg_dir (TLG.fst, words.txt,
+    # tokens.txt); lm_native=False takes the Python LmDecoder
+    lm: Any = None
+    lexicon: Any = None
+    tlg_dir: Any = None
+    lm_weight: float = 0.5
+    lm_native: bool = True
     # server-side hotwords merged with per-connection ones
     server_hotwords: Any = None
     device: Any = "cuda"
@@ -113,6 +136,19 @@ class ServerModels:
             lambda sd: sensevoice.from_state_dict(sd, self.svs_cfg, dev), dev)
         self._res_lock = threading.RLock()
         self._offline_rec_cache: "OrderedDict" = OrderedDict()
+        # the LM resources, loaded once per vocabulary role ("asr", "svs"):
+        # a TLG graph's input-label map, and the native decoder's unit
+        # ids, differ between the Paraformer and SenseVoice vocabularies
+        self._tlg_graphs = {}
+        self._lm_bases = {}
+        roles = [r for r, m in (("asr", self.asr_params),
+                                ("svs", self.svs_params)) if m is not None]
+        for role in roles:
+            if self.tlg_dir is not None:
+                self._tlg_graph(role)
+            elif (role == "asr" and self.lm_native and self.lm is not None
+                  and self.lexicon is not None):
+                self._lm_base(role)
 
     def _punctuator(self) -> Optional[Punctuator]:
         if self.punc_params is None:
@@ -141,18 +177,100 @@ class ServerModels:
         return ContextGraph().build(
             {str(w): float(s) for w, s in hotwords.items()})
 
+    @property
+    def has_lm(self) -> bool:
+        return self.tlg_dir is not None or (self.lm is not None
+                                            and self.lexicon is not None)
+
+    def _role_vocab(self, which: str) -> Vocab:
+        return (self.svs_vocab or self.vocab) if which == "svs" \
+            else self.vocab
+
+    def _tlg_graph(self, which: str) -> TlgGraph:
+        """The TLG graph of a vocabulary role, loaded once. The
+        SenseVoice role's must have the CTC topology: its decodes run
+        over CTC frames (ADVICE's server/engine.py:147 finding)."""
+        with self._res_lock:
+            graph = self._tlg_graphs.get(which)
+            if graph is None:
+                vocab = self._role_vocab(which)
+                graph = TlgGraph(self.tlg_dir, vocab.token2id)
+                blank = vocab.id2token(self.svs_cfg.blank_id) \
+                    if which == "svs" else None
+                if blank is not None and not graph.is_ctc(blank):
+                    raise ValueError(
+                        f"--lm-dir {self.tlg_dir}: SenseVoice decodes CTC "
+                        f"frames and needs a graph built with build_tlg "
+                        f"--ctc-blank (no {blank!r} unit in its "
+                        "tokens.txt)")
+                self._tlg_graphs[which] = graph
+        return graph
+
+    def _lm_base(self, which: str) -> NativeLmDecoder:
+        """The native LM decoder over this role's vocabulary, built once;
+        clones share its tables."""
+        with self._res_lock:
+            base = self._lm_bases.get(which)
+            if base is None:
+                base = self._lm_bases[which] = NativeLmDecoder(
+                    self.lm, self.lexicon, self._role_vocab(which).token2id,
+                    lm_weight=self.lm_weight)
+        return base
+
+    def _make_lm_decoder(self, hotwords: Optional[dict] = None,
+                         which: str = "asr"):
+        """A decoder for one connection or request with these hotwords,
+        or None without an LM: a TlgDecoder over the shared graph; else
+        the shared native decoder (no hotwords) or a clone of it biased
+        by the hotwords; the Python LmDecoder when lm_native is off."""
+        if self.tlg_dir is not None:
+            return TlgDecoder(self._tlg_graph(which),
+                              self._role_vocab(which).token2id,
+                              lm_weight=self.lm_weight, hotwords=hotwords)
+        if self.lm is None or self.lexicon is None:
+            return None
+        if not self.lm_native:
+            bias = (ContextGraph().build(
+                {w: float(s) for w, s in hotwords.items()})
+                if hotwords else None)
+            return LmDecoder(self.lm, self.lexicon,
+                             lm_weight=self.lm_weight, bias=bias)
+        base = self._lm_base(which)
+        return base.clone(hotwords) if hotwords else base
+
+    def _svs_lm_decoder(self, hotwords: Optional[dict] = None):
+        """SenseVoice's rescoring: only a TLG graph (with the CTC
+        topology) qualifies; the trie LM decoder takes one row a token
+        and stays the Paraformer's."""
+        if self.tlg_dir is None:
+            return None
+        return self._make_lm_decoder(hotwords, which="svs")
+
+    def release_lm_decoder(self, dec) -> None:
+        """Free what _make_lm_decoder made for one connection: a
+        TlgDecoder or a clone. The shared base decoder stays."""
+        if isinstance(dec, TlgDecoder) or (
+                isinstance(dec, NativeLmDecoder)
+                and dec not in self._lm_bases.values()):
+            dec.close()
+
     def _pass2(self, use_svs: bool, svs_lang: str, svs_itn: bool,
                hotwords: Optional[dict]):
         """The pass-2 recognizer: SenseVoice when asked for and loaded,
-        else the offline Paraformer."""
+        else the offline Paraformer; with the LM decoder for these
+        hotwords when an LM is loaded."""
         if use_svs and self.svs_params is not None:
             return SenseVoiceOffline(
                 self.svs_params, self.svs_cfg, self.svs_vocab or self.vocab,
                 cmvn=self.svs_cmvn, lang=svs_lang, use_itn_token=svs_itn,
                 context=self.svs_context_graph(hotwords),
-                beam=self.svs_beam, device=self.device)
+                beam=self.svs_beam,
+                lm_decoder=self._svs_lm_decoder(hotwords),
+                device=self.device)
         return ParaformerOffline(self.asr_params, self.asr_cfg, self.vocab,
-                                 cmvn=self.asr_cmvn, device=self.device)
+                                 cmvn=self.asr_cmvn,
+                                 lm_decoder=self._make_lm_decoder(hotwords),
+                                 device=self.device)
 
     def create_session(self, mode: str = "2pass",
                        vad_tail_sil: Optional[int] = None,
@@ -199,7 +317,10 @@ class ServerModels:
         """Offline (whole-file) recognizer with VAD, punctuation and ITN;
         SenseVoice as pass 2 with use_svs, biased by `hotwords` through
         its context graph. A Paraformer takes hotword embeddings per
-        transcribe call instead."""
+        transcribe call instead. With an LM loaded, pass 2 rescores with
+        a decoder biased by `hotwords` (the reference's offline server
+        makes a WFST decoder per connection, websocket-server.cpp:
+        173-176)."""
         return OfflineRecognizer(
             self._pass2(use_svs, svs_lang, svs_itn, hotwords),
             vad_params=self.vad_params, vad_cfg=self.vad_cfg,
@@ -217,7 +338,18 @@ class ServerModels:
         """Per-request offline recognizer, cached by its option tuple —
         the server must NOT rebuild recognizers on every offline upload.
         LRU-bounded so a hostile stream of unique hotword sets cannot grow
-        memory unboundedly."""
+        memory unboundedly.
+
+        With an LM loaded, a recognizer is built per request: a
+        TlgDecoder (and the Python LmDecoder) keeps per-utterance state,
+        so two uploads decoding at once on one cached recognizer would
+        interleave it. That costs little: the graph, the LM tables and
+        the models underneath are built once."""
+        if self.has_lm:
+            return self.create_offline_recognizer(
+                vad_tail_sil=vad_tail_sil, vad_max_len=vad_max_len,
+                use_svs=use_svs, svs_lang=svs_lang, svs_itn=svs_itn,
+                hotwords=hotwords)
         key = (vad_tail_sil, vad_max_len, use_svs, svs_lang, svs_itn,
                tuple(sorted(hotwords.items())) if hotwords else None)
         with self._res_lock:

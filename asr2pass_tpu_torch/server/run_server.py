@@ -4,6 +4,8 @@
         --online-model-dir DIR --vad-dir DIR --punc-dir DIR --engine
     python -m asr2pass_tpu_torch.server.run_server --model-dir DIR \
         --vad-dir DIR --punc-dir DIR --svs-dir DIR --engine
+    python -m asr2pass_tpu_torch.server.run_server --model-dir DIR \
+        --vad-dir DIR --lm-dir GRAPH_OR_ARPA_DIR --itn-dir FST_DIR --engine
     python -m asr2pass_tpu_torch.server.run_server --demo --device cpu
 
 Counterpart of scripts/run_server.py (the role of
@@ -13,9 +15,15 @@ ported. The model directories are the ones both packages read and write
 `hotword_compiler` subtree (a converted hotword model) serves NN hotword
 biasing: first-message hotwords compile into embeddings, with the dir's
 seg_dict for English words when it has one. --svs-dir makes SenseVoice
-pass 2. --demo builds random tiny models (protocol and load testing
-without trained weights). The models run on --device: cuda (the
-default), cuda:N, or cpu for the plain PyTorch path.
+pass 2. --lm-dir rescores pass 2 with an n-gram LM: a compiled graph
+dir (TLG.fst, words.txt, tokens.txt; tools/build_tlg.py) when it holds
+TLG.fst, else lm.arpa + lexicon.txt (tools/build_lm.py); SenseVoice takes
+only a graph with the CTC topology (build_tlg --ctc-blank). --itn-dir (or
+--itn-tagger with --itn-verbalizer) loads compiled WeTextProcessing ITN
+grammars in place of the rule ITN. --demo builds random tiny models
+(protocol and load testing without trained weights). The models run on
+--device: cuda (the default), cuda:N, or cpu for the plain PyTorch path;
+the LM, TLG and FST searches run in the native library on the host.
 """
 from __future__ import annotations
 
@@ -41,6 +49,22 @@ def parser() -> argparse.ArgumentParser:
                    help="SenseVoice CTC prefix-beam width (0/1 = greedy; "
                         "hotworded connections always get the context-"
                         "biased beam, sensevoice-small.cpp:392-440)")
+    p.add_argument("--lm-dir",
+                   help="n-gram LM dir: a compiled TLG graph (TLG.fst + "
+                        "words.txt + tokens.txt, the reference's artifact "
+                        "layout, tools/build_tlg.py) or lm.arpa + "
+                        "lexicon.txt (tools/build_lm.py)")
+    p.add_argument("--lm-weight", type=float, default=0.5)
+    p.add_argument("--itn-dir",
+                   help="ITN dir holding zh_itn_tagger.fst and "
+                        "zh_itn_verbalizer.fst (the reference's "
+                        "--itn-model-dir; shorthand for the two flags "
+                        "below)")
+    p.add_argument("--itn-tagger", help="compiled ITN tagger FST (the "
+                                        "reference's zh_itn_tagger.fst)")
+    p.add_argument("--itn-verbalizer",
+                   help="compiled ITN verbalizer FST "
+                        "(zh_itn_verbalizer.fst)")
     p.add_argument("--hotword-file", default="",
                    help="server-side hotwords, one 'word [score]' a line, "
                         "merged with each connection's")
@@ -79,6 +103,7 @@ def build_models(args):
     models), on args.device."""
     from asr2pass_tpu_torch.server.engine import ServerModels
 
+    lm_kw = lm_options(args)
     if args.demo:
         import torch
 
@@ -100,7 +125,7 @@ def build_models(args):
             punc_tokenizer=PuncTokenizer(
                 ["<blank>", "<unk>"]
                 + [chr(0x4E00 + i) for i in range(200)]),
-            device=args.device)
+            device=args.device, **lm_kw)
     else:
         from asr2pass_tpu_torch.runtime import model_zoo
 
@@ -141,14 +166,43 @@ def build_models(args):
         models = ServerModels(
             asr_params=b.params, asr_cfg=b.cfg, vocab=b.vocab,
             asr_cmvn=b.cmvn, svs_beam=args.svs_beam,
-            device=args.device, **kw)
-    if args.itn:
+            device=args.device, **kw, **lm_kw)
+    tagger, verbalizer = args.itn_tagger, args.itn_verbalizer
+    if args.itn_dir:
+        tagger = tagger or os.path.join(args.itn_dir, "zh_itn_tagger.fst")
+        verbalizer = verbalizer or os.path.join(args.itn_dir,
+                                                "zh_itn_verbalizer.fst")
+    if tagger or verbalizer:
+        if not (tagger and verbalizer):
+            raise SystemExit("--itn-tagger and --itn-verbalizer go "
+                             "together (or --itn-dir)")
+        from asr2pass_tpu_torch.text.itn import FstITN
+
+        models.itn = FstITN(tagger, verbalizer)
+    elif args.itn:
         from asr2pass_tpu_torch.text.itn import ChineseITN
 
         models.itn = ChineseITN()
     if args.hotword_file and os.path.exists(args.hotword_file):
         models.server_hotwords = read_hotword_file(args.hotword_file)
     return models
+
+
+def lm_options(args) -> dict:
+    """ServerModels' LM fields from --lm-dir and --lm-weight: tlg_dir
+    for a dir with TLG.fst, else lm and lexicon from its lm.arpa and
+    lexicon.txt."""
+    if not args.lm_dir:
+        return {}
+    if os.path.exists(os.path.join(args.lm_dir, "TLG.fst")):
+        return {"tlg_dir": args.lm_dir, "lm_weight": args.lm_weight}
+    from asr2pass_tpu_torch.decode.lm_decoder import Lexicon
+    from asr2pass_tpu_torch.decode.ngram import NgramLM
+
+    return {"lm": NgramLM.load_arpa(os.path.join(args.lm_dir, "lm.arpa")),
+            "lexicon": Lexicon.from_file(
+                os.path.join(args.lm_dir, "lexicon.txt")),
+            "lm_weight": args.lm_weight}
 
 
 def read_hotword_file(path: str) -> dict:

@@ -1,15 +1,19 @@
 """Inverse text normalization (ITN) for Chinese (+ mixed English digits).
 
-Counterpart of the JAX package's text/itn.py (ChineseITN and its helpers):
-the rule engine that the launcher installs by default (--itn). Role of
-the reference's WeTextProcessing-runtime port (itn-processor.cpp: 53-87
-tagger -> reorder -> verbalizer, with ITN_ORDERS = date/fraction/money/
-measure/time, itn-token-parser.cpp:25-45): instead of loading compiled
-OpenFST tagger/verbalizer binaries, this is a rule engine over the same
-categories — spelled-out Chinese numerals are rewritten to digits in
-context: dates, times, fractions, percents, money, measures, plain
-cardinals/decimals, and digit-string readings (幺=1). The FST-backed
-ITN needs the native FST runtime and is not ported yet.
+Counterpart of the JAX package's text/itn.py. Role of the reference's
+WeTextProcessing-runtime port (itn-processor.cpp:53-87: tagger ->
+reorder -> verbalizer, with ITN_ORDERS = date/fraction/money/measure/
+time, itn-token-parser.cpp:25-45). Two engines:
+- `ChineseITN`, the rule engine that the launcher installs by default
+  (--itn): instead of compiled OpenFST grammars, rules over the same
+  categories rewrite spelled-out Chinese numerals to digits in context
+  (dates, times, fractions, percents, money, measures, plain
+  cardinals/decimals, digit-string readings, 幺=1);
+- `FstITN`, for exact WeTextProcessing output: it loads the compiled
+  grammars deployments ship (zh_itn_tagger.fst / zh_itn_verbalizer.fst,
+  com-define.h:76-80) through the native FST reader (native/src/fst.cc)
+  and runs tag -> token reorder -> verbalize, each a composition with a
+  shortest path in the native library.
 """
 from __future__ import annotations
 
@@ -307,3 +311,121 @@ class ChineseITN:
             out = re.sub(
                 "\x00(\\d+)\x01", lambda m: shielded[int(m.group(1))], out)
         return out
+
+
+# ---------------------------------------------------------------------------
+# FST-backed ITN: the compiled WeTextProcessing grammars the reference uses
+# (itn-processor.cpp:31-87)
+# ---------------------------------------------------------------------------
+
+ITN_ORDERS = {
+    "date": ["year", "month", "day"],
+    "fraction": ["sign", "numerator", "denominator"],
+    "measure": ["numerator", "denominator", "value"],
+    "money": ["currency", "value"],
+    "time": ["hour", "minute", "second", "noon"],
+}
+TN_ORDERS = {
+    "date": ["year", "month", "day"],
+    "fraction": ["denominator", "numerator"],
+    "measure": ["denominator", "numerator", "value"],
+    "money": ["value", "currency"],
+    "time": ["noon", "hour", "minute", "second"],
+}
+_KEY_CHARS = set("abcdefghijklmnopqrstuvwxyz"
+                 "ABCDEFGHIJKLMNOPQRSTUVWXYZ_")
+
+
+def reorder_tagged_tokens(tagged: str, orders=None) -> str:
+    """Parse the tagger's `name { key: "value" ... }` records and write
+    each again with its category's canonical field order: the
+    TokenParser::reorder step between tagging and verbalization
+    (itn-token-parser.cpp:25-45)."""
+    if orders is None:
+        orders = ITN_ORDERS
+    i, n = 0, len(tagged)
+    out_tokens = []
+    while i < n:
+        while i < n and tagged[i] == " ":
+            i += 1
+        if i >= n:
+            break
+        j = i
+        while j < n and tagged[j] in _KEY_CHARS:
+            j += 1
+        name = tagged[i:j]
+        i = j
+        while i < n and tagged[i] in " {":
+            i += 1
+        fields = []          # (key, value) in appearance order
+        while i < n:
+            while i < n and tagged[i] == " ":
+                i += 1
+            if i < n and tagged[i] == "}":
+                i += 1
+                break
+            j = i
+            while j < n and tagged[j] in _KEY_CHARS:
+                j += 1
+            key = tagged[i:j]
+            i = j
+            while i < n and tagged[i] in ': "':
+                i += 1
+                if tagged[i - 1] == '"':
+                    break
+            j = i
+            val = []
+            while j < n and tagged[j] != '"':
+                if tagged[j] == "\\" and j + 1 < n:
+                    val.append(tagged[j])
+                    j += 1
+                val.append(tagged[j])
+                j += 1
+            i = j + 1
+            fields.append((key, "".join(val)))
+        members = dict(fields)
+        order = orders.get(name, [k for k, _ in fields])
+        parts = [f'{k}: "{members[k]}"' for k in order if k in members]
+        out_tokens.append(f"{name} {{ {' '.join(parts)} }}")
+    return " ".join(out_tokens)
+
+
+class FstITN:
+    """ITN through compiled tagger and verbalizer FSTs, byte by byte, as
+    the reference runtime does it (itn-processor.cpp:53-87):
+    normalize(x) = verbalize(reorder(tag(x))). Text that the tagger does
+    not accept comes back unchanged, as does a tagging that the
+    verbalizer does not accept.
+
+    Takes the reference's artifact names (zh_itn_tagger.fst /
+    zh_itn_verbalizer.fst) or any WeTextProcessing export; `kind` ("itn"
+    or "tn", the field orders) follows the reference's `_tn_`/`_itn_`
+    file names when not given. A grammar that cannot be read raises
+    ValueError."""
+
+    def __init__(self, tagger_path: str, verbalizer_path: str,
+                 kind: Optional[str] = None):
+        from asr2pass_tpu_torch.native.bindings import NativeFst
+
+        self.tagger = NativeFst(tagger_path)
+        self.verbalizer = NativeFst(verbalizer_path)
+        if kind is None:
+            kind = "tn" if "_tn_" in str(tagger_path) else "itn"
+        self.orders = TN_ORDERS if kind == "tn" else ITN_ORDERS
+
+    @staticmethod
+    def _compose(fst, text: str):
+        """(accepted, text): the grammar's best output for the bytes of
+        `text`."""
+        ok, out = fst.transduce(list(text.encode("utf-8")))
+        return ok, bytes(b & 0xFF for b in out).decode("utf-8", "replace")
+
+    def normalize(self, text: str) -> str:
+        if not text:
+            return text
+        ok, tagged = self._compose(self.tagger, text)
+        if not ok or not tagged:
+            return text
+        ok, out = self._compose(self.verbalizer,
+                                reorder_tagged_tokens(tagged, self.orders))
+        return out if ok else text

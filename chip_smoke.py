@@ -111,11 +111,43 @@ Phases, each of which fails the run if it fails:
               per hotworded segment; a 60 s offline upload equal to
               OfflineRecognizer.transcribe. Prints latencies (beside the
               Python beam's) and the engine's idle share
+ 10. lm       n-gram LM rescoring, TLG graphs and FST ITN, with an LM the
+              port's tools/build_lm trains on a corpus drawn from the seed
+              over the Paraformer vocabulary's CJK tokens (Zipf, order 3)
+              and tools/build_tlg compiles (per-token and --ctc-blank
+              topologies; n-grams, states, arcs, bytes and build seconds
+              printed), and a toy ITN grammar pair over every token that
+              turns a third of them into digits.
+              10a: phase 3's dir, 16 x 15 s in one recognize_batch with
+              the native LM decoder: on the rows the card produced its
+              texts equal the Python LmDecoder's, only the LM rows leave
+              the card (bytes counted); with 5 hotwords a clone of it
+              equals a decoder built with them; a TlgDecoder over
+              build_tlg of the same LM gets rows gathered on the card equal
+              to the host gather, and on the card's rows sharpened to an
+              LM sentence TLG = native = Python = the sentence.
+              10b: 9b's SenseVoice dir, 16 x 60 s, every other item with a
+              TlgDecoder over the CTC graph: the other items equal a batch
+              without LM, the LM items' words are the graph's, only their
+              [T, labels] rows leave the card; a per-token graph is
+              refused.
+              10c: build_models with --engine --engine-capacity 128
+              --lm-dir (the TLG dir) --itn-dir (the toy grammars): 16 paced
+              connections, 8 with hotwords, and a 60 s offline upload; one
+              TlgDecoder per connection over one graph, biased for the
+              hotworded ones; every connection's finals equal a
+              create_session session's with the same LM and hotwords; the
+              grammar's digits in the finals; one native TLG search per
+              segment and two FST compositions per final; the upload equal
+              to transcribe. Prints the native LM decoder against LmDecoder
+              on 15 s and 60 s with and without hotwords, the TLG search a
+              frame, FstITN a final, latencies and pass-2 stages
 
 Prints the card's name and power limit, one JSON line of the native
 library's numbers ({"native": {...}}), one JSON line of kernel numbers
 ({"kernels": [...]}, with each kernel's launches on the offline path, in
-the 2pass session, in the engine run and on phase 9's paths), and as its last line
+the 2pass session, in the engine run and on phase 9's and 10's paths),
+and as its last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 Exits non-zero, printing no result, without a CUDA device or outside a
 checkout. Imports nothing of JAX or of the JAX package.
@@ -2432,9 +2464,13 @@ def sensevoice_phase(tmp: str, gen, card: str):
 
 
 def p9_server(models, args, label: str, firsts: list, card: str):
-    """9c/9d: the server on `models`, P9_CONNECTIONS paced connections of
-    two bursts each with the given first messages. Returns (the clients'
-    (sends, msgs), bursts, record, launches, numbers)."""
+    """9c/9d/10c: the server on `models`, P9_CONNECTIONS paced
+    connections of two bursts each with the given first messages; 9d and
+    10c add a 60 s offline upload. Returns (the clients' (sends, msgs),
+    bursts, record, launches, offline upload's messages, numbers). The
+    record holds per pair its pass-2 options (`pairs`) and LM decoder
+    (`lms`), and per connection the automaton's input (`vad_by`; c0's
+    also in `vad`)."""
     import asyncio
 
     import torch
@@ -2447,7 +2483,7 @@ def p9_server(models, args, label: str, firsts: list, card: str):
     from asr2pass_tpu_torch.server.ws_server import AsrWsServer
 
     rec = {"ticks": [], "segs": {}, "fwd": [], "pairs": [], "vad": [],
-           "uniform": []}
+           "uniform": [], "lms": [], "vad_by": {}}
     numbers = {"card": card}
     streams = [burst_stream(3000 + i, 2) for i in range(len(firsts))]
 
@@ -2494,6 +2530,8 @@ def p9_server(models, args, label: str, firsts: list, card: str):
                     (kw.get("langs") or [None] * len(segs))[i],
                     (kw.get("contexts") or [None] * len(segs))[i]
                     is not None))
+                rec["lms"].append((conn_name(sid, slot), (
+                    kw.get("lm_decoders") or [None] * len(segs))[i]))
             return recognize(segs, **kw)
 
         def logged_forward(feats, lens, *a):
@@ -2513,6 +2551,8 @@ def p9_server(models, args, label: str, firsts: list, card: str):
                 ev = sm(scores, samples, is_final=is_final, **kw)
                 if not name:
                     name.append(conn_name(sid, slot))
+                rec["vad_by"].setdefault(name[0], []).append(
+                    (samples.copy(), is_final, ev))
                 if name[0] == "c0":
                     rec["vad"].append((samples.copy(), is_final, ev))
                 return ev
@@ -2559,9 +2599,9 @@ def p9_server(models, args, label: str, firsts: list, card: str):
                 k: [v["p50_ms"], v["p95_ms"], v["count"]]
                 for k, v in METRICS.report()["stages"].items()}
             offline = None
-            if label == "9d":
-                # one 60 s offline upload through the SenseVoice pass 2
-                # (greedy: no hotwords)
+            if label in ("9d", "10c"):
+                # one 60 s offline upload through the pass 2 (no
+                # hotwords: SenseVoice greedy; 10c with the LM)
                 _, offline = await ws_client(
                     port, "off", s16_bytes(synth_audio(60.0, 1)), "offline",
                     first=reference_first_message("offline", "off",
@@ -2762,6 +2802,582 @@ def phase9(tmp: str, gen, card: str):
             {"9a": n_hw, "9b": n_svs, "9c": n_hw_srv, "9d": n_svs_srv})
 
 
+P10_VOCAB = 8404          # paraformer_large's vocabulary: the corpus's units
+P10_WORDS = 1500          # the LM's word vocabulary (1-3 CJK tokens a word)
+P10_SENTENCES = 6000      # its training corpus, Zipf-drawn from the seed
+P10_ORDER = 3
+P10_SEGMENTS = 16         # 10a: 16 x 15 s; 10b: 16 x 60 s
+P10_HOTWORDS = 5
+LM_SHARPEN = 20.0         # 10a: the boost that makes a card row name its unit
+LM_TIMING_REPS = 5
+
+
+def lm_phase_dirs(tmp: str, tokens: list, card: str) -> dict:
+    """Phase 10's LM and grammars, made with the port's tools: a corpus
+    drawn from the seed over the Paraformer vocabulary's CJK tokens,
+    tools/build_lm (lm.arpa + lexicon.txt, order 3), tools/build_tlg of
+    it in the per-token and the CTC topology, and a toy ITN grammar pair
+    over every token. Returns the dirs and what the phase needs."""
+    import numpy as np
+
+    from asr2pass_tpu_torch.decode.lm_decoder import Lexicon
+    from asr2pass_tpu_torch.decode.ngram import NgramLM
+    from asr2pass_tpu_torch.decode.tlg import TlgGraph
+    from asr2pass_tpu_torch.tools import build_lm, build_tlg
+
+    rng = np.random.default_rng(10)
+    units = tokens[4:]
+    words, seen = [], set()
+    while len(words) < P10_WORDS:
+        w = "".join(units[int(k)] for k in rng.integers(
+            0, len(units), rng.integers(1, 4)))
+        if w not in seen:
+            seen.add(w)
+            words.append(w)
+    p = 1.0 / np.arange(1, P10_WORDS + 1) ** 1.1
+    p /= p.sum()
+    sents = [[words[int(k)] for k in rng.choice(P10_WORDS,
+                                                rng.integers(4, 16), p=p)]
+             for _ in range(P10_SENTENCES)]
+    d = {k: os.path.join(tmp, k) for k in ("lm", "tlg", "ctc", "itn")}
+    os.makedirs(tmp, exist_ok=True)
+    corpus = os.path.join(tmp, "corpus.txt")
+    with open(corpus, "w", encoding="utf-8") as f:
+        f.write("\n".join(" ".join(s) for s in sents) + "\n")
+    numbers = {"card": card}
+    t0 = time.perf_counter()
+    build_lm.main([corpus, d["lm"], "--order", str(P10_ORDER)])
+    numbers["build_lm_s"] = time.perf_counter() - t0
+    arpa, lex = (os.path.join(d["lm"], n) for n in ("lm.arpa",
+                                                    "lexicon.txt"))
+    for name, extra in (("tlg", []), ("ctc", ["--ctc-blank", "<blank>"])):
+        t0 = time.perf_counter()
+        build_tlg.main(["--arpa", arpa, "--lexicon", lex, "--out", d[name],
+                        *extra])
+        numbers[f"build_tlg_{name}_s"] = time.perf_counter() - t0
+    lm = NgramLM.load_arpa(arpa)
+    token2id = {t: i for i, t in enumerate(tokens)}
+    numbers["ngrams"] = len(lm.logp)
+    for name in ("tlg", "ctc"):
+        g = TlgGraph(d[name], token2id)
+        numbers[f"{name}_graph"] = {
+            "states": g.fst.num_states, "arcs": g.fst.num_arcs,
+            "bytes": os.path.getsize(os.path.join(d[name], "TLG.fst"))}
+        g.fst.close()
+    rewrite = {u: str(k % 10) for k, u in enumerate(units) if k % 3 == 0}
+    toy_itn_dir(d["itn"], units, rewrite)
+    print(f"lm: {numbers['ngrams']} n-grams of order {P10_ORDER} over "
+          f"{P10_WORDS} words ({P10_SENTENCES} sentences), build_lm "
+          f"{numbers['build_lm_s']:.1f} s; TLG {numbers['tlg_graph']} in "
+          f"{numbers['build_tlg_tlg_s']:.1f} s, CTC TLG "
+          f"{numbers['ctc_graph']} in {numbers['build_tlg_ctc_s']:.1f} s "
+          f"(build_tlg limit 60 s) on the card's host", flush=True)
+    if max(numbers["build_tlg_tlg_s"], numbers["build_tlg_ctc_s"]) > 60:
+        fail("lm: build_tlg took more than 60 s")
+    return dict(dirs=d, lm=lm, lexicon=Lexicon.from_file(lex), sents=sents,
+                words=words, rewrite=rewrite, numbers=numbers)
+
+
+def toy_itn_dir(out_dir: str, units: list, rewrite: dict):
+    """zh_itn_tagger.fst / zh_itn_verbalizer.fst over every unit and the
+    punctuation marks: the units in `rewrite` become its digits
+    (`cardinal` tokens, the cheaper path), the rest pass through as
+    `char` tokens. Both grammars share prefixes in byte tries, so a
+    composition walks one branch a byte."""
+    from asr2pass_tpu_torch.decode.fst_io import FstBuilder
+
+    def trie_add(b, trie, start, data: bytes, olabels=()):
+        """Input bytes from `start` along shared trie states (epsilon
+        output); returns the state after the last byte."""
+        cur = start
+        for byte in data:
+            key = (cur, byte)
+            if key not in trie:
+                trie[key] = b.new_state()
+                b.add_arc(cur, byte, 0, 0.0, trie[key])
+            cur = trie[key]
+        return cur
+
+    def emit(b, src, out: bytes, w, dst):
+        """Epsilon-input chain writing `out` from src to dst."""
+        cur = src
+        for k, byte in enumerate(out):
+            nxt = dst if k == len(out) - 1 else b.new_state()
+            b.add_arc(cur, 0, byte, w if k == 0 else 0.0, nxt)
+            cur = nxt
+
+    chars = list(units) + list("，。？、！")
+    tag, trie = FstBuilder(), {}
+    tag.set_final(tag.start)
+    for c in chars:
+        end = trie_add(tag, trie, tag.start, c.encode())
+        emit(tag, end, f'char {{ value: "{c}" }} '.encode(), 1.0, tag.start)
+        if c in rewrite:
+            emit(tag, end, f'cardinal {{ value: "{rewrite[c]}" }} '.encode(),
+                 0.5, tag.start)
+    verb, trie = FstBuilder(), {}
+    verb.set_final(verb.start)
+    verb.add_arc(verb.start, ord(" "), 0, 0.0, verb.start)
+    for c in chars:
+        end = trie_add(verb, trie, verb.start, f'char {{ value: "{c}'.encode())
+        tail = trie_add(verb, trie, end, b'" }', ())
+        emit(verb, tail, c.encode(), 0.0, verb.start)
+    for digit in sorted(set(rewrite.values())):
+        end = trie_add(verb, trie, verb.start,
+                       f'cardinal {{ value: "{digit}" }}'.encode())
+        emit(verb, end, digit.encode(), 0.0, verb.start)
+    os.makedirs(out_dir, exist_ok=True)
+    tag.write(os.path.join(out_dir, "zh_itn_tagger.fst"))
+    verb.write(os.path.join(out_dir, "zh_itn_verbalizer.fst"))
+
+
+def lm_hotwords(lm_setup: dict, offset: int = 0) -> dict:
+    """P10_HOTWORDS words of the LM, of two or more units: a bias that
+    can change what the LM picks."""
+    ws = [w for w in lm_setup["words"] if len(w) > 1]
+    return {w: 10 for w in ws[offset: offset + P10_HOTWORDS]}
+
+
+class RecordingDecoder:
+    """An LM decoder that keeps each row set it decodes (the recognizer
+    calls start_utterance, then decode)."""
+
+    def __init__(self, dec):
+        self.dec, self.rows, self.texts = dec, [], []
+
+    def start_utterance(self):
+        self.dec.start_utterance()
+
+    def decode(self, rows, id_to_token):
+        self.rows.append(rows.copy())
+        self.texts.append(self.dec.decode(rows, id_to_token))
+        return self.texts[-1]
+
+
+def recording_tlg(graph, token2id, **kw):
+    """A TlgDecoder that keeps each set of label rows it decodes."""
+    from asr2pass_tpu_torch.decode.tlg import TlgDecoder
+
+    class RecordingTlg(TlgDecoder):
+        def decode_ilabel_rows(self, rows):
+            self.rows.append(rows.copy())
+            return super().decode_ilabel_rows(rows)
+
+    dec = RecordingTlg(graph, token2id, **kw)
+    dec.rows = []
+    return dec
+
+
+def sharpened(rows, units: list, token2id: dict):
+    """The card's rows [n, V] with each of the first len(units) rows
+    boosted by LM_SHARPEN at its unit and renormalized: rows on which the
+    best path spells `units` whatever the decoder."""
+    import numpy as np
+
+    x = rows[: len(units)].astype(np.float64)
+    x[np.arange(len(units)), [token2id[u] for u in units]] += LM_SHARPEN
+    m = x.max(-1, keepdims=True)
+    x -= m + np.log(np.exp(x - m).sum(-1, keepdims=True))
+    return x.astype(np.float32)
+
+
+def lm_offline_phase(model_dir: str, lm_setup: dict, card: str):
+    """10a: the phase-3 paraformer_large(timestamp=True) dir rescored by
+    the native LM decoder, 16 x 15 s in one recognize_batch, without and
+    with hotwords, then by a TLG decoder. Returns (launches, numbers)."""
+    import numpy as np
+    import torch
+
+    from asr2pass_tpu_torch.decode.context_graph import ContextGraph
+    from asr2pass_tpu_torch.decode.lm_decoder import LmDecoder
+    from asr2pass_tpu_torch.decode.tlg import TlgDecoder, TlgGraph
+    from asr2pass_tpu_torch.native.bindings import NativeLmDecoder
+    from asr2pass_tpu_torch.ops import attention as att
+    from asr2pass_tpu_torch.runtime import model_zoo
+    from asr2pass_tpu_torch.runtime.offline_asr import ParaformerOffline
+
+    t0 = time.perf_counter()
+    b = model_zoo.load_offline_bundle(model_dir)
+    asr = ParaformerOffline(b.params, b.cfg, b.vocab, cmvn=b.cmvn)
+    vocab, lm, lex = b.vocab, lm_setup["lm"], lm_setup["lexicon"]
+    base = NativeLmDecoder(lm, lex, vocab.token2id)
+    py = LmDecoder(lm, lex)
+    segs = [synth_audio(15.0, 700 + i) for i in range(P10_SEGMENTS)]
+    numbers = {"card": card}
+    v = b.cfg.vocab_size
+
+    def run(decs, label):
+        forwards, forward = [], asr._forward
+
+        def logged(feats, lens, *a):
+            forwards.append(tuple(feats.shape[:2]))
+            out = forward(feats, lens, *a)
+            numbers[f"logits_bytes_{label}"] = out.logits.numel() * 4
+            return out
+
+        asr._forward, asr.lm_bytes_copied = logged, 0
+        torch.cuda.synchronize()
+        att.reset_launch_counts()
+        t1 = time.perf_counter()
+        outs = asr.recognize_batch(segs, lm_decoders=decs)
+        numbers[f"{label}_s"] = time.perf_counter() - t1
+        asr._forward = forward
+        numbers[f"lm_bytes_{label}"] = asr.lm_bytes_copied
+        return outs, forwards, att.launch_counts_by_dtype()
+
+    # no hotwords: the shared native decoder; its rows against the Python
+    # decoder's texts on the same rows
+    recs = [RecordingDecoder(base) for _ in segs]
+    outs, forwards, launches = run(recs, "native")
+    n_tok = [len(r.rows[0]) if r.rows else 0 for r in recs]
+    rows = [r.rows[0] for r in recs if r.rows]
+    py_texts = [py.decode(x, vocab.id2token) for x in rows]
+    nat_texts = [r.texts[0] for r in recs if r.texts]
+    same_py = sum(a == b for a, b in zip(nat_texts, py_texts))
+    in_outs = all(o[0] == r.texts[0] for o, r in zip(outs, recs) if r.texts)
+    want_bytes = sum(n_tok) * v * 4
+    print(f"lm: 10a recognize_batch {P10_SEGMENTS} x 15 s with the native "
+          f"LM decoder: {numbers['native_s']:.2f} s, forwards (B, T) "
+          f"{forwards}, launches {launches}; tokens {n_tok}; rows copied "
+          f"{numbers['lm_bytes_native']} bytes (the count rows: "
+          f"{want_bytes}; the forward's logits: "
+          f"{numbers['logits_bytes_native']}); native = Python LmDecoder "
+          f"on the card's rows: {same_py} of {len(rows)}", flush=True)
+    want_l = 50 * len(forwards)
+    if (len(rows) != P10_SEGMENTS or same_py != len(rows) or not in_outs
+            or numbers["lm_bytes_native"] != want_bytes
+            or launches["mh_flash_attention"]["float32"] != want_l
+            or any(n for name, by in launches.items()
+                   for dt, n in by.items()
+                   if (name, dt) != ("mh_flash_attention", "float32"))):
+        fail("lm: 10a native LM decoding differs from the Python decoder, "
+             "from the recognizer's texts, or copied other rows than the "
+             f"LM items' ({same_py}/{len(rows)}, {in_outs}, "
+             f"{numbers['lm_bytes_native']} bytes) or launched {launches}")
+    lm_launches = launches
+    # with hotwords: the clone against a decoder built with them. Each
+    # hotword pairs the runner-up units of two adjacent rows of one
+    # segment, so that the bias competes with what the LM picked
+    hot = {}
+    for k in range(P10_HOTWORDS):
+        units = [next(vocab.id2token(int(u)) for u in np.argsort(-x)[1:]
+                      if u >= 4)
+                 for x in rows[k % len(rows)][3 * k + 2: 3 * k + 4]]
+        hot["".join(units)] = 10
+    clone, fresh = base.clone(hot), NativeLmDecoder(lm, lex, vocab.token2id,
+                                                    hotwords=hot)
+    py_hot = LmDecoder(lm, lex, bias=ContextGraph().build(hot))
+    recs_h = [RecordingDecoder(clone) for _ in segs]
+    outs_h, _, _ = run(recs_h, "clone")
+    rows_h = [r.rows[0] for r in recs_h if r.rows]
+    fresh_texts = [fresh.decode(x, vocab.id2token) for x in rows_h]
+    pyh_texts = [py_hot.decode(x, vocab.id2token) for x in rows_h]
+    clone_texts = [r.texts[0] for r in recs_h if r.texts]
+    same_fresh = sum(a == b for a, b in zip(clone_texts, fresh_texts))
+    same_pyh = sum(a == b for a, b in zip(clone_texts, pyh_texts))
+    biased = sum(a != b for a, b in zip(clone_texts, nat_texts))
+    print(f"lm: 10a with {len(hot)} hotwords: the clone = a NativeLmDecoder "
+          f"built with them on {same_fresh} of {len(rows_h)} segments, = "
+          f"the Python decoder with the context graph on {same_pyh}; the "
+          f"bias changed {biased} texts", flush=True)
+    if (same_fresh != len(rows_h) or same_pyh != len(rows_h) or not rows_h
+            or not biased):
+        fail("lm: 10a the hotworded clone differs from a decoder built "
+             "with the hotwords, or the bias changed nothing")
+    # the TLG decoder: rows gathered on the card, in the recognizer
+    graph = TlgGraph(lm_setup["dirs"]["tlg"], vocab.token2id)
+    recs_t = [recording_tlg(graph, vocab.token2id) for _ in segs]
+    outs_t, _, _ = run(recs_t, "tlg")
+    g = len(graph.gather)
+    host = [graph.gather_rows(torch.from_numpy(x)).numpy() for x in rows]
+    gather_err = max(float(np.abs(r.rows[0] - h).max())
+                     for r, h in zip(recs_t, host))
+    tlg_same = sum(o[0] == n for o, n in zip(outs_t, nat_texts))
+    print(f"lm: 10a TLG decoder in the recognizer: rows gathered on the "
+          f"card to {g} labels, {numbers['lm_bytes_tlg']} bytes copied "
+          f"(count rows {sum(n_tok) * g * 4}), max |card gather - host "
+          f"gather| {gather_err:.3e}; texts equal the native LM decoder's "
+          f"on {tlg_same} of {P10_SEGMENTS} raw segments", flush=True)
+    if (numbers["lm_bytes_tlg"] != sum(n_tok) * g * 4
+            or not gather_err <= 1e-5):
+        fail("lm: 10a the TLG rows gathered on the card differ from the "
+             "host gather")
+    # on the card's rows sharpened to an LM sentence each (as
+    # tests/test_fst_runtime.py:274 holds it): TLG = native = Python
+    agree = 0
+    tlg = TlgDecoder(graph, vocab.token2id)
+    for k, x in enumerate(rows):
+        sent = next(s for s in lm_setup["sents"][k * 7:]
+                    if len("".join(s)) <= len(x))
+        units = list("".join(sent))
+        y = sharpened(x, units, vocab.token2id)
+        tlg.start_utterance()
+        t = tlg.decode(y)
+        agree += (t == "".join(sent) == base.decode(y, vocab.id2token)
+                  == py.decode(y, vocab.id2token))
+    print(f"lm: 10a on the card's rows sharpened to an LM sentence: TLG = "
+          f"native = Python = the sentence on {agree} of {len(rows)}",
+          flush=True)
+    if agree != len(rows):
+        fail("lm: 10a the TLG decoder and the LM decoders disagree on "
+             "unambiguous rows")
+    tlg.close()
+    numbers.update(tokens=n_tok, native_eq_python=same_py,
+                   clone_eq_fresh=same_fresh, tlg_eq_native_raw=tlg_same,
+                   gather_max_abs_err=gather_err, texts_biased=biased)
+    # the native table: decode against LmDecoder on 15 s and 60 s rows,
+    # with and without the hotwords
+    rec60 = RecordingDecoder(base)
+    asr.recognize_batch([synth_audio(60.0, 790)], lm_decoders=[rec60])
+    table = {}
+    for seconds, x in ((15, rows[0]), (60, rec60.rows[0])):
+        for label, nat, plain in (("no_hotwords", base, py),
+                                  (f"{len(hot)}_hotwords", clone, py_hot)):
+            _, ms = host_ms(lambda: nat.decode(x, vocab.id2token),
+                            LM_TIMING_REPS)
+            _, pms = host_ms(lambda: plain.decode(x, vocab.id2token), 1)
+            table[f"{seconds}s_{label}"] = {
+                "rows": int(len(x)), "native_ms": ms, "plain_ms": pms}
+            print(f"native: LM decode {seconds} s ({len(x)} rows), {label}: "
+                  f"native {ms:.2f} ms, Python {pms:.2f} ms "
+                  f"({pms / ms:.1f}x) on {card}", flush=True)
+    numbers["decode"] = table
+    clone.close()
+    print(f"lm: 10a {time.perf_counter() - t0:.1f} s", flush=True)
+    return lm_launches, numbers
+
+
+def lm_svs_phase(svs_dir: str, lm_setup: dict, card: str):
+    """10b: 9b's sensevoice_small() dir with TLG rescoring over the CTC
+    graph: 16 x 60 s in one recognize_batch, every other item with its
+    own TlgDecoder. Returns (launches, numbers)."""
+    import torch
+
+    from asr2pass_tpu_torch.decode.tlg import TlgDecoder, TlgGraph
+    from asr2pass_tpu_torch.frontend.fbank import num_frames
+    from asr2pass_tpu_torch.frontend.lfr import lfr_len
+    from asr2pass_tpu_torch.ops import attention as att
+    from asr2pass_tpu_torch.runtime import model_zoo
+    from asr2pass_tpu_torch.runtime.sensevoice_asr import SenseVoiceOffline
+
+    t0 = time.perf_counter()
+    sb = model_zoo.load_svs_bundle(svs_dir)
+    rec = SenseVoiceOffline(sb.params, sb.cfg, sb.vocab, cmvn=sb.cmvn)
+    numbers = {"card": card}
+    # a per-token graph is refused: SenseVoice decodes CTC frames
+    flat = TlgDecoder(lm_setup["dirs"]["tlg"], sb.vocab.token2id)
+    try:
+        SenseVoiceOffline(rec.model, sb.cfg, sb.vocab, lm_decoder=flat)
+        fail("lm: 10b SenseVoice took a graph without the CTC topology")
+    except ValueError as e:
+        print(f"lm: 10b a per-token graph is refused: {e}", flush=True)
+    flat.close()
+    graph = TlgGraph(lm_setup["dirs"]["ctc"], sb.vocab.token2id)
+    batch = [synth_audio(60.0, 800 + i) for i in range(P10_SEGMENTS)]
+    base = rec.recognize_batch(batch)
+    decs = [recording_tlg(graph, sb.vocab.token2id) if i % 2 == 0 else None
+            for i in range(P10_SEGMENTS)]
+    rec.lm_bytes_copied = 0
+    torch.cuda.synchronize()
+    att.reset_launch_counts()
+    t1 = time.perf_counter()
+    outs = rec.recognize_batch(batch, lm_decoders=decs)
+    numbers["recognize_s"] = time.perf_counter() - t1
+    launches = att.launch_counts_by_dtype()
+    fcfg = sb.cfg.frontend
+    frames = [lfr_len(num_frames(len(w), fcfg), fcfg.lfr_m, fcfg.lfr_n)
+              for w in batch]
+    g = len(graph.gather)
+    lm_items = [i for i, d in enumerate(decs) if d is not None]
+    want_bytes = sum(frames[i] for i in lm_items) * g * 4
+    full = P10_SEGMENTS * (1024 + 4) * sb.cfg.vocab_size * 4
+    allowed = set("".join(lm_setup["words"]))
+    plain_same = all(outs[i] == base[i] for i in range(P10_SEGMENTS)
+                     if decs[i] is None)
+    in_vocab = all(set(outs[i][0]) <= allowed for i in lm_items)
+    numbers.update(lm_bytes=rec.lm_bytes_copied, logits_bytes=full,
+                   lm_chars=[len(outs[i][0]) for i in lm_items])
+    blocks = sb.cfg.encoder.num_blocks + len(rec.model.tp.rest)
+    print(f"lm: 10b SenseVoice recognize_batch {P10_SEGMENTS} x 60 s, "
+          f"{len(lm_items)} with a TlgDecoder over the CTC graph: "
+          f"{numbers['recognize_s']:.2f} s; launches {launches} (expected "
+          f"mh_flash_attention fp32 {blocks}); rows copied "
+          f"{rec.lm_bytes_copied} bytes ([T, {g}] of the LM items: "
+          f"{want_bytes}; the [B, T, V] logits would be {full}); items "
+          f"without an LM equal a batch with no LM: {plain_same}; LM texts "
+          f"{numbers['lm_chars']} chars, all of the graph's words: "
+          f"{in_vocab}", flush=True)
+    if (not plain_same or not in_vocab or not any(numbers["lm_chars"])
+            or rec.lm_bytes_copied != want_bytes
+            or launches["mh_flash_attention"]["float32"] != blocks):
+        fail("lm: 10b the SenseVoice TLG batch fails its gates")
+    # the TLG search per frame, on one LM item's rows
+    rows = decs[0].rows[0]
+    dec = TlgDecoder(graph, sb.vocab.token2id)
+
+    def one():
+        dec.start_utterance()
+        return dec.decode_ilabel_rows(rows)
+
+    text, ms = host_ms(one, 3)
+    if text != outs[0][0]:
+        fail("lm: 10b the TLG decode of the fetched rows differs from the "
+             "recognizer's text")
+    numbers["tlg_ms_per_frame"] = ms / len(rows)
+    numbers["tlg_frames"] = len(rows)
+    print(f"native: TLG decode 60 s ({len(rows)} frames x {g} labels): "
+          f"{ms:.1f} ms, {ms / len(rows):.3f} ms a frame on {card}",
+          flush=True)
+    for d in decs:
+        if d is not None:
+            d.close()
+    dec.close()
+    print(f"lm: 10b {time.perf_counter() - t0:.1f} s", flush=True)
+    return launches, numbers
+
+
+def lm_server_phase(tmp: str, lm_setup: dict, card: str):
+    """10c: the launcher with --engine --engine-capacity 128 --lm-dir (the
+    per-token TLG dir) --itn-dir (the toy grammars) on phase 3's and
+    phase 7's dirs: 16 paced 2pass connections, 8 with hotwords, and a 60
+    s offline upload. Returns (launches, numbers)."""
+    from asr2pass_tpu_torch.decode.tlg import TlgDecoder
+    from asr2pass_tpu_torch.frontend.audio import load_pcm_bytes
+    from asr2pass_tpu_torch.native import bindings as nb
+    from asr2pass_tpu_torch.server.run_server import build_models, parser
+    from asr2pass_tpu_torch.text.itn import FstITN
+
+    t0 = time.perf_counter()
+    args = parser().parse_args([
+        "--model-dir", os.path.join(tmp, "model"),
+        "--online-model-dir", os.path.join(tmp, "online"),
+        "--vad-dir", os.path.join(tmp, "vad"),
+        "--punc-dir", os.path.join(tmp, "punc"),
+        "--lm-dir", lm_setup["dirs"]["tlg"],
+        "--itn-dir", lm_setup["dirs"]["itn"],
+        "--engine", "--engine-capacity", str(ENGINE_CAPACITY),
+        "--host", "127.0.0.1", "--port", "0"])
+    models = build_models(args)
+    if not isinstance(models.itn, FstITN) or models.tlg_dir is None:
+        fail("lm: 10c build_models did not wire --lm-dir and --itn-dir")
+    print(f"lm: 10c models with --lm-dir (TLG) and --itn-dir loaded "
+          f"({time.perf_counter() - t0:.1f} s)", flush=True)
+    hots = [lm_hotwords(lm_setup, i) if i % 2 == 0 else None
+            for i in range(P9_CONNECTIONS)]
+    firsts = [lambda name, h=h: reference_first_message(
+        "2pass", name, hotwords=json.dumps(h) if h else "")
+        for h in hots]
+    clients, streams, rec, launches, offline, numbers = p9_server(
+        models, args, "10c", firsts, card)
+    fcfg = models.asr_cfg.frontend
+    for i, ((_, msgs), (_, spans)) in enumerate(zip(clients, streams)):
+        check_stream(f"c{i}", msgs, spans, rec["segs"].get(f"c{i}", []),
+                     fcfg)
+    # one TlgDecoder per connection over the one shared graph, biased
+    # exactly for the hotworded connections
+    by_conn = {}
+    for name, dec in rec["lms"]:
+        by_conn.setdefault(name, set()).add(dec)
+    graph = models._tlg_graphs["asr"]
+    decs = {n: next(iter(d)) for n, d in by_conn.items() if len(d) == 1}
+    ok = (len(decs) == P9_CONNECTIONS
+          and len({id(d) for d in decs.values()}) == P9_CONNECTIONS
+          and all(isinstance(d, TlgDecoder) and d.graph is graph
+                  and (d._bias is not None) == (hots[int(n[1:])] is not None)
+                  for n, d in decs.items()))
+    print(f"lm: 10c decoders: {len(decs)} connections, "
+          f"{len({id(d) for d in decs.values()})} TlgDecoders over one "
+          f"graph, biased for the {sum(h is not None for h in hots)} "
+          f"hotworded: {ok}", flush=True)
+    if not ok:
+        fail(f"lm: 10c the engine's LM decoders are not one per connection "
+             f"over the shared graph: {by_conn}")
+    # every connection's finals against a session with the same LM and
+    # hotwords on the automaton's chunks
+    same = 0
+    for i, (_, msgs) in enumerate(clients):
+        sess = models.create_session(
+            mode="offline", vad_tail_sil=VAD_TAIL_SIL_MS, vad_max_len=20000,
+            use_itn=True, hotwords=hots[i])
+        want = [r.final_text for r in (
+            sess.feed(samples, fin) for samples, fin, _
+            in rec["vad_by"].get(f"c{i}", [])) if r.final_text]
+        got = [m["text"] for _, m in msgs if m["mode"] == "2pass-offline"]
+        same += got == want and bool(got)
+    finals = [m["text"] for _, msgs in clients for _, m in msgs
+              if m["mode"] == "2pass-offline"]
+    text = "".join(finals)
+    rewrite = lm_setup["rewrite"]
+    itn_ok = (bool(set(text) & set(rewrite.values()))
+              and not set(text) & set(rewrite))
+    calls = numbers["native_calls"]
+    n_seg = len(rec["pairs"])
+    print(f"lm: 10c finals equal a create_session session's with the same "
+          f"LM and hotwords for {same} of {P9_CONNECTIONS} connections; the "
+          f"FST ITN rewrote the grammar's units to digits in the finals: "
+          f"{itn_ok}; native calls {calls} for {n_seg} pass-2 segments and "
+          f"{len(finals)} finals", flush=True)
+    if (same != P9_CONNECTIONS or not itn_ok
+            or calls["tlg_nbest"] != n_seg
+            or calls["fst_transduce"] != 2 * sum(bool(f) for f in finals)):
+        fail("lm: 10c the finals, the ITN or the native calls fail their "
+             "gates")
+    want = sum(50 + (16 if t // 2 + 8 >= 256 else 0)
+               for _, t in rec["fwd"] if t >= 256)
+    got = launches["mh_flash_attention"]["float32"]
+    if want == 0 or got != want:
+        fail(f"lm: 10c launched {launches}, expected mh_flash_attention "
+             f"{want} times in float32")
+    ms = [m for _, m in offline]
+    ref = models.create_offline_recognizer(
+        vad_tail_sil=VAD_TAIL_SIL_MS, vad_max_len=20000).transcribe(
+        load_pcm_bytes(s16_bytes(synth_audio(60.0, 1))), use_itn=True)
+    if (len(ms) != 1 or ms[0]["mode"] != "offline"
+            or ms[0]["text"] != ref.text or not ref.text):
+        fail(f"lm: 10c offline upload gave {ms}, transcribe gives "
+             f"{ref.text!r}")
+    # FstITN.normalize per final, on the finals' pre-ITN text (the
+    # session's, ITN off)
+    itn = models.itn
+    sess = models.create_session(mode="offline",
+                                 vad_tail_sil=VAD_TAIL_SIL_MS,
+                                 vad_max_len=20000, use_itn=False)
+    raw = [r.final_text for r in (sess.feed(samples, fin) for samples, fin, _
+                                  in rec["vad_by"]["c1"]) if r.final_text]
+    nb.reset_call_counts()
+    _, itn_ms = host_ms(lambda: [itn.normalize(t) for t in raw],
+                        LM_TIMING_REPS)
+    numbers["itn_ms_per_final"] = itn_ms / max(len(raw), 1)
+    numbers["itn_chars_per_final"] = sum(map(len, raw)) / max(len(raw), 1)
+    print(f"native: FstITN.normalize {numbers['itn_ms_per_final']:.2f} ms a "
+          f"final ({numbers['itn_chars_per_final']:.0f} chars) on {card}; "
+          f"10c partial p50/p95 {numbers['partial_ms_p50']:.1f} / "
+          f"{numbers['partial_ms_p95']:.1f} ms, final p50/p95 "
+          f"{numbers['final_ms_p50']:.1f} / {numbers['final_ms_p95']:.1f} "
+          f"ms, p2_recognize {numbers['stages'].get('p2_recognize')}, "
+          f"p2_postprocess {numbers['stages'].get('p2_postprocess')} "
+          f"(p50, p95 ms, count)", flush=True)
+    numbers.update(finals_eq_session=same, itn_rewrote=itn_ok)
+    print(f"server: 10c {json.dumps(numbers)}", flush=True)
+    print(f"lm: 10c {time.perf_counter() - t0:.1f} s", flush=True)
+    return launches, numbers
+
+
+def phase10(tmp: str, card: str):
+    """Phase 10. Returns ({path: launches}, {sub-phase: numbers})."""
+    t0 = time.perf_counter()
+    lm_setup = lm_phase_dirs(os.path.join(tmp, "lm10"),
+                             cjk_tokens(P10_VOCAB), card)
+    l_off, n_off = lm_offline_phase(os.path.join(tmp, "model"), lm_setup,
+                                    card)
+    l_svs, n_svs = lm_svs_phase(os.path.join(tmp, "svs"), lm_setup, card)
+    l_srv, n_srv = lm_server_phase(tmp, lm_setup, card)
+    print(f"phase 10: {time.perf_counter() - t0:.1f} s", flush=True)
+    return ({"lm_offline": l_off, "lm_svs": l_svs, "lm_engine": l_srv},
+            {"lm": lm_setup["numbers"], "10a": n_off, "10b": n_svs,
+             "10c": n_srv})
+
+
 def main() -> int:
     import torch
 
@@ -2817,6 +3433,7 @@ def main() -> int:
         launches_engine, engine_fwd, server = server_phase(
             os.path.join(tmp, "model"), tmp, card)
         launches_p9, p9 = phase9(tmp, gen, card)
+        launches_p10, p10 = phase10(tmp, card)
     # kernel #1 fp32 at the engine's pass-2 shape: the largest batch the
     # lane ran at bucket 256
     b_eng = max(b for b, t in engine_fwd if t == 256)
@@ -2849,7 +3466,9 @@ def main() -> int:
     # variants; launches are the offline main path's run in that dtype,
     # launches_2pass the 2pass session's, launches_engine the paced server
     # run's (8a), launches_<path> phase 9's (hotword: 9a's 16 x 15 s,
-    # svs: 9b's 60/150/270 s, hotword_engine: 9c, svs_engine: 9d); #1
+    # svs: 9b's 60/150/270 s, hotword_engine: 9c, svs_engine: 9d) and
+    # phase 10's (lm_offline: 10a's 16 x 15 s with the native LM decoder,
+    # lm_svs: 10b's 16 x 60 s with TLG items, lm_engine: 10c); #1
     # fp32 carries the engine's pass-2 shape as a variant, and the fp32
     # entries SenseVoice's shapes (T = bucket + 4)
     line = []
@@ -2883,7 +3502,7 @@ def main() -> int:
                 "launches_2pass": launches_2pass[name][dtype],
                 "launches_engine": launches_engine[name][dtype],
                 **{f"launches_{path}": by[name][dtype]
-                   for path, by in launches_p9.items()},
+                   for path, by in {**launches_p9, **launches_p10}.items()},
                 **{k: head[k] for k in keys},
                 "shape": head["shape"], "dtype": dtype,
                 "tol_ratio": head["tol_ratio"],
@@ -2904,8 +3523,23 @@ def main() -> int:
     native["beam"] = p9["9b"]["beam"]
     native["9d_ms"] = {k: p9["9d"][k] for k in PYTHON_BEAM_9D_MS}
     native["9d_ms_python_beam"] = PYTHON_BEAM_9D_MS
+    # phase 10: the LM decoder against LmDecoder, the TLG search a frame,
+    # FstITN a final, the rows copied, and the LM engine run's native calls
+    native["lm"] = {
+        "lm_decode": p10["10a"]["decode"],
+        "tlg_ms_per_frame": p10["10b"]["tlg_ms_per_frame"],
+        "tlg_frames": p10["10b"]["tlg_frames"],
+        "itn_ms_per_final": p10["10c"]["itn_ms_per_final"],
+        "itn_chars_per_final": p10["10c"]["itn_chars_per_final"],
+        "lm_bytes_copied": {"10a_native": p10["10a"]["lm_bytes_native"],
+                            "10a_tlg": p10["10a"]["lm_bytes_tlg"],
+                            "10b": p10["10b"]["lm_bytes"],
+                            "10b_logits": p10["10b"]["logits_bytes"]},
+        "graphs": p10["lm"]}
+    native["calls"]["10c"] = p10["10c"]["native_calls"]
     print(f"speed: {json.dumps(speed)}")
     print(f"phase 9: {json.dumps(p9)}")
+    print(f"phase 10: {json.dumps(p10)}")
     print(f"total: {time.perf_counter() - t_start:.1f} s")
     print(card)
     print(json.dumps({"native": native}))

@@ -577,3 +577,51 @@ def test_compile_hotwords_card_matches_cpu(dev):
     ref = hotword.compile_hotwords(model, cfg, words, vocab)
     assert got.shape == ref.shape == (4, 64)
     np.testing.assert_allclose(got, ref, rtol=0, atol=1e-5)
+
+
+def test_lm_rescoring_card_matches_cpu(dev, tmp_path):
+    """chip_smoke.py's 10a at tiny size: 16 x 15 s through
+    recognize_batch on the card and on the CPU with the native LM
+    decoder (shared and a hotworded clone) and a TLG decoder whose rows
+    are gathered on the card: equal texts and timestamps, and only the
+    token rows of the LM items copied (equal byte counts)."""
+    import dataclasses
+
+    from asr2pass_tpu_torch.config import paraformer_tiny
+    from asr2pass_tpu_torch.decode.lm_decoder import Lexicon
+    from asr2pass_tpu_torch.decode.ngram import NgramLM
+    from asr2pass_tpu_torch.decode.tlg import TlgDecoder
+    from asr2pass_tpu_torch.models import paraformer
+    from asr2pass_tpu_torch.native.bindings import NativeLmDecoder
+    from asr2pass_tpu_torch.runtime.offline_asr import ParaformerOffline
+    from asr2pass_tpu_torch.text.vocab import make_test_vocab
+    from asr2pass_tpu_torch.tools.build_tlg import build_tlg
+
+    cfg = paraformer_tiny()
+    cfg = dataclasses.replace(cfg, predictor=dataclasses.replace(
+        cfg.predictor, use_timestamp=True))
+    vocab = make_test_vocab(cfg.vocab_size)
+    rng = np.random.default_rng(10)
+    units = vocab.tokens[4:]
+    words = sorted({"".join(units[int(k)] for k in rng.integers(
+        0, len(units), rng.integers(1, 3))) for _ in range(40)})
+    lm = NgramLM.train([[words[int(k)] for k in rng.integers(
+        0, len(words), 6)] for _ in range(200)], order=3)
+    lex = Lexicon.from_words(words)
+    build_tlg(lm, {w: list(w) for w in words}, str(tmp_path / "tlg"))
+    model = paraformer.init(cfg, torch.Generator().manual_seed(5), "cpu")
+    recs = {d: ParaformerOffline(model.state_dict(), cfg, vocab, device=d)
+            for d in ("cpu", "cuda")}
+    segs = [(0.1 * rng.standard_normal(16000 * 15)).astype(np.float32)
+            for _ in range(16)]
+    base = NativeLmDecoder(lm, lex, vocab.token2id)
+    clone = base.clone({words[0] + words[1]: 10})
+    out = {}
+    for d, rec in recs.items():
+        decs = [base] * 6 + [clone] * 5 + [
+            TlgDecoder(str(tmp_path / "tlg"), vocab.token2id)
+            for _ in range(5)]
+        out[d] = (rec.recognize_batch(segs, lm_decoders=decs),
+                  rec.lm_bytes_copied)
+    assert out["cuda"] == out["cpu"]
+    assert out["cpu"][1] > 0 and all(t for t, _ in out["cpu"][0])

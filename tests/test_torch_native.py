@@ -1,6 +1,7 @@
 """The port's native host library (asr2pass_tpu_torch/native) against the
 JAX package's, on the CPU: the resampler, the E2E VAD automaton and the
-pruned CTC prefix beam, and how the library is built.
+pruned CTC prefix beam, and how the library is built. The LM, FST and TLG
+parts are held in tests/test_torch_lm.py.
 
 Each check runs the JAX package's native path and, where it has one, its
 Python spec, as tests/test_native.py runs them. Inputs are made with
@@ -50,7 +51,9 @@ def _jax_native():
 
 # -- the sources -------------------------------------------------------------
 
-@pytest.mark.parametrize("name", ["native.cc", "ctc_beam.cc", "e2e_vad.cc"])
+@pytest.mark.parametrize("name", ["native.cc", "ctc_beam.cc", "e2e_vad.cc",
+                                  "lm_decoder.cc", "fst.cc",
+                                  "tlg_decoder.cc", "api.h"])
 def test_sources_are_copies(name):
     """Below its header line, each port source is the JAX file."""
     port = (tnb.SRC / name).read_text().splitlines()
@@ -59,19 +62,24 @@ def test_sources_are_copies(name):
 
 
 def test_api_header_declares_only_the_three_files():
-    """api.h declares the functions native.cc, ctc_beam.cc and
-    e2e_vad.cc define, and none of the LM, FST or TLG decoders'."""
+    """The library is the JAX package's six files: api.h (now the whole
+    copy) declares only functions they define, the LM decoder's among
+    them, and every function the bindings call is defined there."""
     declared = set(re.findall(r"\b(a2p_\w+)\s*\(",
                               (tnb.SRC / "api.h").read_text()))
     defined = set()
-    for name in ("native.cc", "ctc_beam.cc", "e2e_vad.cc"):
-        defined |= set(re.findall(r"\b(a2p_\w+)\s*\(",
-                                  (tnb.SRC / name).read_text()))
+    for src in tnb.sources():
+        if src.suffix == ".cc":
+            defined |= set(re.findall(r"\b(a2p_\w+)\s*\(",
+                                      src.read_text()))
     assert declared and declared <= defined
-    assert not [d for d in declared
-                if d.startswith(("a2p_lmdec", "a2p_fst", "a2p_tlg"))]
+    assert "a2p_lmdec_decode" in declared
+    called = set(re.findall(r"\b_?lib\w*\.(a2p_\w+)",
+                            Path(tnb.__file__).read_text()))
+    assert called and called <= defined
     assert sorted(p.name for p in tnb.sources()) == [
-        "api.h", "ctc_beam.cc", "e2e_vad.cc", "native.cc"]
+        "api.h", "ctc_beam.cc", "e2e_vad.cc", "fst.cc", "lm_decoder.cc",
+        "native.cc", "tlg_decoder.cc"]
 
 
 # -- the resampler -----------------------------------------------------------
@@ -354,7 +362,46 @@ def test_concurrent_builds_load_one_library(tmp_path):
     assert [p.returncode for p in procs] == [0, 0], outs
     lines = [o.split() for o, _ in outs]
     assert lines[0] == lines[1] and lines[0][1] == "1600"
-    assert [p.name for p in tmp_path.iterdir()] == [Path(lines[0][0]).name]
+    # the library and the build's lock file, no temporary
+    assert sorted(p.name for p in tmp_path.iterdir()) == sorted(
+        [Path(lines[0][0]).name, tnb.LOCK_NAME])
+
+
+_LOCKED_BUILD = r"""
+import subprocess
+import sys
+from pathlib import Path
+from asr2pass_tpu_torch.native import bindings as nb
+compiles = []
+run = subprocess.run
+
+def counted(cmd, *a, **kw):
+    compiles.append(cmd[0])
+    return run(cmd, *a, **kw)
+
+nb.subprocess.run = counted
+sys.stdin.readline()                # start together
+lib = nb.build(nb.SRC, Path(sys.argv[1]))
+print(lib.name, len(compiles))
+"""
+
+
+def test_locked_build_compiles_once(tmp_path):
+    """Two processes that build into an empty directory at once: the
+    lock lets one compile, and the other waits and loads its library
+    without compiling."""
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", _LOCKED_BUILD, str(tmp_path)], cwd=REPO,
+        stdin=subprocess.PIPE, stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True) for _ in range(2)]
+    for p in procs:
+        p.stdin.write("go\n")
+        p.stdin.flush()
+    outs = [p.communicate(timeout=180) for p in procs]
+    assert [p.returncode for p in procs] == [0, 0], outs
+    names, counts = zip(*(o.split() for o, _ in outs))
+    assert names[0] == names[1]
+    assert sorted(int(c) for c in counts) == [0, 1]
 
 
 def test_broken_source_raises_with_the_log(tmp_path):
@@ -367,12 +414,33 @@ def test_broken_source_raises_with_the_log(tmp_path):
     with pytest.raises(RuntimeError, match="g\\+\\+ failed") as err:
         tnb.build(src, tmp_path / "build")
     assert "ctc_beam.cc" in str(err.value) and "error" in str(err.value)
-    assert not list((tmp_path / "build").iterdir())
+    # nothing but the build's lock file
+    assert [p.name for p in (tmp_path / "build").iterdir()] == [
+        tnb.LOCK_NAME]
+
+
+@pytest.mark.parametrize("name", ["lm_decoder.cc", "fst.cc",
+                                  "tlg_decoder.cc"])
+def test_broken_lm_source_raises(tmp_path, name):
+    """The same for the LM, FST and TLG sources (each alone with the
+    header, so that g++ stops at it): g++'s error, no library."""
+    src = tmp_path / "src"
+    src.mkdir()
+    for f in (name, "api.h"):
+        shutil.copy(tnb.SRC / f, src / f)
+    with open(src / name, "a") as f:
+        f.write("\nnot C++ either;\n")
+    with pytest.raises(RuntimeError, match="g\\+\\+ failed") as err:
+        tnb.build(src, tmp_path / "build")
+    assert name in str(err.value)
+    assert not list((tmp_path / "build").glob("*.so"))
 
 
 @pytest.mark.parametrize("path", [
     "asr2pass_tpu_torch/native/bindings.py",
     "asr2pass_tpu_torch/decode/ctc.py",
+    "asr2pass_tpu_torch/decode/tlg.py",
+    "asr2pass_tpu_torch/decode/lm_decoder.py",
     "asr2pass_tpu_torch/frontend/audio.py",
     "asr2pass_tpu_torch/vad/e2e_vad.py"])
 def test_no_fallback_in_source(path):

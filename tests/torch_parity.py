@@ -17,6 +17,7 @@ from asr2pass_tpu import config as jconfig
 from asr2pass_tpu.models import paraformer as jparaformer
 from asr2pass_tpu.models import sanm_encoder as jenc
 from asr2pass_tpu.models import sensevoice as jsv
+from asr2pass_tpu.text.vocab import make_test_vocab
 from asr2pass_tpu_torch import config as tconfig
 from asr2pass_tpu_torch.models import paraformer as tparaformer
 from asr2pass_tpu_torch.runtime.model_zoo import params_from_jax
@@ -92,3 +93,120 @@ def bursty(pattern, seed: int) -> np.ndarray:
              + 0.02 * rng.standard_normal(n))
         parts.append(x.astype(np.float32))
     return np.concatenate(parts)
+
+
+def lm_corpus(units, seed: int, n_sent: int = 40, n_words: int = 30):
+    """Word sentences over `units` (token strings), made from a seed: a
+    vocabulary of n_words words of 1-2 units, drawn Zipf-like."""
+    rng = np.random.default_rng(seed)
+    words = []
+    while len(words) < n_words:
+        w = "".join(units[int(k)] for k in rng.integers(0, len(units),
+                                                          rng.integers(1, 3)))
+        if w not in words:
+            words.append(w)
+    p = 1.0 / np.arange(1, n_words + 1)
+    p /= p.sum()
+    return [[words[int(k)] for k in rng.choice(n_words, rng.integers(2, 7),
+                                               p=p)]
+            for _ in range(n_sent)]
+
+
+def lm_rows(vocab_size: int, n: int, seed: int, sharp: float = 3.0):
+    """[n, V] log-softmax rows from a seed: each row peaks on a few
+    units, so an LM has choices to make."""
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((n, vocab_size)).astype(np.float64) * sharp
+    x -= np.log(np.exp(x - x.max(-1, keepdims=True)).sum(-1, keepdims=True)) \
+        + x.max(-1, keepdims=True)
+    return x.astype(np.float32)
+
+
+def lm_test_dirs(tmp):
+    """An LM over the 64-token test vocabulary's units (lm_corpus, seed
+    11, order 2), as an ARPA + lexicon dir and as TLG graph dirs (the
+    per-token and the CTC topology, the port's build_tlg), with the toy
+    ITN grammars of toy_itn_units; and the LM loaded by both packages."""
+    from asr2pass_tpu.decode import ngram as jngram
+    from asr2pass_tpu_torch.decode import ngram
+    from asr2pass_tpu_torch.tools.build_tlg import build_tlg
+
+    units = make_test_vocab(64).tokens[4:]
+    sents = lm_corpus(units, 11, n_sent=60, n_words=40)
+    lm = ngram.NgramLM.train(sents, order=2)
+    words = sorted(w for w in lm.vocab if not w.startswith("<"))
+    (tmp / "arpa").mkdir()
+    lm.save_arpa(str(tmp / "arpa" / "lm.arpa"))
+    (tmp / "arpa" / "lexicon.txt").write_text(
+        "".join(f"{w} {' '.join(w)}\n" for w in words), encoding="utf-8")
+    build_tlg(lm, {w: list(w) for w in words}, str(tmp / "tlg"))
+    build_tlg(lm, {w: list(w) for w in words}, str(tmp / "ctc"),
+              ctc_blank="<blank>")
+    itn = toy_itn_units(tmp / "itn")
+    return dict(tmp=tmp, lm=lm, words=words, arpa=str(tmp / "arpa"),
+                tlg=str(tmp / "tlg"), ctc=str(tmp / "ctc"), itn=itn,
+                jlm=jngram.NgramLM.load_arpa(str(tmp / "arpa" / "lm.arpa")))
+
+
+LM_REWRITE = {u: str(k % 10)
+              for k, u in enumerate(make_test_vocab(64).tokens[4:]) if k % 3}
+
+
+def toy_itn_units(out_dir):
+    """A tagger/verbalizer pair over the test vocabulary's units and the
+    punctuation marks: the units of LM_REWRITE become its digits, the
+    rest pass through."""
+    from asr2pass_tpu_torch.decode.fst_io import FstBuilder
+
+    units = make_test_vocab(64).tokens[4:]
+
+    def chars(b, pairs):
+        b.set_final(b.start)
+        for inp, out, w in pairs:
+            end = b.add_string(b.start, list(inp.encode()), list(out.encode()),
+                               w)
+            b.add_arc(end, 0, 0, 0.0, b.start)
+
+    marks = "，。？、！ "
+    tag = FstBuilder()
+    chars(tag, [(c, f'char {{ value: "{c}" }} ', 1.0)
+                for c in list(units) + list(marks)]
+          + [(c, f'cardinal {{ value: "{d}" }} ', 0.5)
+             for c, d in LM_REWRITE.items()])
+    verb = FstBuilder()
+    verb.add_arc(verb.start, ord(" "), 0, 0.0, verb.start)
+    chars(verb, [(f'char {{ value: "{c}" }}', c, 0.0)
+                 for c in list(units) + list(marks)]
+          + [(f'cardinal {{ value: "{d}" }}', d, 0.0)
+             for d in sorted(set(LM_REWRITE.values()))])
+    out_dir.mkdir(parents=True, exist_ok=True)
+    tag.write(str(out_dir / "zh_itn_tagger.fst"))
+    verb.write(str(out_dir / "zh_itn_verbalizer.fst"))
+    return str(out_dir)
+
+
+def speechy(seconds: float, seed: int) -> np.ndarray:
+    """A tone under a 4 Hz envelope, plus noise, from a seed."""
+    rng = np.random.default_rng(seed)
+    n = int(seconds * 16000)
+    tt = np.arange(n) / 16000
+    x = 0.2 * np.sin(2 * np.pi * rng.uniform(100, 300) * tt)
+    x *= 0.5 * (1 + np.sin(2 * np.pi * 4 * tt))
+    x += 0.02 * rng.standard_normal(n)
+    return np.clip(x, -1, 1).astype(np.float32)
+
+
+def lm_trees():
+    """JAX weights of the LM serving tests: paraformer_tiny with the
+    timestamp head, VadConfig(), punc_tiny(300), sensevoice_tiny."""
+    from asr2pass_tpu.models import ct_transformer as jct
+    from asr2pass_tpu.models import fsmn_vad as jvad
+
+    jcfg, tcfg = tiny_cfgs(timestamp=True)
+    return dict(
+        jcfg=jcfg, tcfg=tcfg, asr=jax_params(jcfg, 0),
+        vad=jax.tree.map(np.asarray, jvad.init(jax.random.PRNGKey(1),
+                                               jconfig.VadConfig())),
+        punc=jax.tree.map(np.asarray, jct.init(jax.random.PRNGKey(2),
+                                               jconfig.punc_tiny(300))),
+        svs=svs_tree(0, seed=5))
