@@ -18,6 +18,7 @@ branch, which is the JAX package's XLA branch.
 from __future__ import annotations
 
 import math
+import os
 from typing import Optional
 
 import torch
@@ -34,6 +35,9 @@ from asr2pass_tpu_torch.ops.attention import (
     use_flash_cross,
     use_flash_split,
 )
+from asr2pass_tpu_torch.ops.int8 import (column_major, int8_matmul,
+                                         pad_weight)
+from asr2pass_tpu_torch.utils import div_127, quantize_weight
 
 
 def _uniform(shape, scale: float, generator, device):
@@ -47,18 +51,76 @@ def _uniform(shape, scale: float, generator, device):
 
 class Dense(nn.Module):
     """Affine map in the JAX layout: w [d_in, d_out], optional b [d_out].
-    Init: w ~ U(-1/sqrt(d_in), 1/sqrt(d_in)), b = 0."""
+    Init: w ~ U(-1/sqrt(d_in), 1/sqrt(d_in)), b = 0.
+
+    Quantized (utils.quantize_params) it holds, in place of w, the int8
+    buffer w_q (w8a8) or w_q8 (w8a16) of the same shape and the float
+    parameter scale [d_out]; weight_key names the form. w_q is kept
+    column-major (ops/int8.column_major), the layout torch._int_mm is
+    fast on, also after a load_state_dict; where its widths are not ones
+    torch._int_mm takes, the non-persistent buffer w_q_mm holds it padded
+    once (ops/int8.pad_weight)."""
 
     def __init__(self, d_in: int, d_out: int, bias: bool = True,
                  generator=None, device=None):
         super().__init__()
+        self.weight_key = "w"
         self.w = nn.Parameter(_uniform((d_in, d_out), 1.0 / math.sqrt(d_in),
                                        generator, device))
         self.b = (nn.Parameter(torch.zeros(d_out, device=device)) if bias
                   else None)
 
+    @property
+    def weight(self) -> torch.Tensor:
+        """The weight in its stored form ([d_in, d_out], float or int8)."""
+        return getattr(self, self.weight_key)
+
+    def set_quantized(self, key: str, w_q: torch.Tensor,
+                      scale: torch.Tensor) -> None:
+        """Hold w_q under `key` ("w_q" or "w_q8") and scale instead of w."""
+        if key not in ("w_q", "w_q8") or w_q.dtype != torch.int8:
+            raise ValueError(f"no quantized form {key!r} of dtype "
+                             f"{w_q.dtype}")
+        delattr(self, self.weight_key)
+        self.weight_key = key
+        self.register_buffer(key, w_q)
+        self.scale = nn.Parameter(scale, requires_grad=False)
+        if key == "w_q":
+            _w_q_layouts(self)
+            self.register_load_state_dict_post_hook(_w_q_layouts)
+
+    def quantize_(self, weight_only: bool = False) -> None:
+        w_q, scale = quantize_weight(self.w.detach())
+        self.set_quantized("w_q8" if weight_only else "w_q", w_q, scale)
+
     def forward(self, x):
         return dense(self, x)
+
+
+def _w_q_layouts(module, incompatible_keys=None) -> None:
+    """w_q column-major, and w_q_mm its padded form where it needs one."""
+    module.w_q = column_major(module.w_q)
+    w_mm = pad_weight(module.w_q)
+    if w_mm is not module.w_q:
+        module.register_buffer("w_q_mm", w_mm, persistent=False)
+
+
+def quantized_like(model: nn.Module, state_dict) -> nn.Module:
+    """Give each Dense of `model` the form its entry in `state_dict` has
+    (w, w_q or w_q8), with empty tensors of those shapes on the meta
+    device, so that load_state_dict(state_dict, assign=True) fills it."""
+    for name, mod in model.named_modules():
+        if not isinstance(mod, Dense):
+            continue
+        prefix = f"{name}." if name else ""
+        for key in ("w_q", "w_q8"):
+            if prefix + key in state_dict:
+                mod.set_quantized(
+                    key,
+                    torch.empty_like(state_dict[prefix + key], device="meta"),
+                    torch.empty_like(state_dict[prefix + "scale"],
+                                     device="meta"))
+    return model
 
 
 class LayerNorm(nn.Module):
@@ -149,8 +211,25 @@ class Lstm(nn.Module):
 # ---------------------------------------------------------------------------
 
 def dense(p, x):
-    """Output dtype follows the input (bf16 on the serving path)."""
-    y = x @ p.w.to(x.dtype)
+    """Output dtype follows the input (bf16 on the serving path). Three
+    forms, as in the JAX package's layers.py:47-75:
+    - w_q (w8a8): each row of x is quantized to int8 with the scale
+      max|row| (floored at 1e-6) / 127, the int8 product is taken exactly
+      in int32 (ops/int8.int8_matmul: torch._int_mm on the card), cast to
+      x's dtype and scaled by (row scale * column scale) in x's dtype;
+    - w_q8 (w8a16): x @ w_q8 in x's dtype, times the column scale;
+    - w: x @ w."""
+    if p.weight_key == "w_q":
+        a_scale = div_127(x.abs().amax(dim=-1, keepdim=True).clamp_min(1e-6))
+        x_q = torch.clamp(torch.round(x / a_scale), -127, 127).to(torch.int8)
+        y = int8_matmul(x_q.reshape(-1, x.shape[-1]),
+                        getattr(p, "w_q_mm", p.w_q), p.w_q.shape[1])
+        y = y.reshape(*x.shape[:-1], y.shape[-1]).to(x.dtype)
+        y = y * (a_scale * p.scale).to(x.dtype)
+    elif p.weight_key == "w_q8":
+        y = (x @ p.w_q8.to(x.dtype)) * p.scale.to(x.dtype)
+    else:
+        y = x @ p.w.to(x.dtype)
     if p.b is not None:
         y = y + p.b.to(x.dtype)
     return y
@@ -240,6 +319,13 @@ def _ones_mask(x):
     return torch.ones(x.shape[:2], dtype=torch.float32, device=x.device)
 
 
+def _score_dtype(x):
+    """Scores in x's dtype when ASR2PASS_BF16_SCORES=1 (read at each call,
+    as the JAX package's layers.py:256-265 reads it), else fp32."""
+    return (x.dtype if os.environ.get("ASR2PASS_BF16_SCORES", "0") == "1"
+            else torch.float32)
+
+
 def sanm_attention(p, x, heads: int, mask=None, att_mask=None):
     """SAN-M self-attention. x: [B, T, Din]; mask: [B, T] padding mask;
     att_mask: [B, T, T] or [T, T] extra attention mask. Returns [B, T, D].
@@ -265,7 +351,8 @@ def sanm_attention(p, x, heads: int, mask=None, att_mask=None):
         if use_flash_split(x.shape[1], d_k, att_mask, x.is_cuda):
             ctx = flash_attention(qh, kh, vh, kv_mask)
         else:
-            ctx = attention_plain(qh, kh, vh, kv_mask, att_mask=att_mask)
+            ctx = attention_plain(qh, kh, vh, kv_mask, att_mask=att_mask,
+                                  score_dtype=_score_dtype(x))
         ctx = _merge_heads(ctx)
     out = dense(p.out, ctx) + mem
     if mask is not None:
@@ -299,7 +386,9 @@ def lstm_apply(p, xs):
     """xs: [B, T, Din] -> outputs [B, T, H]; a loop over T. The input
     projection of all steps is one product taken before the loop."""
     b, t, _ = xs.shape
-    h_dim = p.wh.w.shape[0]
+    # the width from the stored weight, whatever its form (the JAX
+    # package's layers.py:335 reads w, which a quantized tree lacks)
+    h_dim = p.wh.weight.shape[0]
     h = torch.zeros(b, h_dim, dtype=torch.float32, device=xs.device)
     c = torch.zeros_like(h)
     gx = dense(p.wx, xs)

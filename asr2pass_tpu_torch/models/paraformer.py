@@ -15,7 +15,7 @@ from torch import nn
 
 from asr2pass_tpu_torch.config import ParaformerConfig
 from asr2pass_tpu_torch.models import cif, sanm_decoder, sanm_encoder
-from asr2pass_tpu_torch.models.layers import length_mask
+from asr2pass_tpu_torch.models.layers import length_mask, quantized_like
 from asr2pass_tpu_torch.utils import resolve_device
 
 
@@ -60,11 +60,14 @@ def from_state_dict(state_dict: Mapping[str, torch.Tensor],
                     cfg: ParaformerConfig, device="cuda") -> Paraformer:
     """Inference model on `device` holding `state_dict` (as
     model_zoo.params_from_jax returns it). The hotword block exists iff
-    the weights carry it: a model directory's yaml does not record it."""
+    the weights carry it: a model directory's yaml does not record it.
+    Each dense layer takes the form its keys have: float `w`, or the int8
+    `w_q` / `w_q8` with `scale` of utils.quantize_params (an int8 model
+    directory that either package saved)."""
     dev = resolve_device(device)
     cfg = dataclasses.replace(cfg, use_hotword=any(
         k.startswith("decoder.hotword.") for k in state_dict))
-    model = Paraformer(cfg, device="meta")
+    model = quantized_like(Paraformer(cfg, device="meta"), state_dict)
     model.load_state_dict(state_dict, assign=True)
     return model.to(dev).eval().requires_grad_(False)
 

@@ -6,8 +6,8 @@ pruned CTC prefix beam with its hotword trie (`serialize_context_trie`,
 `ctc_beam_decode`), the Aho-Corasick bias automaton (`NativeAcBias`), the
 lexicon-trie x n-gram LM beam (`NativeLmDecoder`), the OpenFST reader with
 its linear-input shortest path (`NativeFst`) and the TLG token passer
-(`NativeTlgFstDecoder`). The sources are this package's own copies (src/);
-native.cc's edit alignment is compiled here but not bound.
+(`NativeTlgFstDecoder`), and the Levenshtein alignment of the CER tools
+(`edit_align`). The sources are this package's own copies (src/).
 
 The library is compiled at first use by `g++ -O3 -fPIC -std=c++17
 -shared` into BUILD_DIR (git-ignored), one file per content of the
@@ -16,8 +16,9 @@ others wait, and loaded with ctypes.CDLL, so every call releases the
 interpreter lock. Nothing falls back: a failed build raises with the
 compiler's log, and a call that the library refuses raises. The Python
 versions of these functions (frontend/audio.py, vad/e2e_vad.py,
-decode/ctc.py, decode/lm_decoder.py) run only when a caller asks for
-them by argument.
+decode/ctc.py, decode/lm_decoder.py) run only when a caller asks for them
+by argument; tools/compute_wer.align_plain is the alignment's, for the
+tests.
 
 Every handle is freed by close() (or when its object is collected) and
 holds a lock, so a call after close() raises instead of touching freed
@@ -180,6 +181,8 @@ def _declare(lib) -> None:
     lib.a2p_tlg_partial.argtypes = [_vp, _i32p, c_i64]
     lib.a2p_tlg_nbest.restype = c_i64
     lib.a2p_tlg_nbest.argtypes = [_vp, c_i32, _i32p, c_i64, _f32p]
+    lib.a2p_edit_align.restype = c_i64
+    lib.a2p_edit_align.argtypes = [_i32p, c_i64, _i32p, c_i64, _i32p, _i32p]
 
 
 def library():
@@ -200,7 +203,7 @@ def _count(name: str) -> None:
 
 COUNTED = ("resample", "vad_chunk", "ctc_beam_decode", "ac_step",
            "lm_decode", "fst_transduce", "tlg_step", "tlg_partial",
-           "tlg_nbest")
+           "tlg_nbest", "edit_align")
 
 
 def call_counts() -> dict:
@@ -208,7 +211,8 @@ def call_counts() -> dict:
     `resample`, `vad_chunk` (one a chunk of one stream),
     `ctc_beam_decode` and `lm_decode` (one a segment), `ac_step`,
     `fst_transduce` (two an FstITN.normalize), `tlg_step` (one a row of
-    log-probs), `tlg_partial` and `tlg_nbest` (one a TLG decode)."""
+    log-probs), `tlg_partial` and `tlg_nbest` (one a TLG decode),
+    `edit_align` (one a scored pair)."""
     with _count_lock:
         return {k: _CALLS.get(k, 0) for k in COUNTED}
 
@@ -246,6 +250,28 @@ def resample(x: np.ndarray, fs_in: int, fs_out: int,
         raise RuntimeError(f"a2p_resample returned {n} samples for a "
                            f"buffer of {len(out)}")
     return out[:n]
+
+
+# ---------------------------------------------------------------------------
+# the Levenshtein alignment
+# ---------------------------------------------------------------------------
+
+def edit_align(a, b) -> Tuple[List[int], int]:
+    """a2p_edit_align on two sequences of int32 symbol ids: (ops,
+    distance), ops 0 = match, 1 = substitution, 2 = deletion, 3 =
+    insertion, in order (tools/compute_wer.align's native branch)."""
+    aa = np.ascontiguousarray(a, dtype=np.int32).reshape(-1)
+    bb = np.ascontiguousarray(b, dtype=np.int32).reshape(-1)
+    ops = np.empty(len(aa) + len(bb) + 1, np.int32)
+    dist = ctypes.c_int32(0)
+    lib = library()
+    _count("edit_align")
+    n = lib.a2p_edit_align(_ptr(aa, _i32p), len(aa), _ptr(bb, _i32p),
+                           len(bb), _ptr(ops, _i32p), ctypes.byref(dist))
+    if not max(len(aa), len(bb)) <= n <= len(aa) + len(bb):
+        raise RuntimeError(f"a2p_edit_align returned {n} ops for sequences "
+                           f"of {len(aa)} and {len(bb)}")
+    return ops[:n].tolist(), int(dist.value)
 
 
 # ---------------------------------------------------------------------------

@@ -28,7 +28,9 @@ What bounds each and how it is designed is described at the top of its
 source. On a CPU tensor each entry point runs its plain version (einsum,
 masked fp32 softmax, einsum: the XLA-path semantics of the JAX
 package's models/layers.py:258-267).
-A CUDA tensor launches the kernel or raises; nothing falls back.
+A CUDA tensor launches the kernel or raises; nothing falls back. The
+kernels have no backward: a CUDA entry point refuses operands that need
+a gradient while autograd is on (refuse_autograd).
 
 Masking contract of all three (attention.py:34,69,189): masked scores are
 the finite -1e30, never -inf, and the divide is by max(l, 1e-30), so a row
@@ -339,7 +341,8 @@ def _merge_heads(x):
 
 
 def attention_plain(q, k, v, kv_mask, q_mask=None, att_mask=None,
-                    return_weights=False, operand_round=None):
+                    return_weights=False, operand_round=None,
+                    score_dtype=torch.float32):
     """q [B,H,Tq,d], k/v [B,H,Tk,d], kv_mask [B,Tk] (>0 valid): fp32
     scores, -1e30 where masked, fp32 softmax cast to the input dtype,
     context; rows whose q_mask is 0 are zeroed when q_mask is given.
@@ -347,17 +350,26 @@ def attention_plain(q, k, v, kv_mask, q_mask=None, att_mask=None,
     this plain branch takes. With return_weights, (context, the fp32
     softmax weights [B,H,Tq,Tk]). operand_round, where given, is applied
     to q, k, v and the softmax weights before the two products (the TF32
-    control of the fp32 checks rounds them once to TF32)."""
+    control of the fp32 checks rounds them once to TF32). score_dtype
+    bfloat16 (the layers' ASR2PASS_BF16_SCORES on bf16 inputs) keeps the
+    scores in bf16 with a -30000 fill, as the JAX package's
+    layers.py:256-265 does."""
     d = q.shape[-1]
     if operand_round is not None:
         q, k, v = (operand_round(x.float()).to(x.dtype) for x in (q, k, v))
-    s = torch.einsum("bhtd,bhsd->bhts", q.float(), k.float()) / math.sqrt(d)
-    neg = torch.tensor(_NEG, dtype=s.dtype, device=s.device)
+    if score_dtype == torch.bfloat16:
+        s = torch.einsum("bhtd,bhsd->bhts", q.to(score_dtype),
+                         k.to(score_dtype)) / math.sqrt(d)
+        neg = torch.tensor(-30000.0, dtype=s.dtype, device=s.device)
+    else:
+        s = torch.einsum("bhtd,bhsd->bhts", q.float(),
+                         k.float()) / math.sqrt(d)
+        neg = torch.tensor(_NEG, dtype=s.dtype, device=s.device)
     s = torch.where(kv_mask[:, None, None, :] > 0, s, neg)
     if att_mask is not None:
         am = att_mask if att_mask.dim() == 3 else att_mask[None]
         s = torch.where(am[:, None, :, :] > 0, s, neg)
-    p = torch.softmax(s, dim=-1)
+    p = torch.softmax(s.float(), dim=-1)
     pv = p if operand_round is None else operand_round(p)
     out = torch.einsum("bhts,bhsd->bhtd", pv.to(q.dtype), v)
     if q_mask is not None:
@@ -451,6 +463,22 @@ def _count(fn, dtype) -> None:
     fn.launches_by_dtype[key] = fn.launches_by_dtype.get(key, 0) + 1
 
 
+def refuse_autograd(name: str, *operands) -> None:
+    """Raise where autograd would need a kernel's backward: gradients are
+    on and an operand requires one. The kernels write a fresh tensor
+    through ctypes and have no backward (nor have the JAX package's
+    Pallas kernels, which have no custom_vjp), so their output would
+    carry no gradient and a training step would drop attention's share of
+    it without a word. Train below MIN_T, or call the plain version."""
+    if torch.is_grad_enabled() and any(
+            x is not None and x.requires_grad for x in operands):
+        raise RuntimeError(
+            f"{name}: the CUDA attention kernels have no backward, and an "
+            "operand requires a gradient; run the step with segments "
+            f"shorter than MIN_T={MIN_T} frames (the plain branch), or "
+            "under torch.no_grad()")
+
+
 def mh_flash_attention(q, kv, kv_mask, heads: int):
     """q [B,Tq,D]; kv [B,Tk,2D] (K then V columns); kv_mask [B,Tk] (>0
     valid). Returns context [B,Tq,D] in merged-head layout. Tq may differ
@@ -458,6 +486,7 @@ def mh_flash_attention(q, kv, kv_mask, heads: int):
     q/kv slices of a fused qkv projection) are read in place."""
     if not q.is_cuda:
         return mh_attention_plain(q, kv, kv_mask, heads)
+    refuse_autograd("mh_flash_attention", q, kv)
     b, tq, d = q.shape
     if d % heads or kv.shape[0] != b or kv.shape[2] != 2 * d:
         raise ValueError(f"q {tuple(q.shape)} and kv {tuple(kv.shape)} "
@@ -490,6 +519,7 @@ def _attention_ss(q, k, v, kv_mask, q_mask=None):
     [B,Tq] is given, rows whose q_mask is 0 come out as 0."""
     if not q.is_cuda:
         return attention_plain(q, k, v, kv_mask, q_mask)
+    refuse_autograd("_attention_ss", q, k, v)
     out, launched = _split_launch(q, k, v, kv_mask, q_mask)
     if launched:
         _count(_attention_ss, q.dtype)
@@ -501,6 +531,7 @@ def _attention_flash(q, k, v, mask):
     rows come out as 0."""
     if not q.is_cuda:
         return attention_plain(q, k, v, mask, mask)
+    refuse_autograd("_attention_flash", q, k, v)
     out, launched = _split_launch(q, k, v, mask, mask)
     if launched:
         _count(_attention_flash, q.dtype)

@@ -115,13 +115,17 @@ def params_from_jax(tree: Any) -> Dict[str, torch.Tensor]:
 
 def params_to_jax(params: Union[nn.Module, Mapping[str, torch.Tensor]]
                   ) -> Dict[str, Any]:
-    """State dict (or module) -> the JAX tree of float32 numpy arrays,
-    layer stacks restacked, list entries back in lists."""
+    """State dict (or module) -> the JAX tree of numpy arrays, layer
+    stacks restacked, list entries back in lists. Floats are written as
+    float32 (numpy has no bfloat16); other dtypes stay as they are, so a
+    quantized model keeps its int8 w_q / w_q8 (a stacked `scale` is
+    [L, d_out])."""
     sd = params.state_dict() if isinstance(params, nn.Module) else params
     tree: Dict[str, Any] = {}
     stacks: Dict[Tuple[str, str], Dict[int, np.ndarray]] = {}
     for name, val in sd.items():
-        arr = val.detach().to("cpu", torch.float32).numpy()
+        val = val.detach().cpu()
+        arr = (val.float() if val.is_floating_point() else val).numpy()
         key = name.replace(".", "/")
         stem = next((s for s in _STACKED if key.startswith(s + "/")), None)
         if stem is None:

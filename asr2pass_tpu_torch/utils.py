@@ -1,5 +1,5 @@
 """Small shared utilities: device resolution, batched host-device
-copies, fp32 products and float casts."""
+copies, fp32 products, float casts and int8 weight quantization."""
 from __future__ import annotations
 
 from typing import List, Mapping, Sequence, Union
@@ -82,3 +82,58 @@ def cast_floats(params: Union[nn.Module, Mapping[str, torch.Tensor]],
         return params
     return {k: (v.to(dtype) if torch.is_tensor(v) and v.is_floating_point()
                 else v) for k, v in params.items()}
+
+
+# subtrees whose weights stay float: convs and embeddings (the JAX
+# package's utils.py:43-44), and the bicif upsampling conv `us_cnn`, which
+# its list means by `us_conv` and misses (its quantized tree then fails
+# in the timestamp head)
+QUANT_SKIP = ("conv", "us_conv", "us_cnn", "embed")
+
+
+def div_127(t: torch.Tensor) -> torch.Tensor:
+    """t / 127, rounded once on every device. PyTorch's CUDA division by a
+    Python number multiplies by the number's reciprocal, which can land one
+    ulp away from the quotient that the CPU and the JAX package compute; a
+    divisor that is a tensor on t's device takes the true division."""
+    return t / t.new_full((), 127.0)
+
+
+def quantize_weight(w: torch.Tensor):
+    """Per-output-channel int8: w [.., d_in, d_out] -> (w_q int8 of w's
+    shape, scale [.., d_out] in w's dtype), scale = max|w| over d_in / 127
+    floored at 1e-12, w_q = clip(round(w / scale), -127, 127) with ties
+    to even (jnp.round's rule)."""
+    scale = div_127(w.abs().amax(dim=-2, keepdim=True)).clamp_min(1e-12)
+    w_q = torch.clamp(torch.round(w / scale), -127, 127).to(torch.int8)
+    return w_q, scale.squeeze(-2)
+
+
+def quantize_params(params: Union[nn.Module, Mapping[str, torch.Tensor]],
+                    weight_only: bool = False):
+    """Int8 weights for every dense layer outside QUANT_SKIP. Counterpart
+    of the JAX package's utils.py:27-62 on a module (converted in place,
+    returned) or a state dict (a new dict). A dense node's `w` becomes
+    `w_q` (w8a8: models/layers.dense quantizes each activation row and
+    takes an int8 product) or, with weight_only, `w_q8` (w8a16: the
+    product runs in the activations' dtype), plus `scale`; `b` stays.
+    Cast to bf16 first for the bf16 serving route, as the JAX package's
+    bench does, so that `scale` is bf16."""
+    key = "w_q8" if weight_only else "w_q"
+    if isinstance(params, nn.Module):
+        for name, mod in params.named_modules():
+            if (hasattr(mod, "quantize_") and mod.weight_key == "w"
+                    and not set(name.split(".")) & set(QUANT_SKIP)):
+                mod.quantize_(weight_only)
+        return params
+    out = dict(params)
+    for k in list(out):
+        node, _, leaf = k.rpartition(".")
+        if (leaf != "w" or out[k].dim() not in (2, 3)
+                or f"{node}.taps" in out
+                or set(node.split(".")) & set(QUANT_SKIP)):
+            continue
+        w_q, scale = quantize_weight(out.pop(k))
+        out[f"{node}.{key}"] = w_q
+        out[f"{node}.scale"] = scale
+    return out

@@ -142,11 +142,36 @@ Phases, each of which fails the run if it fails:
               to transcribe. Prints the native LM decoder against LmDecoder
               on 15 s and 60 s with and without hotwords, the TLG search a
               frame, FstITN a final, latencies and pass-2 stages
+ 11. int8,    11a: phase 5's weights cast to bf16 and quantized both
+   fine-tune, ways (w8a8: torch._int_mm; w8a16): forwards at B=16,
+   tools      T=1000 in bf16, w8a8 and w8a16 must launch #1 bf16 66
+              times each (audio-s/s, idle share, greedy ids against
+              bf16 printed); w8a8 at B=2, T=3072 and 5120 #2 and #3 50
+              times each; _int_mm against bf16 and fp32 products at the
+              encoder's shapes and one dense layer each way; the
+              timestamp model in w8a8 (fp32) through recognize_batch 16
+              x 60 s; every _int_mm shape of the path equal to the CPU's
+              int32 product; card vs CPU on 15 s (w8a16: 1e-4 of the
+              range; w8a8: within w8a8's own error against fp32), and
+              each w8a8 layer shape of that forward card vs CPU on its
+              own input (4 ulps of the output's range; a w8a16 product in
+              its place must fall outside).
+              11b: paraformer_large(timestamp) fp32, one B=2 loss and
+              backward card vs CPU (loss 1e-4, gradient norms 1e-3); 20
+              train_steps at B=8 x 15 s, U=60 (the loss must fall;
+              steps/s, audio-s/s, peak memory); step 2 after restoring
+              step 1's checkpoint = step 2 uninterrupted (1e-6); T=256
+              under autograd must raise.
+              11c: four seeded WAVs (one at 8 kHz): the transcribe CLI in
+              its own process = transcribe in-process; eval_cer
+              in-process = --server against the launcher's server;
+              edit_align native = the Python DP on 1000 pairs (ms each)
 
 Prints the card's name and power limit, one JSON line of the native
 library's numbers ({"native": {...}}), one JSON line of kernel numbers
 ({"kernels": [...]}, with each kernel's launches on the offline path, in
-the 2pass session, in the engine run and on phase 9's and 10's paths),
+the 2pass session, in the engine run and on phase 9's, 10's and 11's
+paths),
 and as its last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 Exits non-zero, printing no result, without a CUDA device or outside a
@@ -155,6 +180,7 @@ checkout. Imports nothing of JAX or of the JAX package.
 from __future__ import annotations
 
 import contextlib
+import faulthandler
 import json
 import os
 import subprocess
@@ -823,22 +849,16 @@ def synth_audio(seconds: float, seed: int):
     return np.clip(x, -1, 1).astype(np.float32)
 
 
-def main_path(model_dir: str, gen, card: str):
+def save_model_dir(model_dir: str, gen):
+    """Phase 3's dir: paraformer_large with the timestamp head, weights
+    drawn from gen on the card, saved through the model zoo. Returns its
+    configuration."""
     import numpy as np
-    import torch
 
     from asr2pass_tpu_torch.config import paraformer_large
     from asr2pass_tpu_torch.models import paraformer
-    from asr2pass_tpu_torch.ops import attention as att
-    from asr2pass_tpu_torch.runtime.model_zoo import (load_offline_bundle,
-                                                      save_offline_bundle)
-    from asr2pass_tpu_torch.runtime.offline_api import OfflineRecognizer
-    from asr2pass_tpu_torch.runtime.offline_asr import ParaformerOffline
-    from asr2pass_tpu_torch.runtime.streaming_frontend import (
-        offline_frontend_device)
-    from asr2pass_tpu_torch.utils import cast_floats
+    from asr2pass_tpu_torch.runtime.model_zoo import save_offline_bundle
 
-    t0 = time.perf_counter()
     cfg = paraformer_large(timestamp=True)
     model = paraformer.init(cfg, gen, "cuda")
     tokens = ["<blank>", "<s>", "</s>", "<unk>"] + [
@@ -846,7 +866,24 @@ def main_path(model_dir: str, gen, card: str):
     d = cfg.frontend.lfr_dim
     cmvn = (np.full(d, -12.0, np.float32), np.full(d, 0.25, np.float32))
     save_offline_bundle(model_dir, model, cfg, tokens, cmvn)
-    del model
+    return cfg
+
+
+def main_path(model_dir: str, gen, card: str):
+    import torch
+
+    from asr2pass_tpu_torch.config import paraformer_large
+    from asr2pass_tpu_torch.models import paraformer
+    from asr2pass_tpu_torch.ops import attention as att
+    from asr2pass_tpu_torch.runtime.model_zoo import load_offline_bundle
+    from asr2pass_tpu_torch.runtime.offline_api import OfflineRecognizer
+    from asr2pass_tpu_torch.runtime.offline_asr import ParaformerOffline
+    from asr2pass_tpu_torch.runtime.streaming_frontend import (
+        offline_frontend_device)
+    from asr2pass_tpu_torch.utils import cast_floats
+
+    t0 = time.perf_counter()
+    cfg = save_model_dir(model_dir, gen)
     bundle = load_offline_bundle(model_dir)
     asr = ParaformerOffline(bundle.params, bundle.cfg, bundle.vocab,
                             cmvn=bundle.cmvn)
@@ -1125,9 +1162,10 @@ def _pct(xs, q):
     return float(np.percentile(np.asarray(xs), q)) if xs else float("nan")
 
 
-def two_pass_phase(model_dir: str, tmp: str, gen, card: str):
-    """Phase 7. Returns the 2pass run's launches by dtype and entry point,
-    and its printed numbers."""
+def save_2pass_dirs(tmp: str, gen):
+    """Phase 7's dirs in tmp, weights drawn from gen: paraformer_large_online
+    (`online`), the FSMN VAD (`vad`) and the punctuation model (`punc`).
+    Returns their configurations."""
     import dataclasses
 
     import numpy as np
@@ -1136,25 +1174,9 @@ def two_pass_phase(model_dir: str, tmp: str, gen, card: str):
     from asr2pass_tpu_torch.config import (PuncConfig,
                                            paraformer_large_online,
                                            vad_default)
-    from asr2pass_tpu_torch.models import (ct_transformer, fsmn_vad,
-                                           paraformer, paraformer_online,
-                                           sanm_decoder)
-    from asr2pass_tpu_torch.native import bindings as nb
-    from asr2pass_tpu_torch.ops import attention as att
+    from asr2pass_tpu_torch.models import ct_transformer, fsmn_vad, paraformer
     from asr2pass_tpu_torch.runtime import model_zoo
-    from asr2pass_tpu_torch.runtime.asr_stream import ParaformerOnlineStream
-    from asr2pass_tpu_torch.runtime.offline_asr import ParaformerOffline
-    from asr2pass_tpu_torch.runtime.punc import Punctuator
-    from asr2pass_tpu_torch.runtime.streaming_frontend import (
-        offline_frontend_device)
-    from asr2pass_tpu_torch.runtime.two_pass import TwoPassSession
-    from asr2pass_tpu_torch.runtime.vad_stream import (FsmnVadStream,
-                                                       vad_options)
-    from asr2pass_tpu_torch.vad.e2e_vad import E2EVadStateMachine
 
-    t0 = time.perf_counter()
-    # the four models at full width, each saved as a model dir and loaded
-    # back through the loaders; pass 2 reuses phase 3's dir
     online_cfg = paraformer_large_online()
     tokens = ["<blank>", "<s>", "</s>", "<unk>"] + [
         chr(0x4E00 + i) for i in range(online_cfg.vocab_size - 4)]
@@ -1187,6 +1209,40 @@ def two_pass_phase(model_dir: str, tmp: str, gen, card: str):
     model_zoo.save_punc_dir(punc_dir, ct_transformer.init(punc_cfg, gen),
                             punc_cfg, punc_tokens)
 
+    return online_cfg, vad_cfg, punc_cfg
+
+
+def two_pass_phase(model_dir: str, tmp: str, gen, card: str):
+    """Phase 7. Returns the 2pass run's launches by dtype and entry point,
+    and its printed numbers."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from asr2pass_tpu_torch.models import (ct_transformer, fsmn_vad,
+                                           paraformer, paraformer_online,
+                                           sanm_decoder)
+    from asr2pass_tpu_torch.native import bindings as nb
+    from asr2pass_tpu_torch.ops import attention as att
+    from asr2pass_tpu_torch.runtime import model_zoo
+    from asr2pass_tpu_torch.runtime.asr_stream import ParaformerOnlineStream
+    from asr2pass_tpu_torch.runtime.offline_asr import ParaformerOffline
+    from asr2pass_tpu_torch.runtime.punc import Punctuator
+    from asr2pass_tpu_torch.runtime.streaming_frontend import (
+        offline_frontend_device)
+    from asr2pass_tpu_torch.runtime.two_pass import TwoPassSession
+    from asr2pass_tpu_torch.runtime.vad_stream import (FsmnVadStream,
+                                                       vad_options)
+    from asr2pass_tpu_torch.vad.e2e_vad import E2EVadStateMachine
+
+    t0 = time.perf_counter()
+    # the four models at full width, each saved as a model dir and loaded
+    # back through the loaders; pass 2 reuses phase 3's dir
+    online_cfg, vad_cfg, punc_cfg = save_2pass_dirs(tmp, gen)
+    d = online_cfg.frontend.lfr_dim
+    online_dir, vad_dir, punc_dir = (os.path.join(tmp, k)
+                                     for k in ("online", "vad", "punc"))
     on_b = model_zoo.load_offline_bundle(online_dir)
     off_b = model_zoo.load_offline_bundle(model_dir)
     vad_sd, vad_cfg2, vad_cmvn2 = model_zoo.load_vad_dir(vad_dir)
@@ -3378,6 +3434,739 @@ def phase10(tmp: str, card: str):
              "10c": n_srv})
 
 
+# ---------------------------------------------------------------------------
+# phase 11: int8 Paraformer, the fine-tune step, the offline tools
+# ---------------------------------------------------------------------------
+
+# 11a: card vs CPU of the int8 recognizer in fp32 on one 15 s segment.
+# w8a16 keeps fp32 activations: the limit is phase 4's (CPU_TOL of the
+# logits' range). w8a8 rounds each dense layer's input rows to 1/127 of
+# their max: a card/CPU difference of one fp32 ulp upstream can round an
+# element to the other int8 step, one draw of the rounding error again,
+# which later layers carry on. So the w8a8 logits are held to within
+# w8a8's own error against the float model on the same segment (a share
+# of at most INT8_SHARE_OF_QUANT_ERROR; 0-0.64 of it over 12 seeds of
+# paraformer_tiny against the JAX package on the CPU). It cannot be
+# tighter: the flips are fresh draws of w8a8's own rounding error, so a
+# w8a16 forward in w8a8's place lands as near, and this gate does not tell
+# the two apart. The per-layer gate does: one w8a8 call of each (rows,
+# d_in, d_out) of the card's forward (the last, whose input is an
+# activation of the forward; a BLSTM's first step takes zeros), again on
+# the card and on the CPU with the same input and weights. The steps
+# around the exact int8 product are the same IEEE operations on both
+# (utils.div_127 keeps the card's division by 127 a true one), so the
+# outputs should be equal; they are held to W8A8_LAYER_ULPS fp32 ulps of
+# the output's largest magnitude, and the same layer's w8a16 product on
+# the card (the activation quantization left out) must fall outside that
+INT8_SHARE_OF_QUANT_ERROR = 1.0
+W8A8_LAYER_ULPS = 4
+INT8_ITERS = 3
+# 11b: the fine-tune
+P11_TRAIN_B = 8
+P11_TRAIN_T = 250          # 15 s of LFR frames, below the kernels' MIN_T
+P11_TRAIN_U = 60
+P11_TRAIN_STEPS = 20
+# one step at B=2, card vs CPU: fp32 sums in other orders over 50 + 16
+# blocks. The rescaled alphas reach each utterance's last CIF fire exactly
+# at the threshold, so there the card and the CPU may round to different
+# sides and one token's embedding becomes zero on one of them; the
+# comparison runs with the threshold 1e-4 lower, which fires it on both
+# (every other crossing is far from it). Loss within TRAIN_LOSS_RTOL,
+# each parameter's gradient norm within TRAIN_GRAD_RTOL of the CPU's
+# (gradient norms of the tensors the loss reaches, the smallest held
+# against 1e-3 of the largest; the others get no gradient)
+P11_CPU_THRESHOLD_SHIFT = 1e-4
+TRAIN_LOSS_RTOL = 1e-4
+TRAIN_GRAD_RTOL = 1e-3
+# 11c: the offline tools
+P11_WAVS = ((10.0, 16000), (12.0, 16000), (8.0, 8000), (15.0, 16000))
+P11_ALIGN_PAIRS = 1000
+
+
+def int_mm_gate(shapes: dict) -> dict:
+    """Every (m, k, n) that went through torch._int_mm on the path, again
+    on seeded int8 operands: the card's padded product equals the CPU's
+    exactly (the CPU's int32 product taken in float64, exact for these
+    sums, which stay far below 2^53)."""
+    import torch
+
+    from asr2pass_tpu_torch.ops import int8
+
+    gen = torch.Generator().manual_seed(11)
+    padded = 0
+    for (m, k, n) in sorted(shapes):
+        a = torch.randint(-127, 128, (m, k), dtype=torch.int8, generator=gen)
+        b = torch.randint(-127, 128, (k, n), dtype=torch.int8, generator=gen)
+        got = int8.int_mm_padded(a.cuda(), int8.pad_weight(b.cuda()),
+                                 n).cpu()
+        ref = (a.double() @ b.double()).to(torch.int32)
+        if not torch.equal(got, ref):
+            fail(f"int8: _int_mm at {(m, k, n)} differs from the CPU's "
+                 "int32 product")
+        padded += int8.int_mm_shape(m, k, n) != (m, k, n)
+    print(f"int8: {len(shapes)} _int_mm shapes on the path ({padded} "
+          f"padded) equal the CPU's int32 product exactly: "
+          f"{sorted(shapes)}", flush=True)
+    return {"shapes": len(shapes), "padded": padded}
+
+
+@contextlib.contextmanager
+def w8a8_calls():
+    """Record, through each models module's reference to layers.dense, the
+    last w8a8 call of each (rows, d_in, d_out): {shape: (layer, input)}."""
+    from asr2pass_tpu_torch.models import layers
+
+    orig = layers.dense
+    calls = {}
+
+    def recording(p, x):
+        if p.weight_key == "w_q":
+            calls[(x.numel() // x.shape[-1], *p.w_q.shape)] = (p, x.clone())
+        return orig(p, x)
+
+    mods = [m for name, m in list(sys.modules.items())
+            if name.startswith("asr2pass_tpu_torch.models")
+            and getattr(m, "dense", None) is orig]
+    for m in mods:
+        m.dense = recording
+    try:
+        yield calls
+    finally:
+        for m in mods:
+            m.dense = orig
+
+
+def w8a8_layer_gate(calls: dict) -> dict:
+    """Each recorded w8a8 call again on the card and on the CPU, and the
+    same layer's w8a16 product on the card as the control (the comment at
+    W8A8_LAYER_ULPS)."""
+    import copy
+
+    import torch
+
+    from asr2pass_tpu_torch.models.layers import dense
+
+    eps = torch.finfo(torch.float32).eps
+    exact = 0
+    worst = 0.0
+    nearest_control = float("inf")
+    for shape, (layer, x) in sorted(calls.items()):
+        with torch.inference_mode():
+            got = dense(layer, x).cpu()
+            ref = dense(copy.deepcopy(layer).cpu(), x.cpu())
+            control = (x @ layer.w_q.to(x.dtype)) * layer.scale.to(x.dtype)
+            if layer.b is not None:
+                control = control + layer.b.to(x.dtype)
+        limit = W8A8_LAYER_ULPS * eps * ref.abs().max().item()
+        err = (got - ref).abs().max().item()
+        control_err = (control.cpu() - ref).abs().max().item()
+        exact += torch.equal(got, ref)
+        worst = max(worst, err / max(limit, 1e-30))
+        nearest_control = min(nearest_control,
+                              control_err / max(limit, 1e-30))
+        if not err <= limit:
+            fail(f"int8: w8a8 layer {shape} card vs cpu {err:.3e} > "
+                 f"{limit:.3e}")
+        if not control_err > limit:
+            fail(f"int8: at {shape} a w8a16 product reads {control_err:.3e}"
+                 f" of the CPU's w8a8, within the limit {limit:.3e}: the "
+                 "gate cannot tell the forms apart")
+    print(f"int8: {len(calls)} w8a8 layer shapes of the 15 s forward, card "
+          f"vs cpu on the same input: {exact} bit-equal, worst "
+          f"{worst:.3f} of the limit ({W8A8_LAYER_ULPS} ulps of the range); "
+          f"w8a16 in their place at least {nearest_control:.3e} of it",
+          flush=True)
+    if len(calls) < 8:
+        fail(f"int8: only {len(calls)} w8a8 layer shapes recorded")
+    return {"shapes": len(calls), "bit_equal": exact,
+            "worst_share_of_limit": worst,
+            "control_min_share_of_limit": nearest_control}
+
+
+def int_mm_table(card: str) -> list:
+    """torch._int_mm (the path's column-major weight, and a row-major one)
+    against bf16 and fp32 (TF32 off) products at the encoder's shapes, M =
+    16000 rows (16 x 1000 frames): ms each (CUDA events, back to back)
+    and the rate."""
+    import torch
+
+    from asr2pass_tpu_torch.ops import int8
+
+    rows = []
+    for k, n in ((512, 1536), (512, 2048), (2048, 512)):
+        m = 16000
+        a8 = torch.randint(-127, 128, (m, k), dtype=torch.int8,
+                           device="cuda")
+        b8 = torch.randint(-127, 128, (k, n), dtype=torch.int8,
+                           device="cuda")
+        a16, b16 = a8.to(torch.bfloat16), b8.to(torch.bfloat16)
+        a32, b32 = a8.float(), b8.float()
+        b8c = int8.column_major(b8)
+        row = {"m": m, "k": k, "n": n,
+               "int_mm_ms": time_ms(lambda: int8.int_mm_padded(a8, b8c), 50),
+               "int_mm_row_major_ms": time_ms(
+                   lambda: torch._int_mm(a8, b8), 50),
+               "bf16_ms": time_ms(lambda: a16 @ b16, 50),
+               "fp32_ms": time_ms(lambda: a32 @ b32, 20)}
+        ops = 2.0 * m * k * n
+        row.update({f"{key[:-3]}_tops": ops / row[key] / 1e9
+                    for key in ("int_mm_ms", "int_mm_row_major_ms",
+                                "bf16_ms", "fp32_ms")})
+        rows.append(row)
+        print(f"int8: product {m}x{k}x{n}: _int_mm {row['int_mm_ms']:.4f} "
+              f"ms ({row['int_mm_tops']:.0f} TOP/s; row-major weight "
+              f"{row['int_mm_row_major_ms']:.4f} ms), bf16 "
+              f"{row['bf16_ms']:.4f} ms ({row['bf16_tops']:.0f}), fp32 "
+              f"{row['fp32_ms']:.4f} ms ({row['fp32_tops']:.0f}) on {card}",
+              flush=True)
+    return rows
+
+
+def int8_phase(model_dir: str, gen, card: str):
+    """11a. Returns ({path: {entry point: {dtype: launches}}}, numbers)."""
+    import torch
+
+    from asr2pass_tpu_torch.config import paraformer_large
+    from asr2pass_tpu_torch.models import paraformer
+    from asr2pass_tpu_torch.models.layers import Dense, dense
+    from asr2pass_tpu_torch.ops import attention as att
+    from asr2pass_tpu_torch.ops import int8
+    from asr2pass_tpu_torch.runtime.model_zoo import load_offline_bundle
+    from asr2pass_tpu_torch.runtime.offline_asr import ParaformerOffline
+    from asr2pass_tpu_torch.runtime.streaming_frontend import (
+        offline_frontend_device)
+    from asr2pass_tpu_torch.utils import cast_floats, quantize_params
+
+    t0 = time.perf_counter()
+    bundle = load_offline_bundle(model_dir)
+    cfg = paraformer_large()                    # bench.py's: no bicif head
+    fcfg = cfg.frontend
+    sd16 = cast_floats(bundle.params, torch.bfloat16)
+    # phase 5's weights (the dir's, with the bicif head, which bench.py's
+    # configuration does not run)
+    models = {"bf16": paraformer.from_state_dict(sd16, bundle.cfg, "cuda"),
+              "w8a8": paraformer.from_state_dict(
+                  quantize_params(sd16), bundle.cfg, "cuda"),
+              "w8a16": paraformer.from_state_dict(
+                  quantize_params(sd16, weight_only=True), bundle.cfg,
+                  "cuda")}
+    qkv = models["w8a8"].encoder.rest[0].att.qkv
+    if qkv.weight.dtype != torch.int8 or qkv.scale.dtype != torch.bfloat16:
+        fail("int8: quantize_params after the bf16 cast did not give int8 "
+             "weights with bf16 scales")
+    t_b = int(60.0 * 1000 / (fcfg.frame_shift_ms * fcfg.lfr_n))
+    feats16 = torch.randn(16, t_b, fcfg.lfr_dim, generator=gen,
+                          device="cuda").to(torch.bfloat16)
+    lens16 = torch.full((16,), t_b, dtype=torch.long, device="cuda")
+
+    def forward(model, feats=feats16, lens=lens16):
+        with torch.inference_mode():
+            out = paraformer.apply(model, cfg, feats, lens,
+                                   max_tokens=feats.shape[1] // 2 + 8)
+            if not torch.isfinite(out.logits).all():
+                fail(f"int8 forward {tuple(feats.shape)}: non-finite logits")
+            return paraformer.greedy_ids(out)
+
+    numbers = {"card": card, "forward": {}}
+    launches = {}
+    shapes = {}
+    ids = {}
+    for form, model in models.items():
+        torch.cuda.synchronize()
+        att.reset_launch_counts()
+        int8.reset_launch_counts()
+        got_ids, n_tok = forward(model)
+        torch.cuda.synchronize()
+        counts = att.launch_counts_by_dtype()
+        got = {k: v["bfloat16"] for k, v in counts.items()}
+        if got["mh_flash_attention"] != 66 or sum(got.values()) != 66 or \
+                any(v["float32"] for v in counts.values()):
+            fail(f"int8: {form} forward B=16 T={t_b} launched {counts}, "
+                 "expected mh_flash_attention 66 times in bfloat16 only")
+        n_mm = sum(int8.launch_shapes().values())
+        if (n_mm > 0) != (form == "w8a8"):
+            fail(f"int8: {form} forward made {n_mm} _int_mm calls")
+        for shape, n in int8.launch_shapes().items():
+            shapes[shape] = shapes.get(shape, 0) + n
+        ids[form] = (got_ids.cpu(), n_tok.cpu())
+        launches[form] = counts
+        t1 = time.perf_counter()
+        for _ in range(INT8_ITERS):
+            forward(model)
+        fwd_s = (time.perf_counter() - t1) / INT8_ITERS
+        prof = device_profile(lambda: forward(model),
+                              f"int8: {form} forward B=16 T={t_b}",
+                              host_ops=False)
+        numbers["forward"][form] = {
+            "ms": fwd_s * 1e3, "audio_s_per_s": 16 * 60.0 / fwd_s,
+            "idle_share": (None if prof["busy_ms"] is None
+                           else 1 - prof["busy_ms"] / prof["wall_ms"]),
+            "busy_ms": prof["busy_ms"], "int_mm_calls": n_mm}
+        print(f"int8: {form} forward B=16 T={t_b}: {fwd_s * 1e3:.1f} ms, "
+              f"{16 * 60.0 / fwd_s:.1f} audio-s/s on {card}; _int_mm calls "
+              f"{n_mm}", flush=True)
+    ref_ids, ref_n = ids["bf16"]
+    for form in ("w8a8", "w8a16"):
+        got_ids, got_n = ids[form]
+        same = total = 0
+        for b in range(16):
+            n = int(min(ref_n[b], got_n[b]))
+            same += int((got_ids[b, :n] == ref_ids[b, :n]).sum())
+            total += n
+        agree = same / max(total, 1)
+        numbers["forward"][form]["ids_agree_with_bf16"] = agree
+        numbers["forward"][form]["token_num_equal_bf16"] = int(
+            (got_n == ref_n).sum())
+        print(f"int8: {form} greedy ids agree with bf16 at {agree:.4f} of "
+              f"{total} tokens; token_num equal in "
+              f"{int((got_n == ref_n).sum())} of 16 rows", flush=True)
+    # the split-head entry points under w8a8
+    for b_, t_, entry in ((2, 3072, "_attention_ss"),
+                          (2, 5120, "_attention_flash")):
+        feats = torch.randn(b_, t_, fcfg.lfr_dim, generator=gen,
+                            device="cuda").to(torch.bfloat16)
+        lens = torch.tensor([t_, t_ * 3 // 5], device="cuda")
+        torch.cuda.synchronize()
+        att.reset_launch_counts()
+        int8.reset_launch_counts()
+        forward(models["w8a8"], feats, lens)
+        torch.cuda.synchronize()
+        counts = att.launch_counts_by_dtype()
+        got = {k: v["bfloat16"] for k, v in counts.items()}
+        print(f"int8: w8a8 forward B={b_} T={t_}: kernel launches {counts}",
+              flush=True)
+        if got[entry] != 50 or sum(got.values()) != 50 or any(
+                v["float32"] for v in counts.values()):
+            fail(f"int8: w8a8 forward B={b_} T={t_} launched {counts}, "
+                 f"expected {entry} 50 times in bfloat16 only")
+        for shape, n in int8.launch_shapes().items():
+            shapes[shape] = shapes.get(shape, 0) + n
+        launches[f"w8a8_T{t_}"] = counts
+    del models, feats16
+    torch.cuda.empty_cache()
+    numbers["products"] = int_mm_table(card)
+    # one dense layer of the encoder's FFN at the bench shape: the w8a8
+    # route (row scales, quantize, _int_mm, rescale) against bf16
+    layer = Dense(512, 2048, generator=gen, device="cuda")
+    x = torch.randn(16, t_b, 512, generator=gen, device="cuda").to(
+        torch.bfloat16)
+    dense_ms = {}
+    with torch.inference_mode():
+        cast_floats(layer, torch.bfloat16)
+        dense_ms["bf16"] = time_ms(lambda: dense(layer, x), 50)
+        layer.quantize_(weight_only=True)
+        dense_ms["w8a16"] = time_ms(lambda: dense(layer, x), 50)
+        layer8 = Dense(512, 2048, generator=gen, device="cuda")
+        cast_floats(layer8, torch.bfloat16)
+        layer8.quantize_()
+        dense_ms["w8a8"] = time_ms(lambda: dense(layer8, x), 50)
+    numbers["dense_512x2048_ms"] = dense_ms
+    print(f"int8: one dense 16000x512x2048 (bf16 activations): "
+          f"{json.dumps(dense_ms)} on {card}", flush=True)
+
+    # the timestamp recognizer quantized (w8a8, fp32 activations)
+    asr = ParaformerOffline(quantize_params(bundle.params), bundle.cfg,
+                            bundle.vocab, cmvn=bundle.cmvn)
+    if asr.model.predictor.blstm["fw"].wh.weight.dtype != torch.int8 or \
+            asr.model.predictor.us_cnn.w.dtype != torch.float32:
+        fail("int8: the timestamp head is not quantized as specified")
+    batch = [synth_audio(60.0, 100 + i) for i in range(16)]
+    att.reset_launch_counts()
+    int8.reset_launch_counts()
+    outs = asr.recognize_batch(batch)
+    torch.cuda.synchronize()
+    counts = att.launch_counts_by_dtype()
+    for shape, n in int8.launch_shapes().items():
+        shapes[shape] = shapes.get(shape, 0) + n
+    if counts["mh_flash_attention"]["float32"] != 66 or any(
+            not text or not stamps for text, stamps in outs):
+        fail(f"int8: w8a8 recognize_batch 16 x 60 s: launches {counts}, "
+             "or an empty text or timestamps")
+    launches["w8a8_recognizer"] = counts
+    t1 = time.perf_counter()
+    for _ in range(2):
+        asr.recognize_batch(batch)
+    rec_s = (time.perf_counter() - t1) / 2
+    numbers["recognize_batch_w8a8_fp32"] = {
+        "ms": rec_s * 1e3, "audio_s_per_s": 16 * 60.0 / rec_s}
+    print(f"int8: recognize_batch 16 x 60 s, timestamp model w8a8 fp32: "
+          f"{rec_s * 1e3:.1f} ms, {16 * 60.0 / rec_s:.1f} audio-s/s on "
+          f"{card}", flush=True)
+    numbers["int_mm"] = int_mm_gate(shapes)
+    del batch
+
+    # card vs CPU on one 15 s segment, fp32, both int8 forms
+    seg = synth_audio(15.0, 4)
+    n_mel = 1 + (len(seg) - fcfg.frame_length) // fcfg.frame_shift
+    t_lfr = -(-n_mel // fcfg.lfr_n)
+
+    def segment(rec_, device):
+        feats = offline_frontend_device([seg], [n_mel], 256, fcfg,
+                                        *bundle.cmvn, batch_b=1,
+                                        device=device)
+        with torch.inference_mode():
+            out = rec_._forward(feats, [t_lfr])
+        return int(out.token_num[0]), out.logits[0].cpu()
+
+    n_f, logits_f = segment(ParaformerOffline(
+        bundle.params, bundle.cfg, bundle.vocab, cmvn=bundle.cmvn), "cuda")
+    numbers["cpu"] = {}
+    for form, weight_only in (("w8a8", False), ("w8a16", True)):
+        sd = quantize_params(bundle.params, weight_only=weight_only)
+        with w8a8_calls() as calls:
+            n_g, lg = segment(ParaformerOffline(sd, bundle.cfg, bundle.vocab,
+                                                cmvn=bundle.cmvn), "cuda")
+        if not weight_only:
+            numbers["w8a8_layers"] = w8a8_layer_gate(calls)
+        del calls
+        n_c, lc = segment(ParaformerOffline(sd, bundle.cfg, bundle.vocab,
+                                            cmvn=bundle.cmvn, device="cpu"),
+                          "cpu")
+        err = ((lg[:n_c] - lc[:n_c]).abs().max().item() if n_g == n_c
+               else float("inf"))
+        n = min(n_c, n_f)
+        quant_err = (lc[:n] - logits_f[:n]).abs().max().item()
+        limit = (INT8_SHARE_OF_QUANT_ERROR * quant_err if not weight_only
+                 else CPU_TOL * max(1.0, lc[:n_c].abs().max().item()))
+        numbers["cpu"][form] = {"token_num_card": n_g, "token_num_cpu": n_c,
+                                "max_abs_err": err, "limit": limit,
+                                "quant_err_vs_fp32": quant_err}
+        print(f"int8: {form} 15 s segment T={t_lfr} card vs cpu: token_num "
+              f"{n_g} / {n_c}; max |logits card - cpu| {err:.3e} (limit "
+              f"{limit:.3e}; {form}'s own error against fp32 "
+              f"{quant_err:.3e})", flush=True)
+        if n_g != n_c or not err <= limit:
+            fail(f"int8: {form} card vs cpu: token_num {n_g} / {n_c}, "
+                 f"logits {err:.3e} against {limit:.3e}")
+    numbers["s"] = time.perf_counter() - t0
+    return launches, numbers
+
+
+def finetune_phase(model_dir: str, tmp: str, card: str):
+    """11b. Returns numbers."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from asr2pass_tpu_torch.models import paraformer
+    from asr2pass_tpu_torch.ops import attention as att
+    from asr2pass_tpu_torch.runtime.model_zoo import load_offline_bundle
+    from asr2pass_tpu_torch.train import checkpoint, train
+
+    t0 = time.perf_counter()
+    bundle = load_offline_bundle(model_dir)
+    cfg = bundle.cfg
+    d = cfg.frontend.lfr_dim
+    rng = np.random.default_rng(11)
+    # 256 frames, so that the refusal below can take a batch at MIN_T
+    feats = torch.from_numpy(rng.standard_normal(
+        (P11_TRAIN_B, 256, d)).astype(np.float32))
+    targets = torch.from_numpy(rng.integers(
+        4, cfg.vocab_size, (P11_TRAIN_B, P11_TRAIN_U)))
+
+    def batch(b, device, t_len=P11_TRAIN_T):
+        return train.TrainBatch(
+            feats=feats[:b, :t_len].to(device),
+            feat_lens=torch.full((b,), t_len, device=device),
+            targets=targets[:b].to(device),
+            target_lens=torch.full((b,), P11_TRAIN_U, device=device))
+
+    def fresh(device):
+        model = paraformer.from_state_dict(bundle.params, cfg, device)
+        return model, train.make_optimizer(model)
+
+    numbers = {"card": card}
+    # card vs CPU: one loss and backward at B=2, threshold 1e-4 lower
+    cmp_cfg = dataclasses.replace(cfg, predictor=dataclasses.replace(
+        cfg.predictor,
+        threshold=cfg.predictor.threshold - P11_CPU_THRESHOLD_SHIFT))
+    res = {}
+    for device in ("cuda", "cpu"):
+        model, _ = fresh(device)
+        loss, _ = train.loss_fn(model, cmp_cfg, batch(2, device))
+        loss.backward()
+        res[device] = (loss.item(), {
+            n: p.grad.norm().item() for n, p in model.named_parameters()
+            if p.grad is not None})
+        del model, loss
+    (l_g, g_g), (l_c, g_c) = res["cuda"], res["cpu"]
+    if g_g.keys() != g_c.keys():
+        fail("finetune: card and cpu give gradients to different tensors")
+    loss_err = abs(l_g - l_c) / abs(l_c)
+    # a norm far below the largest one is held to TRAIN_GRAD_RTOL of
+    # 1e-3 of the largest (its rounding is that of the sums it feeds)
+    floor = 1e-3 * max(g_c.values())
+    errs = {n: abs(g_g[n] - g_c[n]) / max(g_c[n], floor) for n in g_c}
+    worst = max(errs, key=errs.get)
+    grad_err = errs[worst]
+    numbers["card_vs_cpu"] = {"loss_card": l_g, "loss_cpu": l_c,
+                              "loss_rel_err": loss_err,
+                              "grad_norm_max_rel_err": grad_err,
+                              "grad_norm_worst": worst,
+                              "tensors": len(g_c)}
+    print(f"finetune: B=2 T={P11_TRAIN_T} card vs cpu: loss {l_g:.6f} / "
+          f"{l_c:.6f} (rel {loss_err:.2e}, limit {TRAIN_LOSS_RTOL}); "
+          f"{len(g_c)} gradient norms, max rel err {grad_err:.2e} at "
+          f"{worst} (norm {g_c[worst]:.3e}, largest {max(g_c.values()):.3e}; "
+          f"limit {TRAIN_GRAD_RTOL})", flush=True)
+    if not (loss_err <= TRAIN_LOSS_RTOL and grad_err <= TRAIN_GRAD_RTOL):
+        fail("finetune: card and cpu disagree on the loss or the gradients")
+
+    # 20 steps on one batch of B=8 x 15 s
+    model, opt = fresh("cuda")
+    tb = batch(P11_TRAIN_B, "cuda")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    att.reset_launch_counts()
+    losses = []
+    ck = os.path.join(tmp, "ck11")
+    t1 = time.perf_counter()
+    for i in range(P11_TRAIN_STEPS):
+        m = train.train_step(model, opt, tb, cfg)
+        losses.append(m["loss"].item())
+        if i == 0:
+            t_ck = time.perf_counter()
+            checkpoint.save_checkpoint(ck, model, opt, step=1)
+            t1 += time.perf_counter() - t_ck
+    torch.cuda.synchronize()
+    step_s = (time.perf_counter() - t1) / P11_TRAIN_STEPS
+    peak = torch.cuda.max_memory_allocated()
+    if any(att.launch_counts().values()):
+        fail(f"finetune: a CUDA attention kernel ran under autograd: "
+             f"{att.launch_counts()}")
+    # the loss must fall, as tests/test_parallel.py asks of the JAX step;
+    # at this lr the quantity loss swings from step to step on random
+    # weights (65.9 -> 110.9 -> 8.7 in one run), so the last five steps'
+    # mean is held below the first step's loss
+    if not (all(np.isfinite(losses))
+            and np.mean(losses[-5:]) < losses[0]):
+        fail(f"finetune: the loss did not fall over {P11_TRAIN_STEPS} "
+             f"steps: {losses}")
+    numbers.update({
+        "losses": losses, "step_ms": step_s * 1e3,
+        "steps_per_s": 1 / step_s,
+        "audio_s_per_s": P11_TRAIN_B * P11_TRAIN_T * 0.06 / step_s,
+        "max_memory_allocated_bytes": peak})
+    print(f"finetune: paraformer_large(timestamp) fp32, B={P11_TRAIN_B} x "
+          f"{P11_TRAIN_T * 0.06:.0f} s, U={P11_TRAIN_U}: loss "
+          f"{losses[0]:.4f} -> {losses[-1]:.4f} in {P11_TRAIN_STEPS} steps "
+          f"(last five's mean {np.mean(losses[-5:]):.4f}); "
+          f"{step_s * 1e3:.1f} ms a step, {1 / step_s:.2f} steps/s, "
+          f"{P11_TRAIN_B * P11_TRAIN_T * 0.06 / step_s:.1f} audio-s/s "
+          f"trained; peak {peak / 2**30:.2f} GiB on {card}", flush=True)
+
+    # resume: restore step 1's checkpoint and take step 2 again
+    model2 = paraformer.from_state_dict(bundle.params, cfg, "cuda")
+    opt2 = train.make_optimizer(model2)
+    if checkpoint.restore_checkpoint(ck, model2, opt2) != 1:
+        fail("finetune: the checkpoint's step is not 1")
+    m2 = train.train_step(model2, opt2, tb, cfg)
+    resumed = m2["loss"].item()
+    rel = abs(resumed - losses[1]) / abs(losses[1])
+    numbers["resume"] = {"step2_loss": losses[1], "resumed_loss": resumed,
+                         "rel_err": rel}
+    print(f"finetune: resumed from step 1's checkpoint: step 2 loss "
+          f"{resumed:.6f} against {losses[1]:.6f} uninterrupted (rel "
+          f"{rel:.2e}, limit 1e-6)", flush=True)
+    if not rel <= 1e-6:
+        fail("finetune: the resumed step 2 differs from the uninterrupted")
+    del model, opt, model2, opt2, tb
+
+    # T=256 under autograd reaches the kernel, which refuses
+    model, _ = fresh("cuda")
+    try:
+        train.loss_fn(model, cfg, batch(2, "cuda", t_len=256))
+    except RuntimeError as e:
+        if "no backward" not in str(e):
+            raise
+        print(f"finetune: T=256 with gradients on raises: {e}", flush=True)
+    else:
+        fail("finetune: T=256 with gradients on did not raise")
+    del model
+    torch.cuda.empty_cache()
+    numbers["s"] = time.perf_counter() - t0
+    return numbers
+
+
+def tools_phase(model_dir: str, tmp: str, card: str):
+    """11c. Returns ({entry point: {dtype: launches}}, numbers)."""
+    import argparse
+    import asyncio
+    import wave as wave_mod
+
+    import numpy as np
+    import torch
+
+    from asr2pass_tpu_torch.frontend.audio import load_audio_file
+    from asr2pass_tpu_torch.native import bindings as nb
+    from asr2pass_tpu_torch.ops import attention as att
+    from asr2pass_tpu_torch.server.run_server import build_models, parser
+    from asr2pass_tpu_torch.server.ws_server import AsrWsServer
+    from asr2pass_tpu_torch.tools import compute_wer, eval_cer
+    from asr2pass_tpu_torch.tools.transcribe import build_recognizer
+
+    t0 = time.perf_counter()
+    root = os.path.join(tmp, "tools11")
+    os.makedirs(root)
+    rng = np.random.default_rng(12)
+    with open(os.path.join(model_dir, "tokens.json"), encoding="utf-8") as f:
+        tokens = json.load(f)
+    scp, ref = [], []
+    for i, (seconds, fs) in enumerate(P11_WAVS):
+        wave = synth_audio(seconds, 200 + i)
+        if fs != FS:
+            wave = wave[:: FS // fs]
+        path = os.path.join(root, f"u{i}.wav")
+        with wave_mod.open(path, "wb") as w:
+            w.setnchannels(1)
+            w.setsampwidth(2)
+            w.setframerate(fs)
+            w.writeframes((wave * 32767).astype("<i2").tobytes())
+        scp.append(f"u{i} {path}")
+        ref.append(f"u{i} " + "".join(
+            tokens[k] for k in rng.integers(4, len(tokens), 40)))
+    scp_path, ref_path = (os.path.join(root, "wav.scp"),
+                          os.path.join(root, "text"))
+    with open(scp_path, "w", encoding="utf-8") as f:
+        f.write("\n".join(scp) + "\n")
+    with open(ref_path, "w", encoding="utf-8") as f:
+        f.write("\n".join(ref) + "\n")
+    numbers = {"card": card}
+    att.reset_launch_counts()
+
+    # the transcribe CLI in a process of its own, against transcribe in
+    # this one on the same dir
+    t1 = time.perf_counter()
+    out_dir = os.path.join(root, "out")
+    res = subprocess.run(
+        [sys.executable, "-m", "asr2pass_tpu_torch.tools.transcribe",
+         "--scp", scp_path, "--model-dir", model_dir, "--output-dir",
+         out_dir, "--device", "cuda"], cwd=REPO, capture_output=True,
+        text=True, timeout=600)
+    if res.returncode != 0:
+        fail(f"tools: transcribe CLI exited {res.returncode}: "
+             f"{res.stderr[-2000:]}")
+    numbers["transcribe_cli_s"] = time.perf_counter() - t1
+    with open(os.path.join(out_dir, "text"), encoding="utf-8") as f:
+        cli = dict(line.rstrip("\n").split("\t", 1) for line in f)
+    rec = build_recognizer(argparse.Namespace(
+        model_dir=model_dir, svs_dir="", vad_dir="", punc_dir="",
+        itn=False))
+    if rec.asr.device.type != "cuda":
+        fail("tools: build_recognizer did not default to the card")
+    for line in scp:
+        name, path = line.split()
+        want = rec.transcribe(load_audio_file(path, FS)).text
+        if not want or cli.get(name) != want:
+            fail(f"tools: transcribe CLI {name}: {cli.get(name)!r} against "
+                 f"transcribe's {want!r}")
+    print(f"tools: transcribe CLI (own process, --device cuda) = "
+          f"OfflineRecognizer.transcribe on {len(scp)} files "
+          f"({numbers['transcribe_cli_s']:.1f} s) ; {res.stdout.strip()}",
+          flush=True)
+    del rec
+
+    # eval_cer in-process and --server against the port's server
+    def run_eval(extra, tag):
+        out = os.path.join(root, f"{tag}.json")
+        hyp = os.path.join(root, f"{tag}.hyp")
+        t2 = time.perf_counter()
+        rc = eval_cer.main(["--scp", scp_path, "--ref", ref_path,
+                            "--out", out, "--hyp-out", hyp] + extra)
+        if rc != 0:
+            fail(f"tools: eval_cer {tag} exited {rc}")
+        with open(out, encoding="utf-8") as f:
+            rep = json.load(f)
+        with open(hyp, encoding="utf-8") as f:
+            hyps = f.read()
+        numbers[f"eval_cer_{tag}"] = {"cer": rep["cer"],
+                                      "errors": rep["errors"],
+                                      "s": time.perf_counter() - t2}
+        for k in ("wall_s", "audio_s"):
+            rep.pop(k)
+        return rep, hyps
+
+    rep_ip, hyps_ip = run_eval(["--model-dir", model_dir], "in_process")
+    models = build_models(parser().parse_args(
+        ["--model-dir", model_dir, "--no-itn"]))
+    server = AsrWsServer(models, host="127.0.0.1", port=0)
+    loop = asyncio.new_event_loop()
+    started = threading.Event()
+    holder = {}
+
+    def serve():
+        asyncio.set_event_loop(loop)
+        srv = loop.run_until_complete(server.serve())
+        holder["port"] = srv.sockets[0].getsockname()[1]
+        started.set()
+        try:
+            loop.run_forever()
+        finally:
+            srv.close()
+            loop.run_until_complete(srv.wait_closed())
+
+    th = threading.Thread(target=serve, daemon=True)
+    th.start()
+    if not started.wait(120):
+        fail("tools: the server did not start")
+    try:
+        rep_srv, hyps_srv = run_eval(
+            ["--server", f"ws://127.0.0.1:{holder['port']}"], "server")
+    finally:
+        loop.call_soon_threadsafe(loop.stop)
+        th.join(60)
+        server.executor.shutdown(wait=False)
+    if th.is_alive():
+        fail("tools: the server thread did not stop")
+    print(f"tools: eval_cer in-process CER {rep_ip['cer']} "
+          f"({rep_ip['errors']}/{rep_ip['ref_len']}), --server CER "
+          f"{rep_srv['cer']} ({rep_srv['errors']}/{rep_srv['ref_len']})",
+          flush=True)
+    if hyps_srv != hyps_ip or rep_srv != rep_ip:
+        fail("tools: eval_cer --server and in-process differ")
+    launches = att.launch_counts_by_dtype()
+
+    # edit_align: native against the Python DP
+    pairs = []
+    for _ in range(P11_ALIGN_PAIRS):
+        a = [str(k) for k in rng.integers(0, 30, rng.integers(0, 60))]
+        b = [str(k) for k in rng.integers(0, 30, rng.integers(0, 60))]
+        pairs.append((a, b))
+    nb.reset_call_counts()
+    native, native_ms = host_ms(
+        lambda: [compute_wer.align(a, b) for a, b in pairs], 3)
+    plain, plain_ms = host_ms(
+        lambda: [compute_wer.align_plain(a, b) for a, b in pairs], 1)
+    calls = nb.call_counts()["edit_align"]
+    if native != plain or calls != 3 * P11_ALIGN_PAIRS:
+        fail(f"tools: native edit_align differs from the Python DP, or "
+             f"{calls} native calls")
+    numbers["edit_align"] = {"pairs": P11_ALIGN_PAIRS,
+                             "native_ms": native_ms, "plain_ms": plain_ms}
+    print(f"tools: edit_align on {P11_ALIGN_PAIRS} pairs: native "
+          f"{native_ms:.1f} ms, Python DP {plain_ms:.1f} ms, equal ops and "
+          f"distances", flush=True)
+    numbers["s"] = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    return launches, numbers
+
+
+def phase11(tmp: str, gen, card: str):
+    """Phase 11. Returns ({path: launches}, {sub-phase: numbers})."""
+    t0 = time.perf_counter()
+    model_dir = os.path.join(tmp, "model")
+    l_int8, n_int8 = int8_phase(model_dir, gen, card)
+    n_ft = finetune_phase(model_dir, tmp, card)
+    l_tools, n_tools = tools_phase(model_dir, tmp, card)
+    print(f"phase 11: {time.perf_counter() - t0:.1f} s", flush=True)
+    return ({"int8": l_int8["w8a8"], "int8_T3072": l_int8["w8a8_T3072"],
+             "int8_T5120": l_int8["w8a8_T5120"],
+             "int8_recognizer": l_int8["w8a8_recognizer"],
+             "tools": l_tools},
+            {"11a": n_int8, "11b": n_ft, "11c": n_tools})
+
+
 def main() -> int:
     import torch
 
@@ -3392,6 +4181,9 @@ def main() -> int:
     from asr2pass_tpu_torch.native import bindings as nb
     from asr2pass_tpu_torch.ops import attention as att
 
+    # a crash in native code (the host library, the CUDA stack, the profiler)
+    # prints every thread's Python stack before the process dies
+    faulthandler.enable()
     t_start = time.perf_counter()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -3434,6 +4226,7 @@ def main() -> int:
             os.path.join(tmp, "model"), tmp, card)
         launches_p9, p9 = phase9(tmp, gen, card)
         launches_p10, p10 = phase10(tmp, card)
+        launches_p11, p11 = phase11(tmp, gen, card)
     # kernel #1 fp32 at the engine's pass-2 shape: the largest batch the
     # lane ran at bucket 256
     b_eng = max(b for b, t in engine_fwd if t == 256)
@@ -3502,7 +4295,8 @@ def main() -> int:
                 "launches_2pass": launches_2pass[name][dtype],
                 "launches_engine": launches_engine[name][dtype],
                 **{f"launches_{path}": by[name][dtype]
-                   for path, by in {**launches_p9, **launches_p10}.items()},
+                   for path, by in {**launches_p9, **launches_p10,
+                                    **launches_p11}.items()},
                 **{k: head[k] for k in keys},
                 "shape": head["shape"], "dtype": dtype,
                 "tol_ratio": head["tol_ratio"],
@@ -3540,6 +4334,7 @@ def main() -> int:
     print(f"speed: {json.dumps(speed)}")
     print(f"phase 9: {json.dumps(p9)}")
     print(f"phase 10: {json.dumps(p10)}")
+    print(f"phase 11: {json.dumps(p11)}")
     print(f"total: {time.perf_counter() - t_start:.1f} s")
     print(card)
     print(json.dumps({"native": native}))

@@ -625,3 +625,64 @@ def test_lm_rescoring_card_matches_cpu(dev, tmp_path):
                   rec.lm_bytes_copied)
     assert out["cuda"] == out["cpu"]
     assert out["cpu"][1] > 0 and all(t for t, _ in out["cpu"][0])
+
+
+# -- int8 products and the kernels under autograd ---------------------------
+
+@pytest.mark.parametrize("m,k,n", [(16000, 512, 1536), (16000, 2048, 512),
+                                   (5, 512, 1), (16, 512, 8404),
+                                   (8, 256, 1024), (40, 70, 13)])
+def test_int_mm_exact_on_the_card(dev, m, k, n):
+    """torch._int_mm, zero-padded where its shape rules need it, equals
+    the CPU's int32 product exactly."""
+    from asr2pass_tpu_torch.ops import int8
+
+    gen = torch.Generator().manual_seed(m + k + n)
+    a = torch.randint(-127, 128, (m, k), dtype=torch.int8, generator=gen)
+    b = torch.randint(-127, 128, (k, n), dtype=torch.int8, generator=gen)
+    int8.reset_launch_counts()
+    got = int8.int8_matmul(a.to(dev), b.to(dev))
+    # the weight padded once, as a Dense holds it (w_q_mm)
+    got_mm = int8.int8_matmul(a.to(dev), int8.pad_weight(b.to(dev)), n)
+    assert int8.launch_shapes() == {(m, k, n): 2}
+    ref = int8.int8_matmul_plain(a, b)
+    assert torch.equal(got.cpu(), ref) and torch.equal(got_mm.cpu(), ref)
+
+
+def test_int8_dense_card_matches_cpu(dev):
+    """A w8a8 and a w8a16 dense layer: the int8 product is exact, so the
+    card equals the CPU up to the fp32 scaling steps' rounding."""
+    from asr2pass_tpu_torch.models.layers import Dense, dense
+
+    for weight_only in (False, True):
+        torch.manual_seed(0)
+        layer = Dense(512, 8404, device="cpu")
+        layer.quantize_(weight_only)
+        x = torch.randn(3, 40, 512)
+        with torch.no_grad():
+            ref = dense(layer, x)
+            got = dense(layer.to(dev), x.to(dev)).cpu()
+        torch.testing.assert_close(got, ref, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("entry", ["mh", "ss", "flash"])
+def test_kernels_refuse_autograd(dev, entry):
+    """With an operand that needs a gradient, each CUDA entry point raises
+    instead of returning a tensor cut off from autograd; under no_grad it
+    launches."""
+    b, h, d = 1, 4, 64
+    t_len = {"mh": 256, "ss": 3072, "flash": 5120}[entry]
+    mask = _mask([t_len], t_len, dev)
+    if entry == "mh":
+        q = torch.randn(b, t_len, h * d, device=dev, requires_grad=True)
+        kv = torch.randn(b, t_len, 2 * h * d, device=dev)
+        call = lambda: att.mh_flash_attention(q, kv, mask, h)  # noqa: E731
+    else:
+        q = torch.randn(b, h, t_len, d, device=dev, requires_grad=True)
+        k = torch.randn(b, h, t_len, d, device=dev)
+        fn = att._attention_ss if entry == "ss" else att._attention_flash
+        call = lambda: fn(q, k, k, mask)  # noqa: E731
+    with pytest.raises(RuntimeError, match="no backward"):
+        call()
+    with torch.no_grad():
+        assert torch.isfinite(call()).all()

@@ -58,7 +58,8 @@ def test_forbidden_prefix_rule(name, forbidden):
 
 
 def _sources():
-    return sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"]
+    return sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py",
+                                         REPO / "chip_repro_10c.py"]
 
 
 @pytest.mark.parametrize("path", _sources(),
@@ -107,10 +108,11 @@ def test_jax_path_rule(text, names):
 
 def _all_port_files():
     """Every file of the port (sources of any kind, build output left
-    out) and chip_smoke.py."""
+    out), chip_smoke.py and chip_repro_10c.py."""
     return sorted(p for p in PORT.rglob("*") if p.is_file()
                   and "_build" not in p.parts and "__pycache__" not in p.parts
-                  and p.suffix != ".pyc") + [REPO / "chip_smoke.py"]
+                  and p.suffix != ".pyc") + [REPO / "chip_smoke.py",
+                                             REPO / "chip_repro_10c.py"]
 
 
 def _texts(path: Path):
@@ -137,7 +139,9 @@ def test_no_jax_package_path(path):
     assert not bad, (path, bad)
 
 
-def _entry_points():
+def _entry_points(tmp_path):
+    import argparse
+
     from asr2pass_tpu_torch.config import (FrontendConfig, HotwordConfig,
                                            paraformer_tiny, punc_tiny,
                                            sensevoice_tiny, vad_default)
@@ -154,9 +158,16 @@ def _entry_points():
     from asr2pass_tpu_torch.server.run_server import build_models, parser
     from asr2pass_tpu_torch.text.punc_tokenizer import PuncTokenizer
     from asr2pass_tpu_torch.text.vocab import Vocab
+    from asr2pass_tpu_torch.runtime.model_zoo import save_offline_bundle
+    from asr2pass_tpu_torch.tools.transcribe import build_recognizer
+    from asr2pass_tpu_torch.utils import quantize_params
 
     cfg, vcfg, pcfg = paraformer_tiny(), vad_default(), punc_tiny()
     sd = paraformer.init(cfg, device="cpu").state_dict()
+    model_dir = str(tmp_path / "model")
+    save_offline_bundle(model_dir, sd, cfg, ["a"] * cfg.vocab_size)
+    cli = argparse.Namespace(model_dir=model_dir, svs_dir="", vad_dir="",
+                             punc_dir="", itn=False)
     vsd = fsmn_vad.init(vcfg, device="cpu").state_dict()
     psd = ct_transformer.init(pcfg, device="cpu").state_dict()
     hcfg = HotwordConfig(vocab_size=64, embed_dim=16, hidden_dim=16)
@@ -209,6 +220,12 @@ def _entry_points():
         # the launcher: --device defaults to cuda
         "build_models": lambda **kw: build_models(parser().parse_args(
             ["--demo"] + [f"--device={v}" for v in kw.values()])),
+        # an int8 model, and the offline tools' build_recognizer (the
+        # CLIs' --device defaults to cuda)
+        "ParaformerOffline(int8)": lambda **kw: ParaformerOffline(
+            quantize_params(sd), cfg, vocab, **kw),
+        "build_recognizer": lambda **kw: build_recognizer(
+            argparse.Namespace(**vars(cli), **kw)),
     }
 
 
@@ -220,16 +237,33 @@ def _entry_points():
     "ct_transformer.init", "ct_transformer.from_state_dict", "Punctuator",
     "hotword.init", "hotword.from_state_dict", "sensevoice.init",
     "sensevoice.from_state_dict", "SenseVoiceOffline",
-    "ServerModels", "build_models"])
-def test_entry_points_default_to_the_card(name):
+    "ServerModels", "build_models", "ParaformerOffline(int8)",
+    "build_recognizer"])
+def test_entry_points_default_to_the_card(name, tmp_path):
     """Without device="cpu" an entry point asks for CUDA, and on a machine
     without it raises instead of running on the CPU."""
     if torch.cuda.is_available():
         pytest.skip("this machine has a card: the default device works")
-    fn = _entry_points()[name]
+    fn = _entry_points(tmp_path)[name]
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         fn()
     fn(device="cpu")
+
+
+@pytest.mark.parametrize("module", ["transcribe", "eval_cer"])
+def test_cli_device_defaults_to_the_card(module):
+    """The offline CLIs take --device, default cuda, as build_models'
+    launcher does."""
+    import importlib
+
+    src = (PORT / "tools" / f"{module}.py").read_text()
+    importlib.import_module(f"asr2pass_tpu_torch.tools.{module}")
+    assert "add_device_arg(p)" in src
+    from asr2pass_tpu_torch.tools.transcribe import add_device_arg
+    import argparse
+    p = argparse.ArgumentParser()
+    add_device_arg(p)
+    assert p.parse_args([]).device == "cuda"
 
 
 def test_chip_smoke_refuses_without_card(tmp_path):
