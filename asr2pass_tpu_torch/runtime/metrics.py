@@ -9,6 +9,7 @@ device_trace wraps torch.profiler instead of jax.profiler.
 from __future__ import annotations
 
 import contextlib
+import os
 import threading
 import time
 from collections import defaultdict
@@ -102,7 +103,12 @@ GLOBAL = Metrics()
 @contextlib.contextmanager
 def device_trace(logdir: str):
     """torch.profiler trace of the block (host ops, and the card's kernels
-    where there is one), written for TensorBoard to `logdir`."""
+    where there is one), written for TensorBoard to `logdir`. CUPTI stays
+    set up after the block (TEARDOWN_CUPTI=0, unless the caller set it):
+    Kineto's teardown finalizes CUPTI inside the next kernel launch, and
+    a launch from another thread (a live engine's lanes) can then crash
+    the process."""
+    os.environ.setdefault("TEARDOWN_CUPTI", "0")
     import torch
     from torch.profiler import (ProfilerActivity, profile,
                                 tensorboard_trace_handler)

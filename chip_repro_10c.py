@@ -63,10 +63,13 @@ def make_dirs(tmp: str) -> None:
 def run_once(tmp: str, checkout: str, trace: bool) -> None:
     import faulthandler
 
-    faulthandler.enable()
     sys.path.insert(0, checkout)
     import chip_smoke as cs         # the checkout's own, with its package
     import torch
+
+    if hasattr(cs, "install_crash_trace"):
+        cs.install_crash_trace()    # before faulthandler, which chains to it
+    faulthandler.enable()
 
     if not trace:
         import torch.profiler

@@ -686,3 +686,46 @@ def test_kernels_refuse_autograd(dev, entry):
         call()
     with torch.no_grad():
         assert torch.isfinite(call()).all()
+
+
+def _funasr_dirs(tmp_path):
+    import sys
+    from pathlib import Path
+
+    sys.path.insert(0, str(Path(__file__).resolve().parent))
+    from torch_onnx_fixtures import funasr_source_dirs
+
+    return funasr_source_dirs(tmp_path)
+
+
+def test_onnx_executor_card_matches_cpu(dev, tmp_path):
+    """tools/onnx_reader.OnnxExecutor on a small exported 4-output
+    Paraformer: the card against the CPU, every output within 1e-4 of its
+    range (token_num is the graph's float sum of the alphas) and the
+    token count, the logits' length, equal."""
+    from asr2pass_tpu_torch.tools.onnx_reader import OnnxExecutor, read_onnx
+
+    src, _ = _funasr_dirs(tmp_path)["asr_ts"]
+    g = read_onnx(str(src / "model.onnx"))
+    feats = np.random.default_rng(0).standard_normal((1, 30, 20)).astype(
+        np.float32)
+    lens = np.asarray([30])
+    card = [o.cpu().numpy() for o in OnnxExecutor(g, dev)(feats, lens)]
+    cpu = [o.numpy() for o in OnnxExecutor(g, "cpu")(feats, lens)]
+    assert card[0].shape == cpu[0].shape
+    for a, b in zip(card, cpu):
+        assert np.abs(a - b).max() <= 1e-4 * max(1.0, np.abs(b).max())
+
+
+def test_convert_verify_on_the_card(dev, tmp_path):
+    """convert_funasr --verify --device cuda on the small exported
+    Paraformer with the timestamp head, and on the VAD."""
+    from asr2pass_tpu_torch.tools import convert_funasr
+
+    dirs = _funasr_dirs(tmp_path)
+    for kind, extra in (("asr_ts", ["--verify-tol", "5e-3"]), ("vad", [])):
+        dst = tmp_path / f"conv_{kind}"
+        assert convert_funasr.main([str(dirs[kind][0]), str(dst),
+                                    "--verify", "--device", "cuda"]
+                                   + extra) == 0
+        assert (dst / "weights.npz").exists()

@@ -49,6 +49,36 @@ def test_port_imports_leave_jax_out():
     assert int(res.stdout.strip()) >= 20
 
 
+def test_new_tools_run_without_jax(tmp_path):
+    """The converter, the ONNX executor, fetch_model (with urllib),
+    quality (its lazy imports: the executor and, for 8 kHz audio, the
+    resampler) and segment_filter (compute_wer) imported and used in a
+    fresh interpreter: jax and the JAX package stay out."""
+    code = f"""
+import sys
+sys.path.insert(0, {str(REPO / "tests")!r})
+import numpy as np
+from torch_onnx_fixtures import dnsmos_graphs
+from asr2pass_tpu_torch.tools import (convert_funasr, fetch_model,
+                                      onnx_reader, quality, segment_filter)
+import urllib.request
+d = dnsmos_graphs({str(tmp_path)!r})
+sc = quality.DnsmosScorer(d, device="cpu")
+print(sc.score(np.zeros(8000 * 10, np.float32) + 0.01, 8000))
+print(segment_filter.filter_segments.__name__, fetch_model.PRESETS.keys(),
+      convert_funasr.CONVERTERS.keys(), onnx_reader.OnnxExecutor.__name__)
+from asr2pass_tpu_torch.tools.compute_wer import score_pair
+bad = [m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib",
+                                                      "asr2pass_tpu")]
+assert not bad, bad
+"""
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    res = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+    assert "p808_mos" in res.stdout
+
+
 @pytest.mark.parametrize("name,forbidden", [
     ("jax", True), ("jax.numpy", True), ("asr2pass_tpu", True),
     ("asr2pass_tpu.ops.attention", True), ("asr2pass_tpu_torch", False),
@@ -59,7 +89,8 @@ def test_forbidden_prefix_rule(name, forbidden):
 
 def _sources():
     return sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py",
-                                         REPO / "chip_repro_10c.py"]
+                                         REPO / "chip_repro_10c.py",
+                                         REPO / "chip_repro_profiler.py"]
 
 
 @pytest.mark.parametrize("path", _sources(),
@@ -108,11 +139,12 @@ def test_jax_path_rule(text, names):
 
 def _all_port_files():
     """Every file of the port (sources of any kind, build output left
-    out), chip_smoke.py and chip_repro_10c.py."""
+    out), chip_smoke.py and the chip_repro_*.py scripts."""
     return sorted(p for p in PORT.rglob("*") if p.is_file()
                   and "_build" not in p.parts and "__pycache__" not in p.parts
                   and p.suffix != ".pyc") + [REPO / "chip_smoke.py",
-                                             REPO / "chip_repro_10c.py"]
+                                             REPO / "chip_repro_10c.py",
+                                             REPO / "chip_repro_profiler.py"]
 
 
 def _texts(path: Path):
@@ -250,7 +282,9 @@ def test_entry_points_default_to_the_card(name, tmp_path):
     fn(device="cpu")
 
 
-@pytest.mark.parametrize("module", ["transcribe", "eval_cer"])
+@pytest.mark.parametrize("module", ["transcribe", "eval_cer",
+                                    "convert_funasr", "fetch_model",
+                                    "quality", "segment_filter"])
 def test_cli_device_defaults_to_the_card(module):
     """The offline CLIs take --device, default cuda, as build_models'
     launcher does."""

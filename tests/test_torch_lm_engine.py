@@ -224,3 +224,43 @@ def test_replay_with_lm_and_fst_itn_matches_jax(trees, lm_dirs, served_dirs,
     key = "tlg_nbest" if kind == "tlg" else "lm_decode"
     assert calls[key] >= n and calls["fst_transduce"] >= 2 * n
 
+
+
+# -- chip_smoke.py 10c's finals gate ------------------------------------------
+
+def _decode(rows, best, second, gap):
+    return {"dec": 0, "rows": rows, "nbest": [(best, 10.0),
+                                              (second, 10.0 + gap)]}
+
+
+@pytest.mark.parametrize("case,agree", [
+    ("equal", True), ("near_tie", True), ("gap_too_wide", False),
+    ("not_each_others_second", False), ("same_tlg_text", False),
+    ("missing_decode", False), ("no_finals", False)])
+def test_finals_gate_accepts_only_near_ties(case, agree):
+    """chip_smoke.finals_agree: a connection's finals against a session's
+    agree when equal, or where each differing final's TLG decision is a
+    swap of the two best paths whose gaps sum within twice the summed
+    largest row difference (rows differing by 1e-5 over 4 rows allow
+    8e-5); anything else fails."""
+    import chip_smoke
+
+    rng = np.random.default_rng(0)
+    rows = rng.standard_normal((4, 6)).astype(np.float32)
+    near = rows + np.float32(1e-5)
+    e = [_decode(rows, "ab", "cd", 0.5), _decode(rows, "xy", "xz", 3e-5)]
+    s = [_decode(rows, "ab", "cd", 0.5), _decode(near, "xz", "xy", 0.0)]
+    got, want = ["AB。", "XY。"], ["AB。", "XZ。"]
+    if case == "equal":
+        want = got
+    elif case == "gap_too_wide":
+        e[1] = _decode(rows, "xy", "xz", 1e-3)
+    elif case == "not_each_others_second":
+        s[1] = _decode(near, "xz", "qq", 0.0)
+    elif case == "same_tlg_text":
+        s[1] = _decode(near, "xy", "xz", 0.0)
+    elif case == "missing_decode":
+        s = s[:1]
+    elif case == "no_finals":
+        got = want = []
+    assert chip_smoke.finals_agree(got, want, e, s)[0] is agree

@@ -452,3 +452,136 @@ def test_no_fallback_in_source(path):
         if isinstance(node, ast.Return) and isinstance(node.value,
                                                        ast.Constant):
             assert node.value.value is not None, (path, node.lineno)
+
+
+# -- the serving pattern from several threads --------------------------------
+
+STRESS_SECONDS = 3.0
+STRESS_LIMIT_S = 60.0       # the test's own time limit
+
+
+def test_serving_pattern_from_many_threads(tmp_path):
+    """The host pattern of the LM server (chip_smoke phase 10c) from
+    several threads at once: one TlgDecoder per connection over one
+    shared graph (biased for every other one), stepped in chunks with
+    partials between, n-best at the end, FstITN on its text, then closed
+    (or dropped, for the collector to free in whatever thread) and
+    reopened; one decoder on long uploads; FstITN alone; NativeLmDecoder
+    clones made, used and closed beside the shared base; a thread that
+    runs the collector. Nothing may raise, every worker must get work
+    done within the test's own time limit, and afterwards no decoder may
+    hold the graph (so the graph closes)."""
+    import gc
+    import threading
+    import time
+
+    from asr2pass_tpu_torch.decode.lm_decoder import Lexicon
+    from asr2pass_tpu_torch.decode.ngram import NgramLM
+    from asr2pass_tpu_torch.decode.tlg import TlgDecoder, TlgGraph
+    from asr2pass_tpu_torch.text.itn import FstITN
+    from torch_parity import lm_test_dirs
+
+    d = lm_test_dirs(tmp_path)
+    vocab = make_test_vocab(64)
+    tok = vocab.token2id
+    graph = TlgGraph(d["tlg"], tok)
+    itn = FstITN(d["itn"] + "/zh_itn_tagger.fst",
+                 d["itn"] + "/zh_itn_verbalizer.fst")
+    base = tnb.NativeLmDecoder(NgramLM.load_arpa(d["arpa"] + "/lm.arpa"),
+                               Lexicon.from_file(d["arpa"] + "/lexicon.txt"),
+                               tok)
+    words = [w for w in graph.word_syms if len(w) > 1 and w[0] != "<"]
+    units = vocab.tokens[4:]
+    stop = time.perf_counter() + STRESS_SECONDS
+    errors, done = [], {}
+
+    def rows(rng, n, width):
+        x = rng.standard_normal((n, width)) * 3
+        x -= x.max(-1, keepdims=True)
+        return (x - np.log(np.exp(x).sum(-1, keepdims=True))
+                ).astype(np.float32)
+
+    def worker(name):
+        def wrap(fn):
+            def run():
+                try:
+                    done[name] = fn(np.random.default_rng(
+                        [ord(c) for c in name]))
+                except Exception as e:      # noqa: BLE001 - reported below
+                    errors.append(f"{name}: {e!r}")
+            return threading.Thread(target=run, name=name)
+        return wrap
+
+    def connection(k):
+        def run(rng):
+            n = 0
+            while time.perf_counter() < stop:
+                dec = TlgDecoder(graph, tok, hotwords=(
+                    {w: 10 for w in words[k: k + 3]} if k % 2 == 0 else None))
+                for _ in range(2):
+                    dec.start_utterance()
+                    for _ in range(3):
+                        dec.accept_ilabel_rows(rows(rng, 8, len(graph.gather)))
+                        dec.partial_text()
+                    best = dec.nbest(2)
+                    itn.normalize((best[0][0] if best else "") + "，"
+                                  + "".join(rng.choice(units, 5)))
+                    n += 1
+                if k % 3:
+                    dec.close()
+                del dec                 # k % 3 == 0: the collector frees it
+            return n
+        return run
+
+    def upload(rng):
+        dec, n = TlgDecoder(graph, tok), 0
+        while time.perf_counter() < stop:
+            dec.start_utterance()
+            dec.decode_ilabel_rows(rows(rng, 300, len(graph.gather)))
+            n += 1
+        dec.close()
+        return n
+
+    def itn_only(rng):
+        n = 0
+        while time.perf_counter() < stop:
+            itn.normalize("".join(rng.choice(units, 40)))
+            n += 1
+        return n
+
+    def lm_clones(rng):
+        n = 0
+        while time.perf_counter() < stop:
+            c = base.clone({w: 5 for w in words[:4]})
+            c.decode(rows(rng, 30, len(vocab.tokens)), vocab.id2token)
+            base.decode(rows(rng, 30, len(vocab.tokens)), vocab.id2token)
+            c.close()
+            n += 1
+        return n
+
+    def collector(rng):
+        n = 0
+        while time.perf_counter() < stop:
+            gc.collect()
+            time.sleep(0.01)
+            n += 1
+        return n
+
+    threads = [worker(f"conn{k}")(connection(k)) for k in range(4)]
+    threads += [worker(f.__name__)(f)
+                for f in (upload, itn_only, lm_clones, collector)]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(max(0.0, t0 + STRESS_LIMIT_S - time.perf_counter()))
+    alive = [t.name for t in threads if t.is_alive()]
+    assert not alive, f"still running after {STRESS_LIMIT_S} s: {alive}"
+    assert not errors, errors
+    assert len(done) == len(threads) and all(done.values()), done
+    gc.collect()
+    assert graph.fst._users == 0
+    graph.fst.close()
+    itn.tagger.close()
+    itn.verbalizer.close()
+    base.close()

@@ -210,3 +210,19 @@ def lm_trees():
         punc=jax.tree.map(np.asarray, jct.init(jax.random.PRNGKey(2),
                                                jconfig.punc_tiny(300))),
         svs=svs_tree(0, seed=5))
+
+
+
+# -- ONNX: the protobuf writer and the FunASR fixtures (jax-free, so that
+# chip_smoke.py can use them on a machine without jax) ----------------------
+
+from torch_onnx_fixtures import (FUNASR_ASR_YAML, FUNASR_DIMS,  # noqa: E402
+                                 FUNASR_HEADS, FUNASR_SVS_YAML, FUNASR_T,
+                                 FUNASR_VAD_DIMS, dnsmos_graphs,
+                                 funasr_source_dirs, onnx_attr, onnx_model,
+                                 onnx_node, onnx_tensor)
+
+__all__ = ["FUNASR_ASR_YAML", "FUNASR_DIMS", "FUNASR_HEADS",
+           "FUNASR_SVS_YAML", "FUNASR_T", "FUNASR_VAD_DIMS", "dnsmos_graphs",
+           "funasr_source_dirs", "onnx_attr", "onnx_model", "onnx_node",
+           "onnx_tensor"]
