@@ -14,6 +14,17 @@ inner residual) added to the attention output. Attention over a segment
 of MIN_T..MAX_T_SS frames on a CUDA tensor runs the hand-written kernel
 (ops/attention.py); shorter segments and CPU tensors run the plain
 branch, which is the JAX package's XLA branch.
+
+Tensor parallelism: a module that parallel/sharding.shard_params cut to
+one rank's shard carries its group (comm.tp_group), and the same
+functions then run the rank's part and issue the collectives GSPMD
+derives in the JAX package: attention over the rank's H/tp heads (the
+kernels see those heads only) and the FFN's hidden slice, each entered
+through comm.copy_to_tp and left through comm.reduce_from_tp with the
+bias added once after the sum; SAN-M's FSMN memory, channel-sharded
+with v, is all-gathered and added after the sum as well, so at tp = 1
+every sum is the unsharded one. vocab_head gathers a vocab-sharded
+head's logits to the whole vocabulary.
 """
 from __future__ import annotations
 
@@ -37,6 +48,9 @@ from asr2pass_tpu_torch.ops.attention import (
 )
 from asr2pass_tpu_torch.ops.int8 import (column_major, int8_matmul,
                                          pad_weight)
+from asr2pass_tpu_torch.parallel.comm import (copy_to_tp, gather_from_tp,
+                                              group_rank, group_size,
+                                              reduce_from_tp, tp_group)
 from asr2pass_tpu_torch.utils import div_127, quantize_weight
 
 
@@ -326,6 +340,18 @@ def _score_dtype(x):
             else torch.float32)
 
 
+def _row_parallel(p, x, group, mem=None):
+    """A row-parallel Dense: this rank's partial product, summed over the
+    group, then the whole bias (and the all-gathered channel-sharded
+    `mem`) added once, in the unsharded dense's order."""
+    y = reduce_from_tp(x @ p.w.to(x.dtype), group)
+    if p.b is not None:
+        y = y + p.b.to(x.dtype)
+    if mem is not None:
+        y = y + gather_from_tp(mem, -1, group)
+    return y
+
+
 def sanm_attention(p, x, heads: int, mask=None, att_mask=None):
     """SAN-M self-attention. x: [B, T, Din]; mask: [B, T] padding mask;
     att_mask: [B, T, T] or [T, T] extra attention mask. Returns [B, T, D].
@@ -333,7 +359,11 @@ def sanm_attention(p, x, heads: int, mask=None, att_mask=None):
     Three branches, as in the JAX package: the unsplit-projection kernel
     (mh_flash_attention) for MIN_T <= T <= MAX_T_SS, the split-head
     kernels (flash_attention) past MAX_T_SS, both on CUDA tensors only;
-    else the plain branch."""
+    else the plain branch. A tensor-parallel module runs heads/tp of the
+    heads (its qkv shard is [q_r | k_r | v_r])."""
+    group = tp_group(p)
+    x = copy_to_tp(x, group)
+    heads //= group_size(group)
     qkv = dense(p.qkv, x)
     d = qkv.shape[-1] // 3
     d_k = d // heads
@@ -354,7 +384,10 @@ def sanm_attention(p, x, heads: int, mask=None, att_mask=None):
             ctx = attention_plain(qh, kh, vh, kv_mask, att_mask=att_mask,
                                   score_dtype=_score_dtype(x))
         ctx = _merge_heads(ctx)
-    out = dense(p.out, ctx) + mem
+    if group is None:
+        out = dense(p.out, ctx) + mem
+    else:
+        out = _row_parallel(p.out, ctx, group, mem)
     if mask is not None:
         out = out * mask[..., None].to(out.dtype)
     return out
@@ -362,7 +395,11 @@ def sanm_attention(p, x, heads: int, mask=None, att_mask=None):
 
 def cross_attention(p, x, mem, heads: int, mem_mask=None):
     """x: [B, T, D] queries; mem: [B, S, Dm] keys/values. Padded query
-    rows are NOT zeroed (downstream token masks own that)."""
+    rows are NOT zeroed (downstream token masks own that). A
+    tensor-parallel module runs heads/tp heads."""
+    group = tp_group(p)
+    x, mem = copy_to_tp(x, group), copy_to_tp(mem, group)
+    heads //= group_size(group)
     q = dense(p.q, x)
     kv = dense(p.kv, mem)
     d = q.shape[-1]
@@ -375,11 +412,33 @@ def cross_attention(p, x, mem, heads: int, mem_mask=None):
         ctx = _merge_heads(attention_plain(
             _split_heads(q, heads), _split_heads(k, heads),
             _split_heads(v, heads), kv_mask))
-    return dense(p.out, ctx)
+    if group is None:
+        return dense(p.out, ctx)
+    return _row_parallel(p.out, ctx, group)
 
 
 def ffn(p, x):
-    return dense(p.w2, torch.relu(dense(p.w1, x)))
+    group = tp_group(p)
+    if group is None:
+        return dense(p.w2, torch.relu(dense(p.w1, x)))
+    h = torch.relu(dense(p.w1, copy_to_tp(x, group)))
+    return _row_parallel(p.w2, h, group)
+
+
+def vocab_head(p, x, gather: bool = True):
+    """Logits of a vocab head (Dense [D, V]). Sharded over tp (its w
+    [D, V/tp], its bias whole), the rank's columns are all-gathered to
+    [..., V] and the bias added after; gather=False returns the rank's
+    [..., V/tp] columns with their bias (the sharded CTC prune's
+    input)."""
+    group = tp_group(p)
+    if group is None:
+        return dense(p, x)
+    y = copy_to_tp(x, group) @ p.w.to(x.dtype)
+    if gather:
+        return gather_from_tp(y, -1, group) + p.b.to(x.dtype)
+    width = y.shape[-1]
+    return y + p.b.narrow(0, group_rank(group) * width, width).to(x.dtype)
 
 
 def lstm_apply(p, xs):

@@ -3,7 +3,9 @@
 Counterpart of the JAX package's models/paraformer.py (init, apply,
 greedy_ids). One forward = encoder -> alphas -> integrate-and-fire ->
 parallel decoder -> logits, batched and masked; timestamp models also
-return the upsampled alphas and their peak trace.
+return the upsampled alphas and their peak trace. apply_sp runs the
+encoder sequence-parallel (JAX's apply_sp); a model that
+parallel/sharding.shard_params cut runs apply tensor-parallel.
 """
 from __future__ import annotations
 
@@ -16,6 +18,7 @@ from torch import nn
 from asr2pass_tpu_torch.config import ParaformerConfig
 from asr2pass_tpu_torch.models import cif, sanm_decoder, sanm_encoder
 from asr2pass_tpu_torch.models.layers import length_mask, quantized_like
+from asr2pass_tpu_torch.parallel.sequence import encode_sequence_parallel
 from asr2pass_tpu_torch.utils import resolve_device
 
 
@@ -79,6 +82,14 @@ def apply(params, cfg: ParaformerConfig, feats, lengths, hw_emb=None,
     enc = sanm_encoder.apply(params.encoder, feats, mask,
                              d_model=cfg.encoder.output_size,
                              heads=cfg.encoder.attention_heads)
+    return _predict_and_decode(params, cfg, enc, mask, lengths, hw_emb,
+                               hw_mask, max_tokens)
+
+
+def _predict_and_decode(params, cfg: ParaformerConfig, enc, mask, lengths,
+                        hw_emb=None, hw_mask=None, max_tokens=None
+                        ) -> ParaformerOutput:
+    """CIF, the decoder and the timestamp head on the encodings."""
     alphas = cif.alphas_head(params.predictor, enc, cfg.predictor, mask)
     ac_embeds, token_num, _ = cif.fire_offline(
         enc, alphas, cfg.predictor.threshold, cfg.predictor.tail_threshold,
@@ -97,6 +108,22 @@ def apply(params, cfg: ParaformerConfig, feats, lengths, hw_emb=None,
     return ParaformerOutput(logits=logits, token_num=token_num, enc=enc,
                             alphas=alphas, us_alphas=us_alphas,
                             us_cif_peak=us_peak)
+
+
+def apply_sp(params, cfg: ParaformerConfig, feats, lengths, mesh,
+             axis: str = "sp", max_tokens=None) -> ParaformerOutput:
+    """Sequence-parallel forward for very long segments: the encoder, the
+    dominant work, runs with the time axis cut over the mesh's `axis`
+    (parallel/sequence.py); CIF and the decoder run on the all-gathered
+    encodings, whole on every rank. T must be a multiple of the axis
+    size (the recognizer pads it); lengths [B] carry the true lengths.
+    Every rank calls with the same arguments and gets the same output."""
+    lengths = torch.as_tensor(lengths, dtype=torch.long, device=feats.device)
+    enc = encode_sequence_parallel(params.encoder, feats, cfg.encoder, mesh,
+                                   axis=axis, lengths=lengths.tolist())
+    mask = length_mask(lengths, feats.shape[1])
+    return _predict_and_decode(params, cfg, enc, mask, lengths,
+                               max_tokens=max_tokens)
 
 
 def greedy_ids(out: ParaformerOutput):

@@ -31,11 +31,11 @@ from asr2pass_tpu_torch.models.layers import (
     Fsmn,
     LayerNorm,
     cross_attention,
-    dense,
     ffn,
     fsmn_apply,
     fsmn_apply_cached,
     layer_norm,
+    vocab_head,
 )
 
 
@@ -116,7 +116,7 @@ def _tail_and_head(params, x, mask, hw_emb, hw_mask, heads):
                                 layer_norm(params.hotword["ln"], x),
                                 hw_emb, heads, hw_mask)
     x = layer_norm(params.after_norm, x)
-    return dense(params.out, x)
+    return vocab_head(params.out, x)
 
 
 def apply(params, ac_embeds, enc, enc_mask=None, mask=None, hw_emb=None,

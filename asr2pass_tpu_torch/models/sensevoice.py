@@ -14,6 +14,12 @@ tp_encoders/tp_norm) follows, and a CTC head gives vocab logits.
 The encoder's T is the feature bucket + 4, so its self-attention reaches
 the kernels (ops/attention.py) at T = 260, 516, 1028 (#1), 2052, 3076
 (#2) and 5124 (#3); batch padding rows have 4 valid positions, the meta.
+A model that parallel/sharding.shard_params cut runs tensor-parallel:
+H/tp heads a rank, the CTC head's vocab columns sharded. Its logits stay
+sharded: greedy_ids takes the whole vocab's argmax from each rank's
+column maxima, the sharded CTC prune (parallel/ctc_shard) exchanges only
+candidates, and whole_logits gathers them where a consumer needs every
+column.
 """
 from __future__ import annotations
 
@@ -25,8 +31,10 @@ from torch import nn
 
 from asr2pass_tpu_torch.config import SenseVoiceConfig
 from asr2pass_tpu_torch.models import sanm_encoder
-from asr2pass_tpu_torch.models.layers import (Dense, LayerNorm, dense,
-                                              layer_norm, length_mask)
+from asr2pass_tpu_torch.models.layers import (Dense, LayerNorm, layer_norm,
+                                              length_mask, vocab_head)
+from asr2pass_tpu_torch.parallel.comm import (all_gather, gather_from_tp,
+                                              group_rank, tp_group)
 from asr2pass_tpu_torch.utils import resolve_device
 
 NUM_META = 4  # lid, emotion, event, textnorm prefix positions
@@ -100,13 +108,17 @@ def from_state_dict(state_dict: Mapping[str, torch.Tensor],
 
 
 class SenseVoiceOutput(NamedTuple):
-    logits: torch.Tensor     # [B, 4+T, V]
+    # [B, 4+T, V]; a tensor-parallel model's: this rank's [B, 4+T, V/tp]
+    # columns, rank r's [r V/tp, (r+1) V/tp), over tp_group
+    logits: torch.Tensor
     lengths: torch.Tensor    # [B] valid positions incl. meta
+    tp_group: Optional[object] = None
 
 
-def apply(params: SenseVoice, cfg: SenseVoiceConfig, feats, lengths,
-          lid_ids, tn_ids) -> SenseVoiceOutput:
-    """feats: [B, T, lfr_dim]; lengths, lid_ids, tn_ids: [B] (int64)."""
+def encode(params: SenseVoice, cfg: SenseVoiceConfig, feats, lengths,
+           lid_ids, tn_ids):
+    """The encoder (and tp stack) over [meta | frames]: (enc [B, 4+T, D],
+    valid lengths incl. meta [B])."""
     b, t, d_in = feats.shape
     lid = params.lid_embed[lid_ids][:, None, :].to(feats.dtype)
     tn = params.tn_embed[tn_ids][:, None, :].to(feats.dtype)
@@ -121,7 +133,39 @@ def apply(params: SenseVoice, cfg: SenseVoiceConfig, feats, lengths,
         for layer in params.tp.rest:
             enc = sanm_encoder._block(layer, enc, mask, heads, residual=True)
         enc = layer_norm(params.tp.norm, enc)
-    return SenseVoiceOutput(logits=dense(params.ctc, enc), lengths=full_len)
+    return enc, full_len
+
+
+def apply(params: SenseVoice, cfg: SenseVoiceConfig, feats, lengths,
+          lid_ids, tn_ids) -> SenseVoiceOutput:
+    """feats: [B, T, lfr_dim]; lengths, lid_ids, tn_ids: [B] (int64).
+    A tensor-parallel model's logits are its rank's vocab columns
+    (SenseVoiceOutput.tp_group set)."""
+    enc, full_len = encode(params, cfg, feats, lengths, lid_ids, tn_ids)
+    group = tp_group(params.ctc)
+    return SenseVoiceOutput(logits=vocab_head(params.ctc, enc,
+                                              gather=False),
+                            lengths=full_len, tp_group=group)
+
+
+def whole_logits(out: SenseVoiceOutput) -> torch.Tensor:
+    """[B, 4+T, V]: a tensor-parallel output's columns all-gathered."""
+    return gather_from_tp(out.logits, -1, out.tp_group)
+
+
+def vocab_argmax(out: SenseVoiceOutput) -> torch.Tensor:
+    """[B, 4+T] argmax over the whole vocab, the first of equal maxima.
+    Tensor-parallel, each rank's column maximum and its global id are
+    all-gathered ([B, 4+T] each) and the first rank holding the largest
+    wins: the lowest id, as the whole vocab's argmax picks."""
+    if out.tp_group is None:
+        return out.logits.argmax(dim=-1)
+    idx = out.logits.argmax(dim=-1, keepdim=True)
+    val = out.logits.gather(-1, idx)
+    idx = idx + group_rank(out.tp_group) * out.logits.shape[-1]
+    vals = all_gather(val, -1, out.tp_group)
+    idxs = all_gather(idx, -1, out.tp_group)
+    return idxs.gather(-1, vals.argmax(dim=-1, keepdim=True))[..., 0]
 
 
 def greedy_ids(out: SenseVoiceOutput, blank_id: int = 0):
@@ -134,10 +178,10 @@ def greedy_ids(out: SenseVoiceOutput, blank_id: int = 0):
     Returns (ids [B, L-NUM_META] int64, counts [B], meta [B, NUM_META])
     where meta holds the argmax of the lang/emotion/event/textnorm
     positions; ids past a row's count are 0."""
-    logits, lengths = out.logits, out.lengths
-    b, l, _ = logits.shape
-    am = logits.argmax(dim=-1)                               # [B, L]
-    t_idx = torch.arange(l, device=logits.device)[None, :]
+    lengths = out.lengths
+    am = vocab_argmax(out)                                   # [B, L]
+    b, l = am.shape
+    t_idx = torch.arange(l, device=am.device)[None, :]
     prev = torch.cat([torch.full((b, 1), -1, dtype=am.dtype,
                                  device=am.device), am[:, :-1]], dim=1)
     # the host greedy starts fresh at skip_first: no dedup vs a meta frame
@@ -153,5 +197,4 @@ def greedy_ids(out: SenseVoiceOutput, blank_id: int = 0):
     ids = torch.zeros((b, u + 1), dtype=am.dtype, device=am.device)
     ids.scatter_(1, pos, am)
     counts = keep.sum(dim=1)
-    meta = logits[:, :NUM_META].argmax(dim=-1)
-    return ids[:, :u], counts, meta
+    return ids[:, :u], counts, am[:, :NUM_META]

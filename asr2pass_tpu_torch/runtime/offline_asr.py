@@ -3,10 +3,10 @@
 Counterpart of the JAX package's runtime/offline_asr.py (ParaformerOffline:
 recognize_batch = dispatch_batch + one fetch + finish_batch, with the
 engine's feats_override, per-item hotword embeddings and per-item LM
-decoders), without the sequence-parallel branch, which comes with a
-later slice. Segments are grouped by (feature-length bucket,
-hotword-count bucket) and run as true batches: front-end on the device,
-one forward, greedy ids, then host detokenization and bicif timestamps.
+decoders, and the tensor- and sequence-parallel options). Segments are
+grouped by (feature-length bucket, hotword-count bucket) and run as true
+batches: front-end on the device, one forward, greedy ids, then host
+detokenization and bicif timestamps.
 Segments with and without hotwords never share a forward: the hotword
 cross-attention block runs only for a batch that has embeddings.
 
@@ -19,6 +19,18 @@ and once the token counts are on the host, one more copy brings back the
 first `count` rows of each LM item: never the [B, U, V] logits. A
 rescored text that differs from the greedy one takes its timestamps
 through timestamp_smooth.
+
+Several cards (torch.distributed, one process a rank; every rank
+constructs the recognizer and calls it with the same arguments, and
+every rank returns the whole result list):
+- tp_mesh, a ("dp", "tp") DeviceMesh: the model is sharded over tp
+  (parallel/sharding.shard_params: each rank runs H/tp heads), and each
+  chunk's rows are split over dp, its outputs all-gathered over dp;
+- sp_mesh: segments over sp_threshold LFR frames (default 4096) run
+  the encoder time-sharded over the mesh's sp_axis (paraformer.apply_sp),
+  padded to a multiple of 64 a rank and batched by padded length. As in
+  the JAX package they are decoded without hotwords. The two options do
+  not combine: the sequence-parallel encoder takes whole weights.
 
 The length and batch buckets are kept from the JAX package, where they
 bound the number of XLA programs. Here they decide the T that the
@@ -39,6 +51,8 @@ from asr2pass_tpu_torch.decode.tlg import TlgDecoder
 from asr2pass_tpu_torch.frontend.fbank import num_frames
 from asr2pass_tpu_torch.frontend.lfr import lfr_len
 from asr2pass_tpu_torch.models import paraformer
+from asr2pass_tpu_torch.parallel.comm import all_gather
+from asr2pass_tpu_torch.parallel.sharding import axis_size, shard_params
 from asr2pass_tpu_torch.runtime.streaming_frontend import offline_frontend_device
 from asr2pass_tpu_torch.text import timestamps as ts_mod
 from asr2pass_tpu_torch.text.vocab import Vocab
@@ -82,23 +96,51 @@ class ParaformerOffline:
     model_zoo.load_offline_bundle returns it). The model runs on `device`
     (default the card; pass device="cpu" for the plain PyTorch path).
     lm_decoder: the LM decoder of every item without one of its own in
-    recognize_batch's lm_decoders (greedy when None)."""
+    recognize_batch's lm_decoders (greedy when None). tp_mesh, sp_mesh,
+    sp_axis, sp_threshold: see the module's docstring."""
 
     def __init__(self, params: Union[nn.Module, Mapping[str, torch.Tensor]],
                  cfg: ParaformerConfig, vocab: Vocab, cmvn=None,
-                 lm_decoder=None, device="cuda"):
+                 lm_decoder=None, device="cuda", tp_mesh=None, sp_mesh=None,
+                 sp_axis: str = "sp", sp_threshold: int = 4096):
+        if tp_mesh is not None and sp_mesh is not None:
+            raise ValueError("tp_mesh and sp_mesh do not combine: the "
+                             "sequence-parallel encoder takes whole weights")
         self.device = resolve_device(device)
         fp32_products()
         if isinstance(params, nn.Module):
             self.model = params.to(self.device).eval().requires_grad_(False)
         else:
             self.model = paraformer.from_state_dict(params, cfg, self.device)
+        self.tp_mesh = tp_mesh
+        self.dp, self.dp_rank, self.dp_group = 1, 0, None
+        if tp_mesh is not None:
+            self.model = shard_params(self.model, tp_mesh)
+            if "dp" in tp_mesh.mesh_dim_names:
+                self.dp = axis_size(tp_mesh, "dp")
+                self.dp_rank = tp_mesh.get_local_rank("dp")
+                self.dp_group = tp_mesh.get_group("dp")
+        self.sp_mesh = sp_mesh
+        self.sp_axis = sp_axis
+        self.sp_threshold = sp_threshold
         self.cfg = cfg
         self.vocab = vocab
         self.cmvn = cmvn if cmvn is not None else (None, None)
         self.lm_decoder = lm_decoder
         # bytes of LM rows copied to the host, over the recognizer's life
         self.lm_bytes_copied = 0
+
+    def _sp_pad_t(self, t: int) -> int:
+        n = axis_size(self.sp_mesh, self.sp_axis)
+        return -(-t // (n * 64)) * (n * 64)
+
+    def _forward_sp(self, feats: torch.Tensor, lengths: List[int]):
+        """Long segments as one padded batch through the
+        sequence-parallel encoder: feats [B, T, lfr_dim] with T a
+        multiple of _sp_pad_t's step, lengths [B] the true lengths."""
+        return paraformer.apply_sp(self.model, self.cfg, feats, lengths,
+                                   self.sp_mesh, axis=self.sp_axis,
+                                   max_tokens=feats.shape[1] // 2 + 8)
 
     def _forward(self, feats: torch.Tensor, lengths: List[int],
                  hw_batch: Optional[np.ndarray] = None,
@@ -164,11 +206,15 @@ class ParaformerOffline:
                for i in range(len(bufs))]
         results: List[Optional[Tuple[str, List[List[float]]]]] = \
             [None] * len(bufs)
-        # group by (feature bucket, hotword-count bucket; 0 = none)
-        groups = {}
+        # group by (feature bucket, hotword-count bucket; 0 = none);
+        # segments past the SP threshold by their padded length
+        groups, sp_groups = {}, {}
         for i, t in enumerate(t_lfrs):
             if t == 0:
                 results[i] = ("", [])
+                continue
+            if self.sp_mesh is not None and t > self.sp_threshold:
+                sp_groups.setdefault(self._sp_pad_t(t), []).append(i)
                 continue
             hw = hw_embs[i]
             hw_key = 0 if hw is None else _hw_bucket(hw.shape[0])
@@ -178,8 +224,16 @@ class ParaformerOffline:
                   for j in range(0, len(idxs), _MAX_BATCH)]
         records = []
         handles: list = []
+        for t_pad, idxs in sp_groups.items():
+            feats = offline_frontend_device(
+                [bufs[i] for i in idxs], [ns[i] for i in idxs], t_pad, fcfg,
+                means, vars_, device=self.device)
+            lens = [t_lfrs[i] for i in idxs]
+            out = self._forward_sp(feats, lens)
+            self._record(out, idxs, lens, lms, records, handles)
         for bucket, hw_key, idxs in chunks:
-            bb = _batch_bucket(len(idxs))
+            # the rows split evenly over dp
+            bb = -(-_batch_bucket(len(idxs)) // self.dp) * self.dp
             lens = [0] * bb   # padded rows have length 0 (mask empty)
             hw_batch = hw_lens = None
             if hw_key:
@@ -197,16 +251,35 @@ class ParaformerOffline:
                 feats = offline_frontend_device(
                     [bufs[i] for i in idxs], [ns[i] for i in idxs], bucket,
                     fcfg, means, vars_, batch_b=bb, device=self.device)
-            out = self._forward(feats, lens, hw_batch, hw_lens)
-            ids, counts = paraformer.greedy_ids(out)
-            hlist = [ids, counts]
-            if self.cfg.predictor.use_timestamp:
-                hlist += [out.us_alphas, out.us_cif_peak]
-            records.append({"idxs": idxs, "lens": lens,
-                            "lm_rows": _lm_rows(out.logits, idxs, lms),
-                            "off": len(handles), "n": len(hlist)})
-            handles.extend(hlist)
+            # this dp rank's share of the rows (all of them without dp)
+            per = bb // self.dp
+            mine = slice(per * self.dp_rank, per * (self.dp_rank + 1))
+            if hw_key:
+                hw_batch, hw_lens = hw_batch[mine], hw_lens[mine]
+            out = self._forward(feats[mine], lens[mine], hw_batch, hw_lens)
+            self._record(out, idxs, lens, lms, records, handles,
+                         self.dp_group)
         return {"records": records, "results": results, "lms": lms}, handles
+
+    def _record(self, out, idxs, lens, lms, records, handles, group=None):
+        """The handles of one forward for finish_batch (greedy ids and
+        counts, the timestamp model's upsampled alphas and peaks) and its
+        LM items' rows. With `group` (dp) each rank ran its share of the
+        rows: the handles, and the logits where an item has an LM, are
+        all-gathered over it first."""
+        ids, counts = paraformer.greedy_ids(out)
+        hlist = [ids, counts]
+        if self.cfg.predictor.use_timestamp:
+            hlist += [out.us_alphas, out.us_cif_peak]
+        logits = out.logits
+        if group is not None:
+            hlist = [all_gather(h, 0, group) for h in hlist]
+            if any(lms[i] is not None for i in idxs):
+                logits = all_gather(logits, 0, group)
+        records.append({"idxs": idxs, "lens": lens,
+                        "lm_rows": _lm_rows(logits, idxs, lms),
+                        "off": len(handles), "n": len(hlist)})
+        handles.extend(hlist)
 
     def finish_batch(self, pending, fetched
                      ) -> List[Tuple[str, List[List[float]]]]:

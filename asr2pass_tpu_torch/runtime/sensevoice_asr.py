@@ -1,10 +1,9 @@
 """SenseVoice recognizer: pass-2-compatible multilingual CTC.
 
-Counterpart of the JAX package's runtime/sensevoice_asr.py, without its
-tensor-parallel (multi-GPU) branch. Role of the SenseVoice paths in
-sensevoice-small.cpp: the offline forward with language/textnorm meta ids
-(:596-642), greedy CTC (:323-377) or the context-graph-biased prefix beam
-(:392-440). It has the recognize/recognize_batch and
+Counterpart of the JAX package's runtime/sensevoice_asr.py. Role of the
+SenseVoice paths in sensevoice-small.cpp: the offline forward with
+language/textnorm meta ids (:596-642), greedy CTC (:323-377) or the
+context-graph-biased prefix beam (:392-440). It has the recognize/recognize_batch and
 dispatch_batch/finish_batch interface of ParaformerOffline, so it drops
 into OfflineRecognizer, TwoPassSession and the engine's pass-2 lane.
 
@@ -21,6 +20,17 @@ logits. No path fetches those. All of a call's outputs come back in one
 copy. The beam and the TLG search run on the host in the native library
 (native/src/ctc_beam.cc, tlg_decoder.cc), which releases the interpreter
 lock while it decodes.
+
+With tp_mesh (a DeviceMesh with a "tp" axis; every rank constructs the
+recognizer and calls it with the same arguments, and gets the whole
+result list) the model is sharded over tp (parallel/sharding), each
+rank's CTC head holding V/tp columns, and the logits stay sharded: the
+greedy ids come from each rank's column maxima ([B, T] exchanged), the
+beam's first prune runs sharded (ctc_first_prune_sharded[_gather]), so
+only [B, T, k] candidates and the context units' log-probs, normalised
+over the whole vocab, are exchanged. Only an LM item's rows gather the
+whole vocab. A "dp" axis of the mesh holds copies: each runs the whole
+batch.
 
 The TLG search is frame-synchronous over CTC rows, so it needs a graph
 with the CTC topology (tools/build_tlg.py --ctc-blank): a decoder of any
@@ -43,8 +53,10 @@ from asr2pass_tpu_torch.frontend.fbank import num_frames
 from asr2pass_tpu_torch.frontend.lfr import lfr_len
 from asr2pass_tpu_torch.models import sensevoice
 from asr2pass_tpu_torch.models.sensevoice import NUM_META
-from asr2pass_tpu_torch.parallel.ctc_shard import (ctc_first_prune,
-                                                   ctc_first_prune_gather)
+from asr2pass_tpu_torch.parallel.ctc_shard import (
+    ctc_first_prune, ctc_first_prune_gather, ctc_first_prune_sharded,
+    ctc_first_prune_sharded_gather)
+from asr2pass_tpu_torch.parallel.sharding import shard_params
 from asr2pass_tpu_torch.runtime.offline_asr import (_MAX_BATCH,
                                                     _batch_bucket, _bucket)
 from asr2pass_tpu_torch.runtime.streaming_frontend import offline_frontend_device
@@ -76,19 +88,23 @@ class SenseVoiceOffline:
     model_zoo.load_svs_bundle returns it). The model runs on `device`
     (default the card; device="cpu" for the plain PyTorch path).
     lm_decoder: a TlgDecoder over a CTC-topology graph, for every item
-    without one of its own in recognize_batch's lm_decoders."""
+    without one of its own in recognize_batch's lm_decoders. tp_mesh:
+    see the module's docstring."""
 
     def __init__(self, params: Union[nn.Module, Mapping[str, torch.Tensor]],
                  cfg: SenseVoiceConfig, vocab: Vocab, cmvn=None,
                  lang: str = "auto", use_itn_token: bool = True,
                  context: Optional[ContextGraph] = None, beam: int = 0,
-                 lm_decoder=None, device="cuda"):
+                 lm_decoder=None, device="cuda", tp_mesh=None):
         self.device = resolve_device(device)
         fp32_products()
         if isinstance(params, nn.Module):
             self.model = params.to(self.device).eval().requires_grad_(False)
         else:
             self.model = sensevoice.from_state_dict(params, cfg, self.device)
+        self.tp_mesh = tp_mesh
+        if tp_mesh is not None:
+            self.model = shard_params(self.model, tp_mesh)
         self.cfg = cfg
         self.vocab = vocab
         self.cmvn = cmvn if cmvn is not None else (None, None)
@@ -209,9 +225,10 @@ class SenseVoiceOffline:
             # an LM item's frames (meta rows stripped): log-softmax and
             # the graph's gather on the device
             lm_ks = [k for k, i in enumerate(idxs) if lms[i] is not None]
+            logits = sensevoice.whole_logits(out) if lm_ks else None
             for k in lm_ks:
                 lp = torch.log_softmax(
-                    out.logits[k, NUM_META: NUM_META + lens[k]].float(), -1)
+                    logits[k, NUM_META: NUM_META + lens[k]].float(), -1)
                 hlist.append(lms[idxs[k]].graph.gather_rows(lp))
             beam_items = [i for i in idxs if lms[i] is None
                           and (self.beam > 1
@@ -227,6 +244,7 @@ class SenseVoiceOffline:
                     uniq.update(context_unit_ids(
                         self._ctx_for(contexts, i), self.vocab.token2id))
                 hw_ids = sorted(uniq)
+                padded = None
                 if hw_ids:
                     # padded to a power of two, as the JAX package pads
                     # to bound its programs: the gather's width is the
@@ -235,6 +253,13 @@ class SenseVoiceOffline:
                     while e < len(hw_ids):
                         e *= 2
                     padded = hw_ids + [hw_ids[0]] * (e - len(hw_ids))
+                if self.tp_mesh is not None and padded is not None:
+                    hlist.extend(ctc_first_prune_sharded_gather(
+                        out.logits, padded, self.tp_mesh, "tp", k=_KCAND))
+                elif self.tp_mesh is not None:
+                    hlist.extend(ctc_first_prune_sharded(
+                        out.logits, self.tp_mesh, "tp", k=_KCAND))
+                elif padded is not None:
                     hlist.extend(ctc_first_prune_gather(out.logits, padded,
                                                         k=_KCAND))
                 else:

@@ -80,7 +80,7 @@ Phases, each of which fails the run if it fails:
               equal to transcribe of linear_resample's samples; 8a's
               automatons all native. Prints tick, partial and final
               latency, the pass-2 lane's batches, audio-s/s, peak memory,
-              vd_automaton p50/p95 and a traced window of 10 ticks;
+              vd_automaton p50/p95 and a traced window of 3 ticks;
               kernel #1 fp32 is timed at the lane's batch shape too
   9. hotword  9a: the deployed hotword model, paraformer_large(timestamp,
    and svs    hotword) with a converted HotwordConfig() compiler (no null
@@ -171,12 +171,32 @@ Phases, each of which fails the run if it fails:
               its own process = transcribe in-process; eval_cer
               in-process = --server against the launcher's server;
               edit_align native = the Python DP on 1000 pairs (ms each)
+ 12. convert  (see phase12: the FunASR converter, the ONNX executor,
+              fetch_model and the data-quality tools)
+ 13. parallel tensor and sequence parallelism on torch.distributed, on a
+              world-size-1 NCCL group in this process, phase 3's dir:
+              13a the tensor-parallel ParaformerOffline (1 x 1 mesh) on
+              16 x 60 s + 150 s + 270 s against the unsharded one:
+              encodings, alphas, token_num, logits and ids bit-equal,
+              results equal, the same #1/#2/#3 launches (66/50/50);
+              13b the sequence-parallel one on 300 s (T = 5000 past
+              sp_threshold): encodings 1e-4 of their range, alphas
+              1e-4, token_num equal, the logits measured (CIF carries
+              the alphas' rounding along the segment); 13c two sharded
+              training steps at B = 8 x 15 s (losses 1e-4); 13d the
+              sharded prune on [16, 1028, 25055] logits (the whole
+              prune's candidate sets); 13e #1/#2/#3 at the heads a rank
+              holds at tp 2 and 4. With two or more cards, 13f: one
+              NCCL rank a card, tp 2 and 4 (the same gates but the
+              logits, and the sharded decoder on equal inputs 1e-4),
+              sp over all, dp x tp training, SenseVoice at vocab 25056
+              over tp (logits 1e-4, the sharded prune's sets). Alone:
+              python3 chip_smoke.py --phase 13
 
 Prints the card's name and power limit, one JSON line of the native
 library's numbers ({"native": {...}}), one JSON line of kernel numbers
 ({"kernels": [...]}, with each kernel's launches on the offline path, in
-the 2pass session, in the engine run and on phase 9's, 10's and 11's
-paths),
+the 2pass session, in the engine run and on phase 9's to 13's paths),
 and as its last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 Exits non-zero, printing no result, without a CUDA device or outside a
@@ -272,7 +292,9 @@ UNPACED_SECONDS = 10.0
 ONLINE_SECONDS = 10.0
 PACE_S = 0.6
 VAD_TAIL_SIL_MS = 350
-TRACE_TICKS = 10
+# the engine's traced windows (8a, 9c, 9d, 10c): a tick traces ~18k
+# kernels, and reading them back takes seconds a tick
+TRACE_TICKS = 3
 UPLOAD_8K_SECONDS = 30.0  # 8c: an 8 kHz WAV upload, resampled to 16 kHz
 # the native host library against its plain Python versions: the
 # resampler on 60 s at two rates (interior limit: the JAX package's own,
@@ -559,17 +581,20 @@ def device_profile(fn, label: str, host_ops: bool = True) -> dict:
         print(f"profile: {label}: device time not measured (the trace "
               f"holds no kernel)", flush=True)
         return {"wall_ms": wall_ms, "busy_ms": None}
-    # attention_kernel (fp32) and attention_kernel_sm90 (bf16)
+    # attention_kernel (fp32) and attention_kernel_sm90 (bf16); NCCL's
+    # collectives (ncclDevKernel_*)
     att_ms = sum(ms for name, ms, _ in kernels if "attention_kernel" in name)
+    nccl_ms = sum(ms for name, ms, _ in kernels if "nccl" in name.lower())
     n_launch = sum(n for _, _, n in kernels)
     print(f"profile: {label}: wall {wall_ms:.1f} ms (traced), device busy "
           f"{busy_ms:.1f} ms, idle share {1 - busy_ms / wall_ms:.3f}, "
           f"{n_launch} kernel launches, attention kernel {att_ms:.1f} ms "
-          f"({att_ms / busy_ms:.3f} of busy)", flush=True)
+          f"({att_ms / busy_ms:.3f} of busy), collectives {nccl_ms:.1f} ms "
+          f"({nccl_ms / busy_ms:.3f} of busy)", flush=True)
     for name, ms, n in sorted(kernels, key=lambda k: -k[1])[:8]:
         print(f"profile:   {ms:9.3f} ms {n:7d}x {name[:100]}", flush=True)
     return {"wall_ms": wall_ms, "busy_ms": busy_ms, "attention_ms": att_ms,
-            "launches": n_launch}
+            "nccl_ms": nccl_ms, "launches": n_launch}
 
 
 # ---------------------------------------------------------------------------
@@ -2310,9 +2335,6 @@ SVS_BEAM = 10
 SVS_CONTEXT_WORDS = 5
 P9B_BEAM_SECONDS = 30.0   # 9b's longer beam segment against the Python spec
 P9_CONNECTIONS = 16       # 9c and 9d: paced connections, two bursts each
-# 9c, 9d and 10c trace fewer engine ticks than 8a's TRACE_TICKS: a tick
-# traces ~18k kernels, and reading them back takes seconds a tick
-P9_TRACE_TICKS = 3
 SVS_LANGS = ("zh", "en", "auto")
 HW_TOL = 1e-5             # compiled embeddings card vs CPU (of their range)
 
@@ -2819,7 +2841,7 @@ def p9_server(models, args, label: str, firsts: list, card: str):
             prof.start()
             t1 = time.perf_counter()
             deadline = t1 + 60
-            while (len(rec["ticks"]) < n0 + P9_TRACE_TICKS
+            while (len(rec["ticks"]) < n0 + TRACE_TICKS
                    and time.perf_counter() < deadline):
                 await asyncio.sleep(0.01)
             trace["wall_ms"] = (time.perf_counter() - t1) * 1e3
@@ -2892,7 +2914,7 @@ def p9_server(models, args, label: str, firsts: list, card: str):
           f"{numbers['tick_ms_p50']:.1f} / {numbers['tick_ms_p95']:.1f} ms; "
           f"engine idle share "
           + (f"{idle:.3f}" if idle is not None else "not measured")
-          + f" over {P9_TRACE_TICKS} ticks; pass-2 forwards (B, T) "
+          + f" over {TRACE_TICKS} ticks; pass-2 forwards (B, T) "
           f"{rec['fwd']}; stages (p50, p95 ms, count) "
           f"{json.dumps(numbers['stages'])}; native calls "
           f"{numbers['native_calls']} on {card}", flush=True)
@@ -5137,6 +5159,719 @@ def phase12(tmp: str, card: str):
                                    "12c": n_tools}
 
 
+# ---------------------------------------------------------------------------
+# phase 13: tensor and sequence parallelism on torch.distributed
+# ---------------------------------------------------------------------------
+
+P13_SEGMENTS = 16            # 13a: 16 x 60 s, then one 150 s and one 270 s
+P13_LONG = (150.0, 270.0)
+P13_SP_SECONDS = 300.0       # 13b: T ~ 5000 LFR frames, past sp_threshold
+P13_SP_THRESHOLD = 4096      # ParaformerOffline's default, in LFR frames
+P13_TRAIN_STEPS = 2          # 13c: P11_TRAIN_B x P11_TRAIN_T frames
+# target lengths of 13c's 8 rows: the dp halves carry unequal token counts
+P13_TRAIN_TARGETS = (60, 55, 48, 60, 40, 52, 60, 45)
+P13_PRUNE_SHAPE = (16, 1028, 25055)   # 13d: SenseVoice's 16 x 60 s logits
+P13_PRUNE_K = 64
+P13_LOGP_TOL = 1e-5
+# the multi-card SenseVoice: sensevoice_small's widths, its vocab one
+# larger (25055 splits over no tp > 1, in either package), reduced depth
+P13_SVS_VOCAB = 25056
+P13_SVS_BLOCKS = (6, 2)
+P13_SVS_SEGMENTS = 4         # x 60 s
+P13_TIMEOUT_S = 120          # a collective that does not complete raises
+
+
+def p13_device():
+    """This process's card."""
+    import torch
+
+    return torch.device("cuda", torch.cuda.current_device())
+
+
+def p13_record(start: int, lengths, out) -> tuple:
+    """One forward on the host: (its first row in the chunk, the rows'
+    lengths, token_num, logits, encodings, alphas)."""
+    return (start, list(lengths), out.token_num.cpu(),
+            out.logits.float().cpu(), out.enc.float().cpu(),
+            out.alphas.float().cpu())
+
+
+def p13_capture(rec) -> list:
+    """Record each forward of a ParaformerOffline (p13_record)."""
+    fwds = []
+    orig = rec._forward
+
+    def forward(feats, lengths, *a, **kw):
+        out = orig(feats, lengths, *a, **kw)
+        fwds.append(p13_record(rec.dp_rank * feats.shape[0], lengths, out))
+        return out
+
+    rec._forward = forward
+    return fwds
+
+
+def p13_forward_gate(label: str, ref: list, got: list,
+                     exact: bool) -> dict:
+    """Forwards `got` against `ref` (the same chunks in the same order),
+    row by row on the valid frames: encodings within CPU_TOL of their
+    range (at least 1), alphas within CPU_TOL, token_num equal; where
+    `exact`, also the logits within CPU_TOL of their range and the greedy
+    ids equal. Otherwise the logits are measured, not gated: CIF carries
+    each frame's remainder into the next token, so the alphas' rounding
+    differences add up along the segment and move where frames split
+    between tokens (the encodings, which hold the sharded work, are
+    gated; the decoder is gated on equal inputs by p13_decoder_gate).
+    Returns the worst ratios, the tokens whose logits pass the limit and
+    the first token of each row that does not, and the ids that
+    differ."""
+    if len(ref) != len(got):
+        fail(f"{label}: {len(got)} forwards against {len(ref)}")
+    n_out = {"rows": 0, "tokens": 0, "tol_ratio": 0.0, "enc_tol_ratio": 0.0,
+             "alphas_max_abs_err": 0.0, "tokens_within_limit": 0,
+             "first_token_past_limit": [], "ids_differing": 0}
+    for r_fwd, g_fwd in zip(ref, got):
+        _, r_lens, r_n, r_lg, r_enc, r_al = r_fwd
+        start, g_lens, g_n, g_lg, g_enc, g_al = g_fwd
+        for j, length in enumerate(g_lens):
+            row = start + j
+            if length == 0:
+                continue
+            if row >= len(r_lens) or r_lens[row] != length:
+                fail(f"{label}: row {row} of length {length} is not the "
+                     "reference's")
+            e_ref = r_enc[row, :length]
+            e_lim = CPU_TOL * max(1.0, e_ref.abs().max().item())
+            e_err = (g_enc[j, :length] - e_ref).abs().max().item()
+            a_err = (g_al[j, :length] - r_al[row, :length]).abs().max().item()
+            n_out["enc_tol_ratio"] = max(n_out["enc_tol_ratio"],
+                                         e_err / e_lim)
+            n_out["alphas_max_abs_err"] = max(n_out["alphas_max_abs_err"],
+                                              a_err)
+            if e_err > e_lim or a_err > CPU_TOL:
+                fail(f"{label}: row {row} encodings differ by {e_err:.3e} "
+                     f"(limit {e_lim:.3e}), alphas by {a_err:.3e}")
+            n = int(r_n[row])
+            if int(g_n[j]) != n:
+                fail(f"{label}: row {row} token_num {int(g_n[j])}, "
+                     f"reference {n}")
+            if n == 0:
+                continue
+            n_out["rows"] += 1
+            n_out["tokens"] += n
+            a, b = g_lg[j, :n], r_lg[row, :n]
+            limit = CPU_TOL * max(1.0, b.abs().max().item())
+            err = (a - b).abs().amax(dim=-1)
+            n_out["tol_ratio"] = max(n_out["tol_ratio"],
+                                     err.max().item() / limit)
+            past = (err > limit).nonzero().flatten()
+            n_out["tokens_within_limit"] += n - len(past)
+            if len(past):
+                n_out["first_token_past_limit"].append(int(past[0]))
+            differ = int((a.argmax(-1) != b.argmax(-1)).sum())
+            n_out["ids_differing"] += differ
+            if exact and (len(past) or differ):
+                fail(f"{label}: row {row} logits differ by "
+                     f"{err.max().item():.3e} (limit {limit:.3e}), {differ} "
+                     "ids differ")
+    return n_out
+
+
+def p13_decoder_gate(label: str, whole, local, cfg, feats, lengths) -> dict:
+    """The tensor-parallel decoder against the unsharded one on the same
+    inputs (the unsharded model's encodings and CIF embeddings of one
+    batch): logits within CPU_TOL of their range on each row's tokens,
+    ids equal but at a near-tie (p13_ctc_gate's rule)."""
+    import torch
+
+    from asr2pass_tpu_torch.models import cif, paraformer, sanm_decoder
+    from asr2pass_tpu_torch.models.layers import length_mask
+
+    max_tokens = feats.shape[1] // 2 + 8
+    with torch.inference_mode():
+        mask = length_mask(lengths, feats.shape[1])
+        out = paraformer.apply(whole, cfg, feats, lengths,
+                               max_tokens=max_tokens)
+        ac, n, _ = cif.fire_offline(
+            out.enc, out.alphas, cfg.predictor.threshold,
+            cfg.predictor.tail_threshold, max_tokens=max_tokens,
+            lengths=lengths)
+        tok_mask = length_mask(n, ac.shape[1])
+        res = [sanm_decoder.apply(m.decoder, ac, out.enc, enc_mask=mask,
+                                  mask=tok_mask, cfg=cfg.decoder)
+               for m in (whole, local)]
+    return p13_ctc_gate(label, res[0].float().cpu(), res[1].float().cpu(),
+                        n.tolist())
+
+
+def p13_ctc_gate(label: str, ref, got, lengths) -> dict:
+    """CTC logits [B, T, V] on each row's valid frames: within CPU_TOL of
+    the reference's range (at least 1); a frame's argmax may differ at a
+    near-tie only (reference top-two margin at most twice the frame's
+    largest logit difference)."""
+    worst, ties, flips = 0.0, 0, 0
+    for row, length in enumerate(lengths):
+        a, b = got[row, :length], ref[row, :length]
+        limit = CPU_TOL * max(1.0, b.abs().max().item())
+        err = (a - b).abs().amax(dim=-1)
+        worst = max(worst, err.max().item() / limit)
+        if err.max().item() > limit:
+            fail(f"{label}: row {row} logits differ by "
+                 f"{err.max().item():.3e} (limit {limit:.3e})")
+        top2 = b.topk(2, dim=-1).values
+        tie = (top2[:, 0] - top2[:, 1]) <= 2 * err
+        ties += int(tie.sum())
+        for pos in (a.argmax(-1) != b.argmax(-1)).nonzero().flatten():
+            if not tie[pos]:
+                fail(f"{label}: row {row} frame {int(pos)}: the id differs")
+            flips += 1
+    return {"rows": len(lengths), "tol_ratio": worst, "near_ties": ties,
+            "id_flips_at_near_ties": flips}
+
+
+def p13_texts_gate(label: str, ref: list, got: list, exact: bool) -> dict:
+    """The results (texts and timestamps) equal where `exact`; else how
+    many texts and how many results differ (the timestamps come from the
+    upsampled alphas' peaks, which a rounding can move by a frame)."""
+    if len(ref) != len(got):
+        fail(f"{label}: {len(got)} results against {len(ref)}")
+    texts = sum(a[0] != b[0] for a, b in zip(ref, got))
+    results = sum(a != b for a, b in zip(ref, got))
+    if exact and results:
+        fail(f"{label}: {results} results differ from the unsharded "
+             "recognizer's")
+    return {"texts_differ": texts, "results_differ": results}
+
+
+def p13_audio():
+    """13a's 16 x 60 s + 150 s + 270 s and 13b's 300 s, seeded."""
+    segs = [synth_audio(60.0, 300 + i) for i in range(P13_SEGMENTS)]
+    segs += [synth_audio(s, 320 + i) for i, s in enumerate(P13_LONG)]
+    return segs, synth_audio(P13_SP_SECONDS, 330)
+
+
+def p13_run(rec, segs) -> dict:
+    """One recognize_batch of the segments, warmed on the first: each
+    forward recorded (p13_capture), the results, the kernel launches and
+    collectives (counted from 0 just before), audio-s/s."""
+    import torch
+
+    from asr2pass_tpu_torch.ops import attention as att
+    from asr2pass_tpu_torch.parallel import comm
+
+    rec.recognize_batch(segs[:1])
+    fwds = p13_capture(rec)
+    torch.cuda.synchronize()
+    att.reset_launch_counts()
+    comm.reset_collective_counts()
+    t0 = time.perf_counter()
+    res = rec.recognize_batch(segs)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    del rec._forward
+    return {"fwds": fwds, "res": res,
+            "launches": att.launch_counts_by_dtype(),
+            "collectives": comm.collective_counts(),
+            "audio_s_per_s": sum(len(x) for x in segs) / FS / secs}
+
+
+def p13_recognizers(bundle, whole, ref: dict, tp_mesh, segs,
+                    label: str) -> dict:
+    """13a: the tensor-parallel recognizer against the unsharded one
+    (`whole`, whose p13_run of the same segments is `ref`): encodings,
+    alphas, token_num, logits within CPU_TOL of their range and greedy
+    ids equal (p13_forward_gate); the results equal at tp 1, and counted
+    past it (a rounding there can move a timestamp by a frame with the
+    ids equal); kernel launches equal (each rank counts its own);
+    audio-s/s of each gated run. Past tp 1 also the decoder on equal
+    inputs and a device profile of one run."""
+    import torch
+
+    from asr2pass_tpu_torch.frontend.fbank import num_frames
+    from asr2pass_tpu_torch.frontend.lfr import lfr_len
+    from asr2pass_tpu_torch.parallel.sharding import axis_size
+    from asr2pass_tpu_torch.runtime.offline_asr import ParaformerOffline
+    from asr2pass_tpu_torch.runtime.streaming_frontend import (
+        offline_frontend_device)
+
+    n_tp = axis_size(tp_mesh, "tp")
+    with CLOCK.part("build"):
+        tp = ParaformerOffline(bundle.params, bundle.cfg, bundle.vocab,
+                               cmvn=bundle.cmvn, tp_mesh=tp_mesh)
+    torch.cuda.reset_peak_memory_stats()
+    got = p13_run(tp, segs)
+    out = {"peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+           "collectives_tp": got["collectives"],
+           "audio_s_per_s_whole": ref["audio_s_per_s"],
+           "audio_s_per_s_tp": got["audio_s_per_s"]}
+    gate = p13_forward_gate(label, ref["fwds"], got["fwds"], exact=True)
+    differ = p13_texts_gate(label, ref["res"], got["res"],
+                            exact=n_tp == 1)
+    if got["launches"] != ref["launches"]:
+        fail(f"{label}: kernel launches {got['launches']}, unsharded "
+             f"{ref['launches']}")
+    if n_tp > 1:
+        # the sharded decoder on the unsharded model's 16 x 60 s inputs
+        fcfg = bundle.cfg.frontend
+        first = segs[:P13_SEGMENTS]
+        ns = [num_frames(len(x), fcfg) for x in first]
+        feats = offline_frontend_device(first, ns, 1024, fcfg, *bundle.cmvn,
+                                        device=whole.device)
+        lengths = torch.tensor([lfr_len(n, fcfg.lfr_m, fcfg.lfr_n)
+                                for n in ns], device=whole.device)
+        out["decoder"] = p13_decoder_gate(f"{label} decoder", whole.model,
+                                          tp.model, bundle.cfg, feats,
+                                          lengths)
+    heads = tp.model.encoder.first.att.qkv.w.shape[1] // 3 // (
+        bundle.cfg.encoder.output_size // bundle.cfg.encoder.attention_heads)
+    out.update(gate, **differ, heads_per_rank=heads,
+               launches={k: {d: n for d, n in v.items() if n}
+                         for k, v in got["launches"].items()},
+               launches_by_dtype=got["launches"])
+    print(f"{label}: {heads} heads a rank; forwards {gate}; decoder on "
+          f"equal inputs {out.get('decoder', 'not run (tp 1)')}; "
+          f"{differ}; launches {out['launches']} (= unsharded); "
+          f"collectives of the run {out['collectives_tp']}; audio-s/s "
+          f"tp {out['audio_s_per_s_tp']:.1f}, unsharded "
+          f"{out['audio_s_per_s_whole']:.1f}", flush=True)
+    if n_tp > 1:
+        # the collectives' device time a rank (a world-size-1 group
+        # launches no NCCL kernel, so the one-card run skips the trace)
+        out["profile"] = device_profile(lambda: tp.recognize_batch(
+            segs[:P13_SEGMENTS]), f"{label} 16 x 60 s", host_ops=False)
+    return out
+
+
+def p13_sp(bundle, whole, sp_mesh, seg, label: str) -> dict:
+    """13b: one long segment through the sequence-parallel recognizer
+    (apply_sp, plain attention) and the unsharded one (`whole`, kernel
+    #3)."""
+    import torch
+
+    from asr2pass_tpu_torch.models import paraformer
+    from asr2pass_tpu_torch.ops import attention as att
+    from asr2pass_tpu_torch.parallel import comm
+    from asr2pass_tpu_torch.runtime.offline_asr import ParaformerOffline
+
+    with CLOCK.part("build"):
+        sp = ParaformerOffline(bundle.params, bundle.cfg, bundle.vocab,
+                               cmvn=bundle.cmvn, sp_mesh=sp_mesh,
+                               sp_threshold=P13_SP_THRESHOLD)
+    ref = p13_capture(whole)
+    t0 = time.perf_counter()
+    want = whole.recognize_batch([seg])
+    torch.cuda.synchronize()
+    whole_s = time.perf_counter() - t0
+    del whole._forward
+    got = []
+
+    def keep(out):
+        got.append(p13_record(0, got_len, out))
+
+    got_len = [ref[0][1][0]]
+    att.reset_launch_counts()
+    comm.reset_collective_counts()
+    with wrapped(paraformer, "apply_sp", after(keep)):
+        t0 = time.perf_counter()
+        res = sp.recognize_batch([seg])
+        torch.cuda.synchronize()
+        sp_s = time.perf_counter() - t0
+    collectives = comm.collective_counts()
+    launches = att.launch_counts()
+    if len(got) != 1:
+        fail(f"{label}: {len(got)} sequence-parallel forwards, expected 1")
+    gate = p13_forward_gate(label, ref, got, exact=False)
+    differ = p13_texts_gate(label, want, res, exact=False)
+    audio_s = len(seg) / FS
+    out = dict(gate, **differ, launches=launches,
+               collectives=collectives, t_lfr=got_len[0],
+               audio_s_per_s_sp=audio_s / sp_s,
+               audio_s_per_s_whole=audio_s / whole_s)
+    print(f"{label}: T={got_len[0]}: forwards {gate}; {differ}; "
+          f"launches {launches} (the encoder's attention is "
+          f"plain); collectives {collectives}; audio-s/s sp "
+          f"{out['audio_s_per_s_sp']:.1f}, unsharded "
+          f"{out['audio_s_per_s_whole']:.1f}", flush=True)
+    return out
+
+
+def p13_train(bundle, mesh, label: str) -> dict:
+    """13c: make_sharded_train_step against train_step on the whole batch
+    (threshold P11_CPU_THRESHOLD_SHIFT lower, as in 11b: the last CIF
+    fire sits on the threshold): the losses, steps/s, peak memory."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from asr2pass_tpu_torch.models import paraformer
+    from asr2pass_tpu_torch.parallel.sharding import shard_params
+    from asr2pass_tpu_torch.train import train
+
+    cfg = dataclasses.replace(bundle.cfg, predictor=dataclasses.replace(
+        bundle.cfg.predictor,
+        threshold=bundle.cfg.predictor.threshold - P11_CPU_THRESHOLD_SHIFT))
+    rng = np.random.default_rng(13)
+    dev = p13_device()
+    b = len(P13_TRAIN_TARGETS)
+    batch = train.TrainBatch(
+        feats=torch.from_numpy(rng.standard_normal(
+            (b, P11_TRAIN_T, cfg.frontend.lfr_dim)).astype(np.float32)
+        ).to(dev),
+        feat_lens=torch.full((b,), P11_TRAIN_T, device=dev),
+        targets=torch.from_numpy(rng.integers(
+            4, cfg.vocab_size, (b, P11_TRAIN_U))).to(dev),
+        target_lens=torch.tensor(P13_TRAIN_TARGETS, device=dev))
+    losses = {}
+    torch.cuda.reset_peak_memory_stats()
+    for name in ("sharded", "whole"):
+        model = paraformer.from_state_dict(bundle.params, cfg, dev)
+        if name == "sharded":
+            model = shard_params(model, mesh)
+            run = train.make_sharded_train_step(cfg, mesh)
+        else:
+            run = lambda m, o, bt: train.train_step(m, o, bt, cfg)
+        opt = train.make_optimizer(model)
+        losses[name], secs = [], []
+        for _ in range(P13_TRAIN_STEPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            losses[name].append(float(run(model, opt, batch)["loss"]))
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t0)
+        # the first step sets up the communicators and the allocator
+        losses[f"{name}_step_s"] = secs
+        losses[f"{name}_steps_s"] = 1.0 / secs[-1]
+        if name == "sharded":
+            losses["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+        del model, opt
+    for a, c in zip(losses["sharded"], losses["whole"]):
+        if not abs(a - c) <= TRAIN_LOSS_RTOL * abs(c):
+            fail(f"{label}: sharded loss {a} against {c} unsharded")
+    print(f"{label}: losses sharded {losses['sharded']}, unsharded "
+          f"{losses['whole']}; s a step sharded {losses['sharded_step_s']}, "
+          f"unsharded {losses['whole_step_s']}; steps/s (the last step) "
+          f"sharded {losses['sharded_steps_s']:.2f}, unsharded "
+          f"{losses['whole_steps_s']:.2f}; peak "
+          f"{losses['peak_gib']:.2f} GiB", flush=True)
+    return losses
+
+
+def p13_prune_gate(label: str, ids, logp, ref_ids, ref_logp,
+                   ref_full) -> dict:
+    """Each frame's candidate set equals the reference's, log-probs per
+    id within P13_LOGP_TOL, except frames whose k-th and (k+1)-th
+    log-probs are within that tolerance (the boundary a top-k may cut
+    either way)."""
+    import torch
+
+    k = ids.shape[-1]
+    if k < ref_full.shape[-1]:
+        top = ref_full.topk(k + 1, dim=-1).values
+        edge = (top[..., k - 1] - top[..., k]) <= P13_LOGP_TOL
+    else:
+        edge = torch.zeros(ids.shape[:-1], dtype=torch.bool,
+                           device=ids.device)
+    a, oa = ids.sort(dim=-1)
+    b, ob = ref_ids.sort(dim=-1)
+    same = (a == b).all(dim=-1)
+    bad = ~same & ~edge
+    if bad.any():
+        fail(f"{label}: {int(bad.sum())} frames' candidate sets differ "
+             "away from a top-k boundary tie")
+    lp_err = (logp.gather(-1, oa) - ref_logp.gather(-1, ob)).abs()
+    lp_err = torch.where(same[..., None], lp_err, 0).max().item()
+    if lp_err > P13_LOGP_TOL:
+        fail(f"{label}: candidate log-probs differ by {lp_err:.3e}")
+    return {"frames": int(same.numel()), "boundary_ties": int(edge.sum()),
+            "sets_differ_at_ties": int((~same).sum()),
+            "logp_max_abs_err": lp_err}
+
+
+def p13_prune(mesh, gen, label: str) -> dict:
+    """13d: the sharded prune on SenseVoice-shaped logits against the
+    whole prune."""
+    import torch
+
+    from asr2pass_tpu_torch.parallel import comm
+    from asr2pass_tpu_torch.parallel.ctc_shard import (
+        ctc_first_prune, ctc_first_prune_sharded)
+
+    logits = torch.randn(*P13_PRUNE_SHAPE, generator=gen,
+                         device="cuda") * 2.0
+    comm.reset_collective_counts()
+    ids, logp = ctc_first_prune_sharded(logits, mesh, "tp", k=P13_PRUNE_K)
+    collectives = comm.collective_counts()
+    ref_ids, ref_logp = ctc_first_prune(logits, k=P13_PRUNE_K)
+    full = torch.log_softmax(logits, dim=-1)
+    out = p13_prune_gate(label, ids, logp, ref_ids, ref_logp, full)
+    out["collectives"] = collectives
+    out["ms_sharded"] = time_ms(lambda: ctc_first_prune_sharded(
+        logits, mesh, "tp", k=P13_PRUNE_K), 5)
+    out["ms_whole"] = time_ms(lambda: ctc_first_prune(logits,
+                                                      k=P13_PRUNE_K), 5)
+    print(f"{label}: {P13_PRUNE_SHAPE} k={P13_PRUNE_K}: {out}", flush=True)
+    return out
+
+
+def p13_kernel_cases(gen) -> list:
+    """#1, #2 and #3 (fp32, the recognizer's) at the heads a rank holds
+    at tp 2 and 4: paraformer_large's d 512 over 4 heads of 128."""
+    runs = []
+    for tp in (2, 4):
+        for name, shape in (
+                ("mh_flash_attention", (16, 1024, 1024, 512 // tp, 4 // tp)),
+                ("_attention_ss", (1, 4 // tp, 3072, 128)),
+                ("_attention_flash", (1, 4 // tp, 5120, 128))):
+            r = dict(kernel_case(name, shape, "float32", gen), name=name,
+                     path=f"tp{tp}: {4 // tp} heads a rank")
+            print_case(name, r, f" (tp {tp}: {4 // tp} heads a rank)")
+            runs.append(r)
+    return runs
+
+
+def p13_svs(mesh, label: str) -> dict:
+    """The multi-card SenseVoice: sensevoice_small's widths with vocab
+    P13_SVS_VOCAB and P13_SVS_BLOCKS of depth, whole and sharded over
+    the mesh's tp, on P13_SVS_SEGMENTS x 60 s: logits, greedy ids, the
+    sharded prune against the whole prune, the greedy recognizers and
+    the beam ones with a context (texts counted; the beam's collectives
+    gated: candidates exchanged, never the logits)."""
+    import dataclasses
+
+    import torch
+
+    from asr2pass_tpu_torch.config import sensevoice_small
+    from asr2pass_tpu_torch.decode.context_graph import ContextGraph
+    from asr2pass_tpu_torch.frontend.fbank import num_frames
+    from asr2pass_tpu_torch.frontend.lfr import lfr_len
+    from asr2pass_tpu_torch.models import sensevoice
+    from asr2pass_tpu_torch.parallel import comm
+    from asr2pass_tpu_torch.parallel.ctc_shard import (
+        ctc_first_prune, ctc_first_prune_sharded)
+    from asr2pass_tpu_torch.parallel.sharding import shard_params
+    from asr2pass_tpu_torch.runtime.sensevoice_asr import SenseVoiceOffline
+    from asr2pass_tpu_torch.runtime.streaming_frontend import (
+        offline_frontend_device)
+    from asr2pass_tpu_torch.text.vocab import Vocab
+
+    cfg = sensevoice_small(P13_SVS_VOCAB)
+    cfg = dataclasses.replace(cfg, encoder=dataclasses.replace(
+        cfg.encoder, num_blocks=P13_SVS_BLOCKS[0]))
+    dev = p13_device()
+    with torch.no_grad():
+        model = sensevoice.init(cfg, torch.Generator().manual_seed(5), "cpu",
+                                tp_blocks=P13_SVS_BLOCKS[1]).to(dev)
+    local = shard_params(model, mesh)
+    vocab = Vocab(cjk_tokens(P13_SVS_VOCAB))
+    segs = [synth_audio(60.0, 340 + i) for i in range(P13_SVS_SEGMENTS)]
+    recs = {"whole": SenseVoiceOffline(model, cfg, vocab),
+            "tp": SenseVoiceOffline(model, cfg, vocab, tp_mesh=mesh)}
+    res = {k: r.recognize_batch(segs) for k, r in recs.items()}
+    # the beam with a context: the sharded prune with the context units'
+    # log-probs, in the recognizer
+    tokens = cjk_tokens(P13_SVS_VOCAB)
+    ctx = ContextGraph().build({"".join(tokens[100 + 2 * j: 102 + 2 * j]):
+                                20.0 for j in range(4)})
+    beams = {k: SenseVoiceOffline(model, cfg, vocab, beam=4, context=ctx,
+                                  tp_mesh=m)
+             for k, m in (("whole", None), ("tp", mesh))}
+    beam_res = {"whole": beams["whole"].recognize_batch(segs)}
+    comm.reset_collective_counts()
+    beam_res["tp"] = beams["tp"].recognize_batch(segs)
+    beam_collectives = comm.collective_counts()
+    fcfg = cfg.frontend
+    ns = [num_frames(len(s), fcfg) for s in segs]
+    t_lfr = [lfr_len(n, fcfg.lfr_m, fcfg.lfr_n) for n in ns]
+    feats = offline_frontend_device(segs, ns, 1024, fcfg, device=dev)
+    b = len(segs)
+    args = [torch.tensor(t_lfr, device=dev),
+            torch.full((b,), cfg.lid_dict["auto"], device=dev),
+            torch.full((b,), cfg.textnorm_dict["withitn"], device=dev)]
+    with torch.inference_mode():
+        ref = sensevoice.apply(model, cfg, feats, *args)
+        comm.reset_collective_counts()
+        got = sensevoice.apply(local, cfg, feats, *args)
+        fwd = comm.collective_counts()
+        # one forward, the greedy ids' two all-gathers of [B, T], the
+        # prune's two all-reduces and two all-gathers and the context
+        # units' all-reduce: no all-gather of the logits
+        want = dict(fwd, all_reduce=fwd["all_reduce"] + 3,
+                    all_gather=fwd["all_gather"] + 4)
+        if beam_collectives != want:
+            fail(f"{label}: the beam's collectives {beam_collectives}, "
+                 f"expected {want}")
+        gate = p13_ctc_gate(label, ref.logits.float().cpu(),
+                            sensevoice.whole_logits(got).float().cpu(),
+                            ref.lengths.tolist())
+        ids, logp = ctc_first_prune_sharded(got.logits, mesh, "tp",
+                                            k=P13_PRUNE_K)
+        rid, rlp = ctc_first_prune(ref.logits, k=P13_PRUNE_K)
+        prune = p13_prune_gate(label, ids, logp, rid, rlp,
+                               torch.log_softmax(ref.logits.float(), -1))
+    differ = p13_texts_gate(label, res["whole"], res["tp"], exact=False)
+    beam_differ = p13_texts_gate(label, beam_res["whole"], beam_res["tp"],
+                                 exact=False)
+    out = dict(gate, prune=prune, **differ, beam=beam_differ,
+               beam_collectives=beam_collectives,
+               heads_per_rank=local.encoder.first.att.qkv.w.shape[1] // 3
+               // (cfg.encoder.output_size // cfg.encoder.attention_heads),
+               vocab_per_rank=local.ctc.w.shape[1])
+    print(f"{label}: {out}", flush=True)
+    return out
+
+
+def p13_rank(rank: int, world: int, tmp: str, model_dir: str) -> None:
+    """One NCCL rank of the multi-card phase 13 (a card each): the
+    recognizers at tp 2 and 4, the sequence-parallel one over all ranks,
+    dp x tp training and SenseVoice's sharded prune; its numbers go to
+    <tmp>/p13_rank<rank>.json."""
+    sys.path.insert(0, REPO)
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from asr2pass_tpu_torch.parallel.multihost import init_distributed
+    from asr2pass_tpu_torch.parallel.sharding import make_mesh
+    from asr2pass_tpu_torch.runtime.model_zoo import load_offline_bundle
+    from asr2pass_tpu_torch.runtime.offline_asr import ParaformerOffline
+
+    init_distributed(f"file://{tmp}/p13_multi_rdv", world, rank,
+                     device="cuda", timeout_s=P13_TIMEOUT_S)
+    try:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        bundle = load_offline_bundle(model_dir)
+        segs, long_seg = p13_audio()
+        out = {"rank": rank, "card": torch.cuda.get_device_name()}
+        whole = ParaformerOffline(bundle.params, bundle.cfg, bundle.vocab,
+                                  cmvn=bundle.cmvn)
+        # a fresh process: every bucket warmed before the timed runs
+        whole.recognize_batch(segs)
+        ref = p13_run(whole, segs)
+        for tp in (2, 4):
+            if world % tp:
+                continue
+            out[f"tp{tp}"] = p13_recognizers(
+                bundle, whole, ref, make_mesh(world, tp=tp), segs,
+                f"13 rank {rank} tp {tp}")
+        sp_mesh = init_device_mesh("cuda", (world,), mesh_dim_names=("sp",))
+        out[f"sp{world}"] = p13_sp(bundle, whole, sp_mesh, long_seg,
+                                   f"13 rank {rank} sp {world}")
+        if world % 2 == 0:
+            out["train"] = p13_train(
+                bundle, make_mesh(world, tp=2),
+                f"13 rank {rank} dp {world // 2} x tp 2")
+        out[f"svs_tp{world}"] = p13_svs(
+            make_mesh(world, tp=world),
+            f"13 rank {rank} SenseVoice tp {world}")
+        for key in ("tp2", "tp4"):
+            out.get(key, {}).pop("launches_by_dtype", None)
+        with open(os.path.join(tmp, f"p13_rank{rank}.json"), "w") as f:
+            json.dump(out, f)
+    finally:
+        dist.destroy_process_group()
+
+
+def phase13(tmp: str, gen, card: str, one_card: bool = True):
+    """Phase 13. On a world-size-1 NCCL group in this process: 13a the
+    tensor-parallel recognizer, 13b the sequence-parallel one, 13c the
+    sharded training step, 13d the sharded prune, each against the
+    unsharded port on the card, 13e the kernels at the heads a rank holds
+    at tp 2 and 4 (one_card=False leaves 13a-13e out). With two or more
+    cards, 13f: one NCCL rank a card (p13_rank). Returns ({path:
+    launches}, numbers)."""
+    import torch
+
+    numbers = {"card": card, "torch": torch.__version__}
+    launches = {}
+    if one_card:
+        numbers.update(p13_one_card(tmp, gen))
+        launches["tp13"] = numbers["13a"].pop("launches_by_dtype")
+    world = torch.cuda.device_count()
+    if world > 1:
+        import torch.multiprocessing as mp
+
+        with CLOCK.phase("13f"):
+            mp.spawn(p13_rank, args=(world, tmp, os.path.join(tmp, "model")),
+                     nprocs=world, join=True)
+            numbers["13f"] = []
+            for r in range(world):
+                with open(os.path.join(tmp, f"p13_rank{r}.json")) as f:
+                    numbers["13f"].append(json.load(f))
+    return launches, numbers
+
+
+def p13_one_card(tmp: str, gen) -> dict:
+    """13a-13e (phase13)."""
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from asr2pass_tpu_torch.parallel.multihost import init_distributed
+    from asr2pass_tpu_torch.parallel.sharding import make_mesh
+    from asr2pass_tpu_torch.runtime.model_zoo import load_offline_bundle
+    from asr2pass_tpu_torch.runtime.offline_asr import ParaformerOffline
+
+    with CLOCK.part("build"):
+        init_distributed(f"file://{tmp}/p13_rdv", 1, 0, device="cuda",
+                         timeout_s=P13_TIMEOUT_S)
+        mesh = make_mesh(1, tp=1)
+        sp_mesh = init_device_mesh("cuda", (1,), mesh_dim_names=("sp",))
+        bundle = load_offline_bundle(os.path.join(tmp, "model"))
+        segs, long_seg = p13_audio()
+        whole = ParaformerOffline(bundle.params, bundle.cfg, bundle.vocab,
+                                  cmvn=bundle.cmvn)
+    numbers = {}
+    try:
+        with CLOCK.phase("13a"):
+            numbers["13a"] = p13_recognizers(
+                bundle, whole, p13_run(whole, segs), mesh, segs, "13a tp 1")
+        with CLOCK.phase("13b"):
+            numbers["13b"] = p13_sp(bundle, whole, sp_mesh, long_seg,
+                                    "13b sp 1")
+        with CLOCK.phase("13c"):
+            numbers["13c"] = p13_train(bundle, mesh, "13c dp 1 x tp 1")
+        with CLOCK.phase("13d"):
+            numbers["13d"] = p13_prune(mesh, gen, "13d prune tp 1")
+    finally:
+        dist.destroy_process_group()
+    with CLOCK.phase("13e"):
+        numbers["13e"] = p13_kernel_cases(gen)
+    del bundle, whole
+    torch.cuda.empty_cache()
+    return numbers
+
+
+def p13_numbers(p13: dict) -> dict:
+    """Phase 13's numbers for its JSON line (the kernel cases go on the
+    kernels line)."""
+    keep = ("shape", "path", "ms", "device_ms", "bound_ms", "plain_ms",
+            "library_ms")
+    return dict(p13, **{"13e": [{k: r[k] for k in ("name",) + keep}
+                                for r in p13.get("13e", [])]})
+
+
+def phase13_alone(gen, card: str, t_start: float, one_card: bool) -> int:
+    """`chip_smoke.py --phase 13`: the kernels' build, phase 3's model dir,
+    then phase 13 alone (its multi-card part on every visible card);
+    `--phase 13f`: its multi-card part alone."""
+    import torch
+
+    with tempfile.TemporaryDirectory() as tmp:
+        with CLOCK.part("build"):
+            save_model_dir(os.path.join(tmp, "model"), gen)
+        with CLOCK.phase("13"):
+            _, p13 = phase13(tmp, gen, card, one_card)
+    print(f"phase 13: {json.dumps(p13_numbers(p13))}")
+    print(f"phase seconds: {json.dumps(CLOCK.rows)}")
+    print(f"total: {time.perf_counter() - t_start:.1f} s")
+    print(card)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
 def main() -> int:
     import torch
 
@@ -5192,6 +5927,13 @@ def main() -> int:
         native["resample"] = resample_gate(card)
 
     gen = torch.Generator(device="cuda").manual_seed(0)
+    if sys.argv[1:] in (["--phase", "13"], ["--phase", "13f"]):
+        early.__exit__(None, None, None)
+        return phase13_alone(gen, card, t_start, sys.argv[2] == "13")
+    if sys.argv[1:]:
+        print(f"chip_smoke: unknown arguments {sys.argv[1:]} (takes none, "
+              "--phase 13 or --phase 13f)", file=sys.stderr)
+        return 2
     kernels, svs_kernels = kernel_phase(gen)
     early.__exit__(None, None, None)
     with tempfile.TemporaryDirectory() as tmp:
@@ -5212,6 +5954,8 @@ def main() -> int:
             launches_p11, p11 = phase11(tmp, gen, card)
         with CLOCK.phase("12"):
             launches_p12, p12 = phase12(tmp, card)
+        with CLOCK.phase("13"):
+            launches_p13, p13 = phase13(tmp, gen, card)
     # kernel #1 fp32 at the engine's pass-2 shape: the largest batch the
     # lane ran at bucket 256
     b_eng = max(b for b, t in engine_fwd if t == 256)
@@ -5271,7 +6015,7 @@ def main() -> int:
                        + keys}})
             variants += [{"path": r["path"],
                           **{k: r[k] for k in ("shape", "tol_ratio") + keys}}
-                         for r in svs_kernels
+                         for r in svs_kernels + p13["13e"]
                          if r["name"] == name and r["dtype"] == dtype]
             line.append({
                 "name": name, "route": "cuda", "source": source,
@@ -5281,7 +6025,8 @@ def main() -> int:
                 "launches_engine": launches_engine[name][dtype],
                 **{f"launches_{path}": by[name][dtype]
                    for path, by in {**launches_p9, **launches_p10,
-                                    **launches_p11, **launches_p12}.items()},
+                                    **launches_p11, **launches_p12,
+                                    **launches_p13}.items()},
                 **{k: head[k] for k in keys},
                 "shape": head["shape"], "dtype": dtype,
                 "tol_ratio": head["tol_ratio"],
@@ -5321,6 +6066,7 @@ def main() -> int:
     print(f"phase 10: {json.dumps(p10)}")
     print(f"phase 11: {json.dumps(p11)}")
     print(f"phase 12: {json.dumps(p12)}")
+    print(f"phase 13: {json.dumps(p13_numbers(p13))}")
     print(f"phase seconds: {json.dumps(CLOCK.rows)}")
     print(f"total: {time.perf_counter() - t_start:.1f} s")
     print(card)

@@ -729,3 +729,94 @@ def test_convert_verify_on_the_card(dev, tmp_path):
                                     "--verify", "--device", "cuda"]
                                    + extra) == 0
         assert (dst / "weights.npz").exists()
+
+
+@pytest.fixture
+def nccl_world_one(dev, tmp_path):
+    """A world-size-1 NCCL group (the one-card form of the port's
+    tensor parallelism), torn down after the test."""
+    import torch.distributed as dist
+
+    from asr2pass_tpu_torch.parallel.multihost import init_distributed
+    from asr2pass_tpu_torch.parallel.sharding import make_mesh
+
+    assert init_distributed(f"file://{tmp_path / 'rdv'}", 1, 0,
+                            device="cuda", timeout_s=120)
+    try:
+        yield make_mesh(1, tp=1)
+    finally:
+        dist.destroy_process_group()
+
+
+def test_tp_forward_world_one_on_the_card(nccl_world_one, dev):
+    """shard_params over a 1 x 1 mesh on the card: the tensor-parallel
+    forward issues its NCCL collectives, launches the kernel as often as
+    the unsharded forward, and equals it bit for bit (at tp = 1 every sum
+    is the unsharded one)."""
+    from asr2pass_tpu_torch.config import paraformer_tiny
+    from asr2pass_tpu_torch.models import paraformer
+    from asr2pass_tpu_torch.parallel import comm
+    from asr2pass_tpu_torch.parallel.sharding import shard_params
+
+    cfg = paraformer_tiny()
+    model = paraformer.init(cfg, torch.Generator().manual_seed(0), "cpu")
+    whole = paraformer.from_state_dict(model.state_dict(), cfg, dev)
+    local = shard_params(whole, nccl_world_one)
+    feats = torch.from_numpy(np.random.default_rng(0).standard_normal(
+        (2, 512, 560)).astype(np.float32)).to(dev)
+    lens = torch.tensor([512, 301], device=dev)
+    out = {}
+    for name, m in (("whole", whole), ("tp", local)):
+        att.reset_launch_counts()
+        comm.reset_collective_counts()
+        with torch.inference_mode():
+            out[name] = paraformer.apply(m, cfg, feats, lens, max_tokens=264)
+        out[f"{name}_launches"] = att.launch_counts()
+        out[f"{name}_collectives"] = comm.collective_counts()
+    assert out["tp_launches"] == out["whole_launches"]
+    assert out["tp_launches"]["mh_flash_attention"] == 2 + 2
+    assert out["tp_collectives"]["all_reduce"] == 2 * 2 + 2 * 2 + 1
+    assert out["whole_collectives"]["all_reduce"] == 0
+    assert torch.equal(out["tp"].token_num, out["whole"].token_num)
+    assert torch.equal(out["tp"].logits, out["whole"].logits)
+
+
+@pytest.mark.parametrize("tp", [2, 4])
+def test_kernel_on_a_ranks_heads(dev, tp):
+    """The attention of rank 0's shard at tp 2 and 4 (its fused qkv cut by
+    head, [q_0 | k_0 | v_0], as shard_params cuts it) through the unsplit
+    kernel: the first H/tp heads of the whole layer's context."""
+    from asr2pass_tpu_torch.parallel.sharding import local_slice
+
+    heads, d, t = 4, 512, 300
+    g = torch.Generator(device=dev).manual_seed(tp)
+    qkv = torch.randn(2, t, 3 * d, generator=g, device=dev)
+    mask = _mask([t, 201], t, dev)
+    whole = att.mh_flash_attention(qkv[..., :d], qkv[..., d:], mask, heads)
+    part = local_slice("att.qkv.w", qkv, 2, tp, 0)
+    dl = d // tp
+    att.reset_launch_counts()
+    mine = att.mh_flash_attention(part[..., :dl], part[..., dl:], mask,
+                                  heads // tp)
+    assert att.launch_counts()["mh_flash_attention"] == 1
+    ref, limit = _reference("mh", part[..., :dl], part[..., dl:], mask,
+                            heads // tp)
+    assert _share(mine, ref, limit) <= 1
+    torch.testing.assert_close(mine, whole[..., :dl], rtol=0, atol=0)
+
+
+def test_sharded_prune_world_one_on_the_card(nccl_world_one, dev):
+    """ctc_first_prune_sharded over a world-size-1 tp group on the card:
+    the whole prune's candidate sets, log-probs within 1e-5."""
+    from asr2pass_tpu_torch.parallel.ctc_shard import (
+        ctc_first_prune, ctc_first_prune_sharded)
+
+    g = torch.Generator(device=dev).manual_seed(0)
+    logits = torch.randn(2, 50, 512, generator=g, device=dev) * 2.0
+    ids, lp = ctc_first_prune_sharded(logits, nccl_world_one, "tp", k=16)
+    rid, rlp = ctc_first_prune(logits, k=16)
+    a, oa = ids.sort(-1)
+    b, ob = rid.sort(-1)
+    assert torch.equal(a, b)
+    torch.testing.assert_close(lp.gather(-1, oa), rlp.gather(-1, ob),
+                               rtol=0, atol=1e-5)

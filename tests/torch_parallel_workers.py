@@ -1,0 +1,478 @@
+"""Ranks of the port's multi-process tests, and the spawner the tests
+call. Imports torch and the port, never jax: each rank is its own
+process, started by `spawn`, joined into a gloo group through a file
+under the test's tmp_path (no port to race for under xdist).
+
+    python tests/torch_parallel_workers.py CASE DIR RANK WORLD
+
+reads DIR/in.npz (weights under "w/<model>/<key>", inputs) and
+DIR/spec.json, runs CASE, and writes DIR/out<RANK>.npz (arrays, and
+the non-array results as JSON under "json").
+"""
+from __future__ import annotations
+
+import fcntl
+import json
+import os
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import numpy as np
+
+REPO = Path(__file__).resolve().parents[1]
+TIMEOUT_S = 240          # a spawn; a hung rank fails its test
+GROUP_TIMEOUT_S = 120    # a collective that does not complete raises
+SPAWN_LOCK = ".torch_parallel_spawn.lock"
+
+
+def spawn(case: str, tmp_path, world: int, inputs: dict, spec=None,
+          env=None):
+    """Run CASE on `world` ranks; returns each rank's outputs (dicts of
+    numpy arrays, "json" decoded). Fails with the ranks' output when a
+    rank fails or the spawn outlives TIMEOUT_S."""
+    d = Path(tmp_path) / case
+    d.mkdir(parents=True, exist_ok=True)
+    np.savez(d / "in.npz", **inputs)
+    (d / "spec.json").write_text(json.dumps(spec or {}))
+    child_env = dict(os.environ, OMP_NUM_THREADS="1",
+                     PYTHONPATH=str(REPO), **(env or {}))
+    # one spawn at a time across the run's xdist workers (their temporary
+    # directories share the parent of their base): the ranks' cores are
+    # not taken from the tests that wait on a wall clock
+    with open(Path(tmp_path).resolve().parents[1] / SPAWN_LOCK, "a") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        procs = [subprocess.Popen(
+            [sys.executable, __file__, case, str(d), str(r), str(world)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            env=child_env) for r in range(world)]
+        deadline = time.monotonic() + TIMEOUT_S
+        logs = []
+        try:
+            for p in procs:
+                out, _ = p.communicate(
+                    timeout=max(1.0, deadline - time.monotonic()))
+                logs.append(out.decode(errors="replace"))
+        except subprocess.TimeoutExpired:
+            for p in procs:
+                p.kill()
+            raise AssertionError(f"{case}: ranks still running after "
+                                 f"{TIMEOUT_S} s")
+    for r, (p, log) in enumerate(zip(procs, logs)):
+        assert p.returncode == 0, f"{case} rank {r} failed:\n{log[-4000:]}"
+    outs = []
+    for r in range(world):
+        with np.load(d / f"out{r}.npz") as f:
+            o = {k: f[k] for k in f.files}
+        o["json"] = json.loads(str(o["json"]))
+        outs.append(o)
+    return outs
+
+
+# ---------------------------------------------------------------------------
+# the ranks (torch and the port only)
+# ---------------------------------------------------------------------------
+
+def tp_cfg(heads: int, timestamp: bool = False, hotword: bool = False,
+           vocab: int = 64):
+    """tests/test_parallel.py's _tp_cfg (d 32, 2 + 2 blocks, vocab 64)
+    in the port's config, heads = the tp it is sharded over."""
+    from asr2pass_tpu_torch.config import (DecoderConfig, EncoderConfig,
+                                           ParaformerConfig, PredictorConfig)
+
+    d = 32
+    return ParaformerConfig(
+        encoder=EncoderConfig(input_size=560, output_size=d, num_blocks=2,
+                              attention_heads=heads, linear_units=4 * d),
+        decoder=DecoderConfig(num_blocks=2, attention_heads=heads,
+                              linear_units=4 * d),
+        predictor=PredictorConfig(idim=d, use_timestamp=timestamp),
+        vocab_size=vocab, use_hotword=hotword)
+
+
+def svs_cfg(heads: int, vocab: int = 64):
+    """sensevoice_tiny (d 64, 2 blocks) with `heads` heads."""
+    import dataclasses
+
+    from asr2pass_tpu_torch.config import sensevoice_tiny
+
+    cfg = sensevoice_tiny(vocab)
+    return dataclasses.replace(cfg, encoder=dataclasses.replace(
+        cfg.encoder, attention_heads=heads))
+
+
+def weights(data, name: str) -> dict:
+    import torch
+
+    pre = f"w/{name}/"
+    return {k[len(pre):]: torch.from_numpy(data[k]) for k in data.files
+            if k.startswith(pre)}
+
+
+def gather_whole(local, mesh, axis: str = "tp") -> dict:
+    """The whole state dict from each rank's shard (the inverse of
+    sharding.shard_params), as numpy."""
+    import torch
+
+    from asr2pass_tpu_torch.parallel import comm, sharding
+
+    group = mesh.get_group(axis)
+    n = sharding.axis_size(mesh, axis)
+    sd = {k: v.detach() for k, v in local.state_dict().items()}
+    out = {}
+    for key, dim in sharding.param_specs(sd).items():
+        v = sd[key]
+        if dim is not None:
+            blocks = sharding._FUSED.get(key.rsplit(".", 2)[-2], 1)
+            parts = comm.all_gather(v, dim, group).chunk(n * blocks, dim)
+            # rank-major [q_0 k_0 v_0 q_1 ...] -> block-major
+            v = torch.cat([parts[r * blocks + blk] for blk in range(blocks)
+                           for r in range(n)], dim)
+        out[key] = v.numpy().copy()
+    return out
+
+
+def _paraformer(sd, cfg):
+    from asr2pass_tpu_torch.models import paraformer
+
+    return paraformer.from_state_dict(sd, cfg, device="cpu")
+
+
+def _forward_arrays(out, prefix: str) -> dict:
+    res = {f"{prefix}logits": out.logits.numpy(),
+           f"{prefix}token_num": out.token_num.numpy()}
+    if out.us_alphas is not None:
+        res[f"{prefix}us_alphas"] = out.us_alphas.numpy()
+        res[f"{prefix}us_cif_peak"] = out.us_cif_peak.numpy()
+    return res
+
+
+def _lm_decoder(vocab):
+    """A Python LM decoder over the test vocabulary's units: a bigram LM
+    on sentences drawn from a seed."""
+    from asr2pass_tpu_torch.decode.lm_decoder import Lexicon, LmDecoder
+    from asr2pass_tpu_torch.decode.ngram import NgramLM
+
+    rng = np.random.default_rng(11)
+    units = vocab.tokens[4:]
+    words = sorted({"".join(units[int(k)] for k in rng.integers(
+        0, len(units), rng.integers(1, 3))) for _ in range(30)})
+    sents = [[words[int(k)] for k in rng.integers(0, len(words),
+                                                   rng.integers(2, 7))]
+             for _ in range(40)]
+    lex = Lexicon()
+    for w in words:
+        lex.add(w, list(w))
+    return LmDecoder(NgramLM.train(sents, order=2), lex, lm_weight=0.8)
+
+
+def case_paraformer_tp(data, spec, rank, world):
+    """TP forwards (each case's mesh, every rank the whole batch) and the
+    dp x tp recognizer, each beside the port's unsharded run; the
+    collectives of one forward; the refusals."""
+    import torch
+
+    from asr2pass_tpu_torch.models import paraformer
+    from asr2pass_tpu_torch.parallel import comm, sharding
+    from asr2pass_tpu_torch.runtime.offline_asr import ParaformerOffline
+    from asr2pass_tpu_torch.text.vocab import make_test_vocab
+    from asr2pass_tpu_torch.utils import quantize_params
+
+    res, js = {}, {}
+    feats = torch.from_numpy(data["feats"])
+    lengths = torch.from_numpy(data["lengths"]).long()
+    hw = torch.from_numpy(data["hw_emb"])
+    hw_mask = torch.from_numpy(data["hw_mask"])
+    for c in spec["forwards"]:
+        cfg = tp_cfg(c["heads"], c["timestamp"], c["hotword"])
+        whole = _paraformer(weights(data, c["name"]), cfg)
+        mesh = sharding.make_mesh(world, tp=c["tp"])
+        local = sharding.shard_params(whole, mesh)
+        kw = dict(max_tokens=feats.shape[1] // 2 + 8)
+        if c["hotword"]:
+            kw.update(hw_emb=hw, hw_mask=hw_mask)
+        with torch.inference_mode():
+            comm.reset_collective_counts()
+            out = paraformer.apply(local, cfg, feats, lengths, **kw)
+            js[f"{c['name']}/collectives"] = comm.collective_counts()
+            ref = paraformer.apply(whole, cfg, feats, lengths, **kw)
+        res.update(_forward_arrays(out, f"{c['name']}/tp/"))
+        res.update(_forward_arrays(ref, f"{c['name']}/whole/"))
+        js[f"{c['name']}/qkv_shape"] = list(
+            local.encoder.first.att.qkv.w.shape)
+
+    # the dp x tp recognizer, plain, with hotwords and with an LM
+    cfg = tp_cfg(2, timestamp=True, hotword=True)
+    vocab = make_test_vocab(cfg.vocab_size)
+    sd = weights(data, "rec")
+    segs = [data[f"seg{i}"] for i in range(int(data["n_segs"]))]
+    hw_embs = [None, data["hw_emb"][0, :3]] + [None] * (len(segs) - 2)
+    lm = _lm_decoder(vocab)
+    mesh = sharding.make_mesh(world, tp=2)
+    recs = {"whole": ParaformerOffline(sd, cfg, vocab, device="cpu"),
+            "tp": ParaformerOffline(sd, cfg, vocab, device="cpu",
+                                    tp_mesh=mesh)}
+    for name, rec in recs.items():
+        js[f"rec/{name}"] = rec.recognize_batch(segs)
+        js[f"rec/{name}/hotword"] = rec.recognize_batch(segs,
+                                                        hw_embs=hw_embs)
+        js[f"rec/{name}/lm"] = rec.recognize_batch(
+            segs, lm_decoders=[lm] * len(segs))
+
+    # refusals: heads % tp, a vocab tp does not divide, an int8 model
+    refusals = {}
+    mesh4 = sharding.make_mesh(world, tp=4)
+    for label, model in [
+            ("heads", _paraformer(weights(data, "tp2"),
+                                  tp_cfg(2, True, True))),
+            ("vocab", paraformer.init(tp_cfg(4, vocab=66),
+                                      torch.Generator().manual_seed(0),
+                                      "cpu")),
+            ("int8", quantize_params(_paraformer(weights(data, "tp4"),
+                                                 tp_cfg(4))))]:
+        try:
+            sharding.shard_params(model, mesh4)
+            refusals[label] = None
+        except ValueError as e:
+            refusals[label] = str(e)
+    js["refusals"] = refusals
+    return res, js
+
+
+def case_sensevoice_tp(data, spec, rank, world):
+    """SenseVoice sharded at tp 2 and 4 (vocab 64): the rank's logits and
+    the gathered ones, greedy ids, the sharded prune (with and without
+    an id set) beside the whole prune, the collectives of each, and the
+    recognizers' texts and meta: beam-only, and greedy and beam items
+    with per-item contexts in one batch."""
+    import torch
+
+    from asr2pass_tpu_torch.decode.context_graph import ContextGraph
+    from asr2pass_tpu_torch.models import sensevoice
+    from asr2pass_tpu_torch.parallel import comm, sharding
+    from asr2pass_tpu_torch.parallel.ctc_shard import (
+        ctc_first_prune, ctc_first_prune_gather, ctc_first_prune_sharded,
+        ctc_first_prune_sharded_gather)
+    from asr2pass_tpu_torch.runtime.sensevoice_asr import SenseVoiceOffline
+    from asr2pass_tpu_torch.text.vocab import make_test_vocab
+
+    res, js = {}, {}
+    feats = torch.from_numpy(data["feats"])
+    args = [torch.from_numpy(data[k]).long()
+            for k in ("lengths", "lid", "tn")]
+    waves = [data[f"mixed{i}"] for i in range(int(data["n_mixed"]))]
+    for tp in spec["tps"]:
+        cfg = svs_cfg(tp)
+        whole = sensevoice.from_state_dict(weights(data, f"svs{tp}"), cfg,
+                                           "cpu")
+        mesh = sharding.make_mesh(world, tp=tp)
+        local = sharding.shard_params(whole, mesh)
+        with torch.inference_mode():
+            comm.reset_collective_counts()
+            out = sensevoice.apply(local, cfg, feats, *args)
+            js[f"svs{tp}/forward_collectives"] = comm.collective_counts()
+            comm.reset_collective_counts()
+            ids, counts, meta = sensevoice.greedy_ids(out)
+            js[f"svs{tp}/greedy_collectives"] = comm.collective_counts()
+            comm.reset_collective_counts()
+            cid, clp = ctc_first_prune_sharded(out.logits, mesh, "tp",
+                                               k=spec["k"])
+            js[f"svs{tp}/prune_collectives"] = comm.collective_counts()
+            comm.reset_collective_counts()
+            gid, glp, ghw = ctc_first_prune_sharded_gather(
+                out.logits, spec["hw_ids"], mesh, "tp", k=spec["k"])
+            js[f"svs{tp}/prune_gather_collectives"] = \
+                comm.collective_counts()
+            ref = sensevoice.apply(whole, cfg, feats, *args).logits
+            wid, wlp = ctc_first_prune(ref, k=spec["k"])
+            _, _, whw = ctc_first_prune_gather(ref, spec["hw_ids"],
+                                               k=spec["k"])
+            logits = sensevoice.whole_logits(out)
+        res.update({f"svs{tp}/logits": logits.numpy(),
+                    f"svs{tp}/shard_logits": out.logits.numpy(),
+                    f"svs{tp}/ids": ids.numpy(),
+                    f"svs{tp}/counts": counts.numpy(),
+                    f"svs{tp}/meta": meta.numpy(),
+                    f"svs{tp}/prune_ids": cid.numpy(),
+                    f"svs{tp}/prune_logp": clp.numpy(),
+                    f"svs{tp}/gather_ids": gid.numpy(),
+                    f"svs{tp}/gather_logp": glp.numpy(),
+                    f"svs{tp}/gather_hw": ghw.numpy(),
+                    f"svs{tp}/whole_prune_ids": wid.numpy(),
+                    f"svs{tp}/whole_prune_logp": wlp.numpy(),
+                    f"svs{tp}/whole_hw": whw.numpy()})
+        vocab = make_test_vocab(cfg.vocab_size)
+        rec = SenseVoiceOffline(whole, cfg, vocab, lang="zh", beam=4,
+                                device="cpu", tp_mesh=mesh)
+        comm.reset_collective_counts()
+        js[f"svs{tp}/beam"] = rec.recognize_batch([data["wave"]],
+                                                  with_meta=True)
+        js[f"svs{tp}/beam_collectives"] = comm.collective_counts()
+        for beam in (0, 4):
+            rec = SenseVoiceOffline(whole, cfg, vocab, lang="zh", beam=beam,
+                                    device="cpu", tp_mesh=mesh)
+            ctx = [ContextGraph().build(spec["hot"]) if c else None
+                   for c in spec["contexts"]]
+            js[f"svs{tp}/mixed{beam}"] = rec.recognize_batch(
+                waves, with_meta=True, contexts=ctx, langs=spec["langs"])
+    return res, js
+
+
+def case_sequence(data, spec, rank, world):
+    """The SP encoder at sp 2 (a 2 x 2 mesh) and sp 4, whole and padded,
+    beside the port's unsharded encoder; the SP recognizer's text."""
+    import torch
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from asr2pass_tpu_torch.config import EncoderConfig, paraformer_tiny
+    from asr2pass_tpu_torch.models import sanm_encoder
+    from asr2pass_tpu_torch.models.layers import length_mask
+    from asr2pass_tpu_torch.parallel import comm
+    from asr2pass_tpu_torch.parallel.sequence import encode_sequence_parallel
+    from asr2pass_tpu_torch.runtime.offline_asr import ParaformerOffline
+    from asr2pass_tpu_torch.text.vocab import make_test_vocab
+
+    res, js = {}, {}
+    meshes = {2: init_device_mesh("cpu", (world // 2, 2),
+                                  mesh_dim_names=("dp", "sp")),
+              4: init_device_mesh("cpu", (world,), mesh_dim_names=("sp",))}
+    for c in spec["encoders"]:
+        cfg = EncoderConfig(input_size=560, output_size=32,
+                            num_blocks=c["blocks"], attention_heads=2,
+                            linear_units=64)
+        enc = sanm_encoder.SanmEncoder(cfg, device="meta")
+        enc.load_state_dict(weights(data, c["name"]), assign=True)
+        feats = torch.from_numpy(data[f"{c['name']}/feats"])
+        valid = c.get("valid")
+        lengths = None if valid is None else [valid] * feats.shape[0]
+        with torch.no_grad():
+            mask = (None if valid is None else
+                    length_mask(torch.tensor(lengths), feats.shape[1]))
+            res[f"{c['name']}/whole"] = sanm_encoder.apply(
+                enc, feats, mask, d_model=32, heads=2).numpy()
+            for n, mesh in meshes.items():
+                comm.reset_collective_counts()
+                res[f"{c['name']}/sp{n}"] = encode_sequence_parallel(
+                    enc, feats, cfg, mesh, axis="sp",
+                    lengths=lengths).numpy()
+                js[f"{c['name']}/sp{n}/collectives"] = \
+                    comm.collective_counts()
+
+    cfg = paraformer_tiny()
+    vocab = make_test_vocab(cfg.vocab_size)
+    sd = weights(data, "tiny")
+    wave = data["wave"]
+    js["rec/whole"] = ParaformerOffline(sd, cfg, vocab,
+                                        device="cpu").recognize(wave)
+    for n, mesh in meshes.items():
+        js[f"rec/sp{n}"] = ParaformerOffline(
+            sd, cfg, vocab, device="cpu", sp_mesh=mesh,
+            sp_threshold=64).recognize(wave)
+    return res, js
+
+
+def case_train(data, spec, rank, world):
+    """make_sharded_train_step at dp x tp = (world/tp) x tp, `steps` steps
+    with each optimizer (make_optimizer's AdamW, and plain SGD at
+    spec["sgd_lr"]), beside train_step on the whole batch; the whole
+    params and gradients after each step."""
+    import dataclasses
+
+    import torch
+
+    from asr2pass_tpu_torch.parallel import sharding
+    from asr2pass_tpu_torch.train import train
+
+    cfg = tp_cfg(spec["tp"])
+    cfg = dataclasses.replace(cfg, predictor=dataclasses.replace(
+        cfg.predictor, threshold=spec["threshold"]))
+    batch = train.TrainBatch(
+        torch.from_numpy(data["feats"]),
+        torch.from_numpy(data["feat_lens"]).long(),
+        torch.from_numpy(data["targets"]).long(),
+        torch.from_numpy(data["target_lens"]).long())
+    mesh = sharding.make_mesh(world, tp=spec["tp"])
+    step = train.make_sharded_train_step(cfg, mesh)
+
+    def optimizer(model, kind):
+        adamw = train.make_optimizer(model)
+        if kind == "adamw":
+            return adamw
+        return torch.optim.SGD(adamw.param_groups[0]["params"],
+                               lr=spec["sgd_lr"])
+
+    res, js = {}, {}
+    for kind in ("adamw", "sgd"):
+        whole = _paraformer(weights(data, "model"), cfg)
+        local = sharding.shard_params(whole, mesh)
+        opt, ref_opt = optimizer(local, kind), optimizer(whole, kind)
+        js[kind] = {"loss": [], "whole_loss": [], "metrics": []}
+        for i in range(spec["steps"]):
+            m = step(local, opt, batch)
+            js[kind]["loss"].append(float(m["loss"]))
+            js[kind]["metrics"].append({k: float(v) for k, v in m.items()})
+            js[kind]["whole_loss"].append(float(train.train_step(
+                whole, ref_opt, batch, cfg)["loss"]))
+            for k, v in gather_whole(local, mesh).items():
+                res[f"{kind}/step{i}/sharded/{k}"] = v
+            grads = {k: p.grad for k, p in whole.named_parameters()}
+            for k, v in whole.state_dict().items():
+                res[f"{kind}/step{i}/whole/{k}"] = v.detach().numpy().copy()
+                g = grads.get(k)
+                res[f"{kind}/step{i}/grad/{k}"] = (
+                    np.zeros(v.shape, np.float32) if g is None
+                    else g.numpy().copy())
+    return res, js
+
+
+def case_multihost(data, spec, rank, world):
+    """init_distributed from the environment (done in main),
+    local_batch_slice and make_global_mesh."""
+    import torch.distributed as dist
+
+    from asr2pass_tpu_torch.parallel.multihost import (local_batch_slice,
+                                                       make_global_mesh)
+
+    mesh = make_global_mesh(tp=2)
+    sl = local_batch_slice(spec["global_batch"])
+    return {}, {"world": dist.get_world_size(), "rank": dist.get_rank(),
+                "backend": dist.get_backend(),
+                "slice": [sl.start, sl.stop],
+                "mesh": list(mesh.shape),
+                "names": list(mesh.mesh_dim_names),
+                "tp_rank": mesh.get_local_rank("tp")}
+
+
+CASES = {"paraformer_tp": case_paraformer_tp,
+         "sensevoice_tp": case_sensevoice_tp,
+         "sequence": case_sequence, "train": case_train,
+         "multihost": case_multihost}
+
+
+def main():
+    case, d, rank, world = sys.argv[1], Path(sys.argv[2]), \
+        int(sys.argv[3]), int(sys.argv[4])
+    import torch
+
+    torch.set_num_threads(1)
+    from asr2pass_tpu_torch.parallel.multihost import init_distributed
+
+    if case == "multihost":
+        os.environ.update(COORDINATOR_ADDRESS=f"file://{d / 'rdv'}",
+                          NUM_PROCESSES=str(world), PROCESS_ID=str(rank))
+        assert init_distributed(device="cpu", timeout_s=GROUP_TIMEOUT_S)
+    else:
+        assert init_distributed(f"file://{d / 'rdv'}", world, rank,
+                                device="cpu", timeout_s=GROUP_TIMEOUT_S)
+    spec = json.loads((d / "spec.json").read_text())
+    with np.load(d / "in.npz") as data:
+        res, js = CASES[case](data, spec, rank, world)
+    np.savez(d / f"out{rank}.npz", json=np.array(json.dumps(js)), **res)
+    import torch.distributed as dist
+
+    dist.destroy_process_group()
+
+
+if __name__ == "__main__":
+    main()
