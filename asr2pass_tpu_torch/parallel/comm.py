@@ -12,6 +12,13 @@ sharded CTC prune. The port writes them out:
                                  both sides of the time axis, zero at the
                                  sequence's ends (JAX's ppermute pair,
                                  sequence.py:33-47), by batch_isend_irecv
+  broadcast(x, src, group)       a group rank's tensor on every rank, in
+                                 place (the serving fan-out's feature
+                                 tensors, server/fanout.py)
+  broadcast_object(obj, src, group)  a picklable object from a group rank:
+                                 its length, then its pickled bytes, as
+                                 two broadcasts (the fan-out's call
+                                 headers, on a gloo group of CPU tensors)
 
 and, as torch.autograd.Functions, the conjugate pair of Megatron-style
 tensor parallelism and the gather of a vocab-sharded head:
@@ -43,8 +50,9 @@ reset_collective_counts(), for the collectives-a-forward numbers.
 """
 from __future__ import annotations
 
+import pickle
 from collections import Counter
-from typing import Optional
+from typing import Any, Optional
 
 import torch
 import torch.distributed as dist
@@ -53,8 +61,9 @@ _COUNTS: Counter = Counter()
 
 
 def collective_counts() -> dict:
-    """{"all_reduce": n, "all_gather": n, "halo": n}."""
-    return {k: _COUNTS[k] for k in ("all_reduce", "all_gather", "halo")}
+    """{"all_reduce": n, "all_gather": n, "halo": n, "broadcast": n}."""
+    return {k: _COUNTS[k]
+            for k in ("all_reduce", "all_gather", "halo", "broadcast")}
 
 
 def reset_collective_counts() -> None:
@@ -124,6 +133,36 @@ def halo_exchange(x: torch.Tensor, halo: int, group=None) -> torch.Tensor:
         for req in dist.batch_isend_irecv(ops):
             req.wait()
     return torch.cat([from_left, x, from_right], dim=1)
+
+
+def broadcast(x: torch.Tensor, src: int = 0, group=None) -> torch.Tensor:
+    """x as group rank `src` holds it, on every rank of the group, in
+    place (x must have the same shape and dtype everywhere); returned."""
+    if group is None:
+        return x
+    _COUNTS["broadcast"] += 1
+    dist.broadcast(x, src=dist.get_global_rank(group, src), group=group)
+    return x
+
+
+def broadcast_object(obj: Any = None, src: int = 0, group=None):
+    """(obj as group rank `src` holds it, its pickled size in bytes) on
+    every rank; the other ranks pass None. Two broadcasts of CPU tensors:
+    the size, then the bytes (so the group must be a gloo one)."""
+    if group is None:
+        return obj, 0
+    mine = group_rank(group) == src
+    if mine:
+        raw = pickle.dumps(obj, protocol=pickle.HIGHEST_PROTOCOL)
+        n = torch.tensor([len(raw)], dtype=torch.int64)
+    else:
+        n = torch.zeros(1, dtype=torch.int64)
+    broadcast(n, src, group)
+    size = int(n[0])
+    buf = (torch.frombuffer(bytearray(raw), dtype=torch.uint8) if mine
+           else torch.empty(size, dtype=torch.uint8))
+    broadcast(buf, src, group)
+    return (obj if mine else pickle.loads(buf.numpy().tobytes())), size
 
 
 class _CopyToTp(torch.autograd.Function):

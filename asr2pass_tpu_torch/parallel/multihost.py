@@ -13,14 +13,19 @@ crosses hosts.
 """
 from __future__ import annotations
 
+import ctypes
 import datetime
 import os
-from typing import Optional
+import signal
+import subprocess
+from typing import Callable, List, Optional, Sequence
 
 import torch
 import torch.distributed as dist
 
 from asr2pass_tpu_torch.parallel.sharding import axis_size, make_mesh
+
+_TIMEOUT_S: Optional[float] = None
 
 
 def init_distributed(coordinator: Optional[str] = None,
@@ -62,7 +67,32 @@ def init_distributed(coordinator: Optional[str] = None,
     dist.init_process_group(
         backend, init_method=coordinator, world_size=num_processes,
         rank=process_id, timeout=datetime.timedelta(seconds=timeout_s))
+    global _TIMEOUT_S
+    _TIMEOUT_S = float(timeout_s)
     return True
+
+
+def group_timeout_s() -> Optional[float]:
+    """The timeout_s this process joined its group with (None before
+    init_distributed)."""
+    return _TIMEOUT_S
+
+
+def _die_with_parent():
+    # Linux's PR_SET_PDEATHSIG (1): SIGTERM when the starting thread ends
+    ctypes.CDLL(None, use_errno=True).prctl(1, signal.SIGTERM, 0, 0, 0)
+
+
+def start_local_ranks(argv: Callable[[int], Sequence[str]], world: int,
+                      env: Optional[dict] = None
+                      ) -> List[subprocess.Popen]:
+    """Start ranks 1..world-1 of this host as child processes, rank r
+    running argv(r); this process is rank 0. Each child gets SIGTERM when
+    the thread that started it ends, so no rank outlives its rank 0:
+    start them from the main thread. Returns the handles, rank order."""
+    return [subprocess.Popen(list(argv(r)), env=env,
+                             preexec_fn=_die_with_parent)
+            for r in range(1, world)]
 
 
 def make_global_mesh(tp: Optional[int] = None):

@@ -155,3 +155,18 @@ def shard_params(model: nn.Module, mesh, axis: str = "tp") -> nn.Module:
         if _path(key).endswith(VOCAB_HEADS):
             local.get_submodule(key.rsplit(".", 1)[0]).tp_group = group
     return local
+
+
+def check_sharded(model: nn.Module, mesh, axis: str = "tp") -> None:
+    """Raise ValueError unless `model` is a shard over the mesh's `axis`
+    (shard_params' output for this rank): what a recognizer given a
+    presharded module holds to."""
+    if mesh is None:
+        raise ValueError("a presharded module needs the tp_mesh it was "
+                         "sharded over")
+    group = mesh.get_group(axis)
+    if not any(getattr(m, "tp_group", None) is group
+               for m in model.modules()):
+        raise ValueError("presharded: the module is not sharded over this "
+                         f"mesh's {axis!r} axis (shard it with "
+                         "sharding.shard_params)")

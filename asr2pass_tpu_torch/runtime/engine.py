@@ -444,7 +444,8 @@ class StreamEngine:
         the lane can take from the ring, then one pass-2 forward (the
         Paraformer's or SenseVoice's) at the largest of them: its first
         use of the attention library (the kernel build on the card) lands
-        here, not on a live segment."""
+        here, not on a live segment. Under a fan-out the forward runs on
+        every rank."""
         if self.offline is None:
             return
         asr = self.offline.asr
@@ -460,7 +461,7 @@ class StreamEngine:
                     bucket, fcfg, means, vars_, batch_b=bb)
             top = bucket
         if feats is not None:
-            out = asr._forward(feats[:1], [top])
+            out = asr.forward_feats(feats[:1], [top])
             to_host([out.logits[:1, :1, :1]])
 
     @torch.inference_mode()

@@ -31,6 +31,9 @@ every rank returns the whole result list):
   padded to a multiple of 64 a rank and batched by padded length. As in
   the JAX package they are decoded without hotwords. The two options do
   not combine: the sequence-parallel encoder takes whole weights.
+A server shards once and hands every recognizer the rank's shard
+(presharded=True); its rank 0 sets `fanout` (server/fanout.py), through
+which dispatch_batch and forward_feats reach the other ranks.
 
 The length and batch buckets are kept from the JAX package, where they
 bound the number of XLA programs. Here they decide the T that the
@@ -52,7 +55,8 @@ from asr2pass_tpu_torch.frontend.fbank import num_frames
 from asr2pass_tpu_torch.frontend.lfr import lfr_len
 from asr2pass_tpu_torch.models import paraformer
 from asr2pass_tpu_torch.parallel.comm import all_gather
-from asr2pass_tpu_torch.parallel.sharding import axis_size, shard_params
+from asr2pass_tpu_torch.parallel.sharding import (axis_size, check_sharded,
+                                                  shard_params)
 from asr2pass_tpu_torch.runtime.streaming_frontend import offline_frontend_device
 from asr2pass_tpu_torch.text import timestamps as ts_mod
 from asr2pass_tpu_torch.text.vocab import Vocab
@@ -97,12 +101,17 @@ class ParaformerOffline:
     (default the card; pass device="cpu" for the plain PyTorch path).
     lm_decoder: the LM decoder of every item without one of its own in
     recognize_batch's lm_decoders (greedy when None). tp_mesh, sp_mesh,
-    sp_axis, sp_threshold: see the module's docstring."""
+    sp_axis, sp_threshold: see the module's docstring; presharded: params
+    is already this rank's shard over tp_mesh (sharding.shard_params'
+    module), used as it is."""
+
+    fanout = None
 
     def __init__(self, params: Union[nn.Module, Mapping[str, torch.Tensor]],
                  cfg: ParaformerConfig, vocab: Vocab, cmvn=None,
                  lm_decoder=None, device="cuda", tp_mesh=None, sp_mesh=None,
-                 sp_axis: str = "sp", sp_threshold: int = 4096):
+                 sp_axis: str = "sp", sp_threshold: int = 4096,
+                 presharded: bool = False):
         if tp_mesh is not None and sp_mesh is not None:
             raise ValueError("tp_mesh and sp_mesh do not combine: the "
                              "sequence-parallel encoder takes whole weights")
@@ -114,8 +123,11 @@ class ParaformerOffline:
             self.model = paraformer.from_state_dict(params, cfg, self.device)
         self.tp_mesh = tp_mesh
         self.dp, self.dp_rank, self.dp_group = 1, 0, None
-        if tp_mesh is not None:
+        if presharded:
+            check_sharded(self.model, tp_mesh)
+        elif tp_mesh is not None:
             self.model = shard_params(self.model, tp_mesh)
+        if tp_mesh is not None:
             if "dp" in tp_mesh.mesh_dim_names:
                 self.dp = axis_size(tp_mesh, "dp")
                 self.dp_rank = tp_mesh.get_local_rank("dp")
@@ -180,7 +192,6 @@ class ParaformerOffline:
             lm_decoders=lm_decoders, feats_override=feats_override)
         return self.finish_batch(pending, to_host(handles))
 
-    @torch.inference_mode()
     def dispatch_batch(self, segments: List[np.ndarray],
                        hw_emb: Optional[np.ndarray] = None,
                        hw_embs: Optional[List] = None,
@@ -192,7 +203,26 @@ class ParaformerOffline:
         feats_override(idxs, bucket, bb), when given, supplies a chunk's
         device feats (the engine's pass-2 lane gathers them from its
         device audio ring); where it returns None the segments' samples
-        are uploaded."""
+        are uploaded. With a fan-out, on every rank of the server."""
+        kw = dict(hw_emb=hw_emb, hw_embs=hw_embs, lm_decoders=lm_decoders,
+                  feats_override=feats_override)
+        if self.fanout is not None:
+            return self.fanout.dispatch(self, segments, **kw)
+        return self._dispatch(segments, **kw)
+
+    def forward_feats(self, feats: torch.Tensor, lengths: List[int]):
+        """One forward on device features [B, T, lfr_dim] (the engine's
+        warm-up); with a fan-out, on every rank of the server."""
+        if self.fanout is not None:
+            return self.fanout.forward(self, feats, lengths)
+        return self._forward(feats, lengths)
+
+    @torch.inference_mode()
+    def _dispatch(self, segments, hw_emb=None, hw_embs=None,
+                  lm_decoders=None, feats_override=None, lm_flags=None):
+        """dispatch_batch on this rank. lm_flags[i] (a worker rank's call):
+        whether segment i has an LM decoder on rank 0, which decides the
+        dp gather of the logits; this rank then computes no LM rows."""
         means, vars_ = self.cmvn
         fcfg = self.cfg.frontend
         bufs = [np.asarray(s, np.float32) for s in segments]
@@ -204,6 +234,8 @@ class ParaformerOffline:
         lms = [lm_decoders[i] if lm_decoders is not None
                and lm_decoders[i] is not None else self.lm_decoder
                for i in range(len(bufs))]
+        has_lm = ([lm is not None for lm in lms] if lm_flags is None
+                  else [bool(x) for x in lm_flags])
         results: List[Optional[Tuple[str, List[List[float]]]]] = \
             [None] * len(bufs)
         # group by (feature bucket, hotword-count bucket; 0 = none);
@@ -230,7 +262,7 @@ class ParaformerOffline:
                 means, vars_, device=self.device)
             lens = [t_lfrs[i] for i in idxs]
             out = self._forward_sp(feats, lens)
-            self._record(out, idxs, lens, lms, records, handles)
+            self._record(out, idxs, lens, lms, has_lm, records, handles)
         for bucket, hw_key, idxs in chunks:
             # the rows split evenly over dp
             bb = -(-_batch_bucket(len(idxs)) // self.dp) * self.dp
@@ -257,11 +289,12 @@ class ParaformerOffline:
             if hw_key:
                 hw_batch, hw_lens = hw_batch[mine], hw_lens[mine]
             out = self._forward(feats[mine], lens[mine], hw_batch, hw_lens)
-            self._record(out, idxs, lens, lms, records, handles,
+            self._record(out, idxs, lens, lms, has_lm, records, handles,
                          self.dp_group)
         return {"records": records, "results": results, "lms": lms}, handles
 
-    def _record(self, out, idxs, lens, lms, records, handles, group=None):
+    def _record(self, out, idxs, lens, lms, has_lm, records, handles,
+                group=None):
         """The handles of one forward for finish_batch (greedy ids and
         counts, the timestamp model's upsampled alphas and peaks) and its
         LM items' rows. With `group` (dp) each rank ran its share of the
@@ -274,7 +307,7 @@ class ParaformerOffline:
         logits = out.logits
         if group is not None:
             hlist = [all_gather(h, 0, group) for h in hlist]
-            if any(lms[i] is not None for i in idxs):
+            if any(has_lm[i] for i in idxs):
                 logits = all_gather(logits, 0, group)
         records.append({"idxs": idxs, "lens": lens,
                         "lm_rows": _lm_rows(logits, idxs, lms),

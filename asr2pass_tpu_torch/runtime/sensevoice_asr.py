@@ -30,7 +30,9 @@ beam's first prune runs sharded (ctc_first_prune_sharded[_gather]), so
 only [B, T, k] candidates and the context units' log-probs, normalised
 over the whole vocab, are exchanged. Only an LM item's rows gather the
 whole vocab. A "dp" axis of the mesh holds copies: each runs the whole
-batch.
+batch. A server hands every recognizer the rank's one shard
+(presharded=True), and its rank 0 sets `fanout` (server/fanout.py),
+through which dispatch_batch and forward_feats reach the other ranks.
 
 The TLG search is frame-synchronous over CTC rows, so it needs a graph
 with the CTC topology (tools/build_tlg.py --ctc-blank): a decoder of any
@@ -56,7 +58,7 @@ from asr2pass_tpu_torch.models.sensevoice import NUM_META
 from asr2pass_tpu_torch.parallel.ctc_shard import (
     ctc_first_prune, ctc_first_prune_gather, ctc_first_prune_sharded,
     ctc_first_prune_sharded_gather)
-from asr2pass_tpu_torch.parallel.sharding import shard_params
+from asr2pass_tpu_torch.parallel.sharding import check_sharded, shard_params
 from asr2pass_tpu_torch.runtime.offline_asr import (_MAX_BATCH,
                                                     _batch_bucket, _bucket)
 from asr2pass_tpu_torch.runtime.streaming_frontend import offline_frontend_device
@@ -89,13 +91,17 @@ class SenseVoiceOffline:
     (default the card; device="cpu" for the plain PyTorch path).
     lm_decoder: a TlgDecoder over a CTC-topology graph, for every item
     without one of its own in recognize_batch's lm_decoders. tp_mesh:
-    see the module's docstring."""
+    see the module's docstring; presharded: params is already this
+    rank's shard over tp_mesh, used as it is."""
+
+    fanout = None
 
     def __init__(self, params: Union[nn.Module, Mapping[str, torch.Tensor]],
                  cfg: SenseVoiceConfig, vocab: Vocab, cmvn=None,
                  lang: str = "auto", use_itn_token: bool = True,
                  context: Optional[ContextGraph] = None, beam: int = 0,
-                 lm_decoder=None, device="cuda", tp_mesh=None):
+                 lm_decoder=None, device="cuda", tp_mesh=None,
+                 presharded: bool = False):
         self.device = resolve_device(device)
         fp32_products()
         if isinstance(params, nn.Module):
@@ -103,7 +109,9 @@ class SenseVoiceOffline:
         else:
             self.model = sensevoice.from_state_dict(params, cfg, self.device)
         self.tp_mesh = tp_mesh
-        if tp_mesh is not None:
+        if presharded:
+            check_sharded(self.model, tp_mesh)
+        elif tp_mesh is not None:
             self.model = shard_params(self.model, tp_mesh)
         self.cfg = cfg
         self.vocab = vocab
@@ -146,6 +154,12 @@ class SenseVoiceOffline:
             return contexts[i]
         return self.context
 
+    def _item_units(self, contexts, i) -> Optional[List[int]]:
+        """Segment i's context unit ids, or None without a context."""
+        ctx = self._ctx_for(contexts, i)
+        return (None if ctx is None
+                else context_unit_ids(ctx, self.vocab.token2id))
+
     def _forward(self, feats: torch.Tensor, lengths: List[int],
                  lid=None, tn=None):
         """One forward over a padded chunk: feats [B, T, lfr_dim],
@@ -159,7 +173,6 @@ class SenseVoiceOffline:
         return sensevoice.apply(self.model, self.cfg, feats, as_long(lengths),
                                 as_long(lid), as_long(tn))
 
-    @torch.inference_mode()
     def dispatch_batch(self, segments: List[np.ndarray], hw_emb=None,
                        langs: Optional[List[Optional[str]]] = None,
                        itn_flags: Optional[List[Optional[bool]]] = None,
@@ -175,7 +188,31 @@ class SenseVoiceOffline:
         `hw_emb` is accepted for ParaformerOffline's interface and has no
         meaning here: SenseVoice hotword biasing is the context graph in
         the CTC beam (sensevoice-small.cpp:392-440), given per segment
-        in `contexts` or to the recognizer as `context`."""
+        in `contexts` or to the recognizer as `context`. With a fan-out,
+        on every rank of the server."""
+        kw = dict(hw_emb=hw_emb, langs=langs, itn_flags=itn_flags,
+                  contexts=contexts, lm_decoders=lm_decoders,
+                  feats_override=feats_override)
+        if self.fanout is not None:
+            return self.fanout.dispatch(self, segments, **kw)
+        return self._dispatch(segments, **kw)
+
+    def forward_feats(self, feats: torch.Tensor, lengths: List[int]):
+        """One forward on device features [B, T, lfr_dim] (the engine's
+        warm-up); with a fan-out, on every rank of the server."""
+        if self.fanout is not None:
+            return self.fanout.forward(self, feats, lengths)
+        return self._forward(feats, lengths)
+
+    @torch.inference_mode()
+    def _dispatch(self, segments, hw_emb=None, langs=None, itn_flags=None,
+                  contexts=None, lm_decoders=None, feats_override=None,
+                  lm_flags=None, unit_ids=None):
+        """dispatch_batch on this rank. A worker rank's call gives, in
+        place of the decoders and graphs rank 0 holds, lm_flags[i]
+        (segment i has an LM decoder: its chunk gathers the vocab; this
+        rank computes no LM rows) and unit_ids[i] (its context unit ids,
+        or None without a context)."""
         means, vars_ = self.cmvn
         fcfg = self.cfg.frontend
         bufs = [np.asarray(s, np.float32) for s in segments]
@@ -185,6 +222,11 @@ class SenseVoiceOffline:
         lms = [self._check_lm(lm_decoders[i]) if lm_decoders is not None
                and lm_decoders[i] is not None else self.lm_decoder
                for i in range(len(bufs))]
+        has_lm = ([lm is not None for lm in lms] if lm_flags is None
+                  else [bool(x) for x in lm_flags])
+        units = (list(unit_ids) if unit_ids is not None
+                 else [self._item_units(contexts, i)
+                       for i in range(len(bufs))])
         results: List[Optional[Tuple[str, list]]] = [None] * len(bufs)
         metas: List[Optional[List[int]]] = [None] * len(bufs)
         groups = {}
@@ -224,15 +266,15 @@ class SenseVoiceOffline:
             hlist = [ids, counts, meta, out.lengths]
             # an LM item's frames (meta rows stripped): log-softmax and
             # the graph's gather on the device
+            logits = (sensevoice.whole_logits(out)
+                      if any(has_lm[i] for i in idxs) else None)
             lm_ks = [k for k, i in enumerate(idxs) if lms[i] is not None]
-            logits = sensevoice.whole_logits(out) if lm_ks else None
             for k in lm_ks:
                 lp = torch.log_softmax(
                     logits[k, NUM_META: NUM_META + lens[k]].float(), -1)
                 hlist.append(lms[idxs[k]].graph.gather_rows(lp))
-            beam_items = [i for i in idxs if lms[i] is None
-                          and (self.beam > 1
-                               or self._ctx_for(contexts, i) is not None)]
+            beam_items = [i for i in idxs if not has_lm[i]
+                          and (self.beam > 1 or units[i] is not None)]
             hw_ids: List[int] = []
             if beam_items:
                 # force-include every context unit id so the top-k prune
@@ -241,8 +283,7 @@ class SenseVoiceOffline:
                 # ctc-prefix-decoder.cpp:280-299)
                 uniq = set()
                 for i in beam_items:
-                    uniq.update(context_unit_ids(
-                        self._ctx_for(contexts, i), self.vocab.token2id))
+                    uniq.update(units[i] or ())
                 hw_ids = sorted(uniq)
                 padded = None
                 if hw_ids:

@@ -7,8 +7,18 @@ and its seg_dict, SenseVoice as the pass-2 alternative, server-side
 hotwords and the device. Models are built once, on the device, and
 shared read-only; each websocket connection gets its own TwoPassSession
 (per-connection VAD/ASR/punc caches), mirroring TpassOnlineStream-per-
-connection (websocket-server-2pass.h:49-65). Model parallelism comes
-with a later slice (ROADMAP queue 1 item 18).
+connection (websocket-server-2pass.h:49-65).
+
+Several cards (torch.distributed, one process a rank, each building the
+same ServerModels): with tp_mesh the pass-2 model of each role ("asr",
+"svs") is sharded once, at first use, and every recognizer gets that
+shard (the JAX package's _tp_params cache); with sp_mesh the offline
+recognizers (uploads and the engine's lane) run segments past
+sp_threshold sequence-parallel, as in the JAX package. Either mesh makes
+a fan-out (server/fanout.py): rank 0's recognizers that hold a mesh send
+each pass-2 call to the other ranks, which serve_worker(models) replays.
+Pass 1, the VAD, punctuation and the hotword compiler stay whole on
+rank 0's card.
 
 LM rescoring (the TLG role): either an ARPA LM with its lexicon, decoded
 by the native lexicon-trie x n-gram beam (NativeLmDecoder; the Python
@@ -42,6 +52,7 @@ from asr2pass_tpu_torch.decode.tlg import TlgDecoder, TlgGraph
 from asr2pass_tpu_torch.models import (ct_transformer, fsmn_vad, hotword,
                                        paraformer, sensevoice)
 from asr2pass_tpu_torch.native.bindings import NativeLmDecoder
+from asr2pass_tpu_torch.parallel.sharding import shard_params
 from asr2pass_tpu_torch.runtime.asr_stream import ParaformerOnlineStream
 from asr2pass_tpu_torch.runtime.offline_api import OfflineRecognizer
 from asr2pass_tpu_torch.runtime.offline_asr import ParaformerOffline
@@ -49,6 +60,7 @@ from asr2pass_tpu_torch.runtime.punc import Punctuator
 from asr2pass_tpu_torch.runtime.sensevoice_asr import SenseVoiceOffline
 from asr2pass_tpu_torch.runtime.two_pass import TwoPassSession
 from asr2pass_tpu_torch.runtime.vad_stream import FsmnVadStream
+from asr2pass_tpu_torch.server.fanout import Fanout
 from asr2pass_tpu_torch.text.vocab import Vocab
 from asr2pass_tpu_torch.utils import fp32_products, resolve_device
 
@@ -110,8 +122,21 @@ class ServerModels:
     # server-side hotwords merged with per-connection ones
     server_hotwords: Any = None
     device: Any = "cuda"
+    # sequence parallelism for very long offline segments: a DeviceMesh
+    # with an sp_axis axis over every rank; segments longer than
+    # sp_threshold LFR frames run the encoder time-sharded over it
+    # (parallel/sequence.py). None = one card.
+    sp_mesh: Any = None
+    sp_axis: str = "sp"
+    sp_threshold: int = 4096
+    # tensor parallelism for the pass-2 model: a ("dp", "tp") DeviceMesh
+    # (parallel/sharding.make_mesh); the recognizers run its shard
+    tp_mesh: Any = None
 
     def __post_init__(self):
+        if self.tp_mesh is not None and self.sp_mesh is not None:
+            raise ValueError("tp_mesh and sp_mesh do not combine: the "
+                             "sequence-parallel encoder takes whole weights")
         self.device = dev = resolve_device(self.device)
         fp32_products()
         self.asr_params = _on_device(
@@ -136,6 +161,12 @@ class ServerModels:
             lambda sd: sensevoice.from_state_dict(sd, self.svs_cfg, dev), dev)
         self._res_lock = threading.RLock()
         self._offline_rec_cache: "OrderedDict" = OrderedDict()
+        # each role's shard over tp_mesh, built once: a recognizer per
+        # connection must not hold a copy of its own
+        self._tp_shard_cache = {}
+        self.fanout = None
+        if self.tp_mesh is not None or self.sp_mesh is not None:
+            self.fanout = Fanout()
         # the LM resources, loaded once per vocabulary role ("asr", "svs"):
         # a TLG graph's input-label map, and the native decoder's unit
         # ids, differ between the Paraformer and SenseVoice vocabularies
@@ -254,23 +285,61 @@ class ServerModels:
                 and dec not in self._lm_bases.values()):
             dec.close()
 
+    def _tp_params(self, which: str, module):
+        """This rank's shard of a role's pass-2 module over tp_mesh, built
+        once and shared (the module itself without tp_mesh)."""
+        if self.tp_mesh is None:
+            return module
+        with self._res_lock:
+            local = self._tp_shard_cache.get(which)
+            if local is None:
+                local = self._tp_shard_cache[which] = shard_params(
+                    module, self.tp_mesh)
+        return local
+
     def _pass2(self, use_svs: bool, svs_lang: str, svs_itn: bool,
-               hotwords: Optional[dict]):
+               hotwords: Optional[dict], sp: bool = False,
+               worker: bool = False):
         """The pass-2 recognizer: SenseVoice when asked for and loaded,
-        else the offline Paraformer; with the LM decoder for these
-        hotwords when an LM is loaded."""
+        else the offline Paraformer (sequence-parallel with sp, when
+        sp_mesh is set); with the LM decoder for these hotwords when an
+        LM is loaded. On rank 0 of a mesh it reaches the other ranks
+        through the fan-out; a worker's (serve_worker) has none."""
+        shard = dict(tp_mesh=self.tp_mesh,
+                     presharded=self.tp_mesh is not None)
         if use_svs and self.svs_params is not None:
-            return SenseVoiceOffline(
-                self.svs_params, self.svs_cfg, self.svs_vocab or self.vocab,
+            rec = SenseVoiceOffline(
+                self._tp_params("svs", self.svs_params), self.svs_cfg,
+                self.svs_vocab or self.vocab,
                 cmvn=self.svs_cmvn, lang=svs_lang, use_itn_token=svs_itn,
                 context=self.svs_context_graph(hotwords),
                 beam=self.svs_beam,
-                lm_decoder=self._svs_lm_decoder(hotwords),
-                device=self.device)
-        return ParaformerOffline(self.asr_params, self.asr_cfg, self.vocab,
-                                 cmvn=self.asr_cmvn,
-                                 lm_decoder=self._make_lm_decoder(hotwords),
-                                 device=self.device)
+                lm_decoder=None if worker else self._svs_lm_decoder(hotwords),
+                device=self.device, **shard)
+        else:
+            if sp and self.sp_mesh is not None:
+                shard = dict(sp_mesh=self.sp_mesh, sp_axis=self.sp_axis,
+                             sp_threshold=self.sp_threshold)
+            rec = ParaformerOffline(
+                self._tp_params("asr", self.asr_params), self.asr_cfg,
+                self.vocab, cmvn=self.asr_cmvn,
+                lm_decoder=None if worker else self._make_lm_decoder(
+                    hotwords),
+                device=self.device, **shard)
+        if not worker and (rec.tp_mesh is not None
+                           or getattr(rec, "sp_mesh", None) is not None):
+            # only a recognizer that holds a mesh issues collectives: the
+            # whole-model ones (SenseVoice and sessions' Paraformer on an
+            # sp server) run on rank 0 alone
+            rec.fanout = self.fanout
+        return rec
+
+    def worker_recognizer(self, role: str, sp: bool):
+        """The recognizer a worker rank replays rank 0's calls of a role
+        on (server/fanout.serve_worker): no LM decoder, context or fan-out
+        of its own; the calls carry what decides the device work."""
+        return self._pass2(role == "svs", "auto", True, None, sp=sp,
+                           worker=True)
 
     def create_session(self, mode: str = "2pass",
                        vad_tail_sil: Optional[int] = None,
@@ -322,7 +391,7 @@ class ServerModels:
         makes a WFST decoder per connection, websocket-server.cpp:
         173-176)."""
         return OfflineRecognizer(
-            self._pass2(use_svs, svs_lang, svs_itn, hotwords),
+            self._pass2(use_svs, svs_lang, svs_itn, hotwords, sp=True),
             vad_params=self.vad_params, vad_cfg=self.vad_cfg,
             vad_cmvn=self.vad_cmvn, punc=self._punctuator(), itn=self.itn,
             vad_tail_sil=vad_tail_sil, vad_max_len=vad_max_len)

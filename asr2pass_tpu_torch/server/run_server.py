@@ -24,13 +24,43 @@ grammars in place of the rule ITN. --demo builds random tiny models
 (protocol and load testing without trained weights). The models run on
 --device: cuda (the default), cuda:N, or cpu for the plain PyTorch path;
 the LM, TLG and FST searches run in the native library on the host.
+
+Several cards (the JAX launcher's --tp-devices, --sp-devices and
+--sp-threshold, same meanings and defaults):
+
+    python -m asr2pass_tpu_torch.server.run_server --model-dir DIR \
+        --vad-dir DIR --punc-dir DIR --engine --tp-devices 2
+    python -m asr2pass_tpu_torch.server.run_server --model-dir DIR \
+        --vad-dir DIR --sp-devices 4 --sp-threshold 4096
+
+The launcher is rank 0 of N: it starts ranks 1..N-1 as child processes
+of this program with the same flags (a file:// rendezvous in a
+temporary directory), each on the card of its rank (NCCL; gloo with
+--device cpu), and every rank builds the same models. --tp-devices
+shards the pass-2 model over a dp 1 x tp N mesh; --sp-devices runs
+offline segments past --sp-threshold LFR frames sequence-parallel over
+N. Rank 0 serves; the others replay its pass-2 calls
+(server/fanout.serve_worker). A collective that does not complete
+within --dist-timeout seconds ends the ranks, and rank 0 exits non-zero
+when a worker ends: the fleet supervisor (server/run_all_servers.py)
+restarts it. The two flags do not combine.
 """
 from __future__ import annotations
 
 import argparse
 import logging
 import os
+import shutil
+import signal
 import ssl
+import subprocess
+import sys
+import tempfile
+import threading
+
+log = logging.getLogger("asr2pass.server")
+PACKAGE_ROOT = os.path.dirname(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__))))
 
 
 def parser() -> argparse.ArgumentParser:
@@ -95,7 +125,93 @@ def parser() -> argparse.ArgumentParser:
                    help="random tiny models (protocol testing)")
     p.add_argument("--device", default="cuda",
                    help="cuda (default), cuda:N or cpu")
+    p.add_argument("--tp-devices", type=int, default=0,
+                   help="shard the pass-2 model Megatron-style over this "
+                        "many cards, one process a card (tensor "
+                        "parallelism; 0 = off)")
+    p.add_argument("--sp-devices", type=int, default=0,
+                   help="run offline segments longer than --sp-threshold "
+                        "LFR frames time-sharded over this many cards "
+                        "(sequence parallelism; 0 = off)")
+    p.add_argument("--sp-threshold", type=int, default=4096,
+                   help="LFR frames (60 ms each) above which segments "
+                        "take the sequence-parallel path (default 4096: "
+                        "the single-shot attention kernels cover T<=4096)")
+    p.add_argument("--dist-timeout", type=float, default=120.0,
+                   help="seconds a collective of the ranks may take "
+                        "before the ranks exit (--tp-devices, "
+                        "--sp-devices)")
+    # set by the launcher for the ranks it starts
+    p.add_argument("--dist-rank", type=int, default=0,
+                   help=argparse.SUPPRESS)
+    p.add_argument("--dist-init", default="", help=argparse.SUPPRESS)
     return p
+
+
+def parallel_world(args) -> int:
+    """The ranks --tp-devices or --sp-devices asks for (0: one process).
+    Raises SystemExit for both, or for a device the ranks cannot take."""
+    if args.tp_devices and args.sp_devices:
+        raise SystemExit("--tp-devices and --sp-devices do not combine: "
+                         "the sequence-parallel encoder takes whole "
+                         "weights")
+    n = args.tp_devices or args.sp_devices
+    if n < 0:
+        raise SystemExit("--tp-devices/--sp-devices take a count >= 0")
+    if n and args.device not in ("cuda", "cpu"):
+        raise SystemExit(f"--device {args.device}: the ranks take a card "
+                         "each by their rank; pass --device cuda (or cpu)")
+    return n
+
+
+def join_ranks(args, argv, world: int):
+    """Every rank joins the group; rank 0 (the launcher) first starts
+    ranks 1..world-1 as children running argv plus their rank. Returns
+    (the children, the rendezvous directory) on rank 0, ([], None) on
+    the others. On the card each rank takes the card of its rank, and
+    args.device names it."""
+    import torch
+
+    from asr2pass_tpu_torch.parallel.multihost import (init_distributed,
+                                                       start_local_ranks)
+    from asr2pass_tpu_torch.utils import resolve_device
+
+    resolve_device(args.device)   # no card for --device cuda: raise here
+    children, rdv_dir = [], None
+    if args.dist_rank == 0:
+        rdv_dir = tempfile.mkdtemp(prefix="asr2pass_ranks_")
+        args.dist_init = f"file://{rdv_dir}/rdv"
+        env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+            [PACKAGE_ROOT] + [x for x in os.environ.get(
+                "PYTHONPATH", "").split(os.pathsep) if x]))
+        children = start_local_ranks(
+            lambda r: [sys.executable, "-m",
+                       "asr2pass_tpu_torch.server.run_server", *argv,
+                       "--dist-rank", str(r), "--dist-init",
+                       args.dist_init], world, env=env)
+    init_distributed(args.dist_init, world, args.dist_rank,
+                     device=args.device, timeout_s=args.dist_timeout)
+    if args.device == "cuda":
+        args.device = f"cuda:{torch.cuda.current_device()}"
+    return children, rdv_dir
+
+
+def mesh_options(args) -> dict:
+    """ServerModels' mesh fields from --tp-devices / --sp-devices, over
+    the joined group: a dp 1 x tp N mesh (the JAX launcher's
+    make_mesh(n, tp=n)), or a 1-D "sp" mesh with --sp-threshold."""
+    if args.tp_devices:
+        from asr2pass_tpu_torch.parallel.sharding import make_mesh
+
+        return {"tp_mesh": make_mesh(args.tp_devices, tp=args.tp_devices)}
+    if args.sp_devices:
+        from torch.distributed.device_mesh import init_device_mesh
+
+        return {"sp_mesh": init_device_mesh(
+            "cuda" if args.device.startswith("cuda") else "cpu",
+            (args.sp_devices,), mesh_dim_names=("sp",)),
+            "sp_threshold": args.sp_threshold}
+    return {}
 
 
 def build_models(args):
@@ -103,7 +219,7 @@ def build_models(args):
     models), on args.device."""
     from asr2pass_tpu_torch.server.engine import ServerModels
 
-    lm_kw = lm_options(args)
+    opts = dict(lm_options(args), **mesh_options(args))
     if args.demo:
         import torch
 
@@ -125,7 +241,7 @@ def build_models(args):
             punc_tokenizer=PuncTokenizer(
                 ["<blank>", "<unk>"]
                 + [chr(0x4E00 + i) for i in range(200)]),
-            device=args.device, **lm_kw)
+            device=args.device, **opts)
     else:
         from asr2pass_tpu_torch.runtime import model_zoo
 
@@ -166,7 +282,7 @@ def build_models(args):
         models = ServerModels(
             asr_params=b.params, asr_cfg=b.cfg, vocab=b.vocab,
             asr_cmvn=b.cmvn, svs_beam=args.svs_beam,
-            device=args.device, **kw, **lm_kw)
+            device=args.device, **kw, **opts)
     tagger, verbalizer = args.itn_tagger, args.itn_verbalizer
     if args.itn_dir:
         tagger = tagger or os.path.join(args.itn_dir, "zh_itn_tagger.fst")
@@ -223,25 +339,111 @@ def read_hotword_file(path: str) -> dict:
     return hws
 
 
+def watch_ranks(children, stopping: threading.Event) -> None:
+    """Rank 0 exits (non-zero) when one of its workers ends before the
+    server stops: the group cannot serve without it."""
+    def wait(rank, proc):
+        rc = proc.wait()
+        if stopping.is_set():
+            return
+        log.critical("rank %d exited with %s; the server exits", rank, rc)
+        for other in children:
+            if other.poll() is None:
+                other.kill()
+        for h in logging.getLogger().handlers:
+            h.flush()
+        os._exit(1)
+
+    for rank, proc in enumerate(children, 1):
+        threading.Thread(target=wait, args=(rank, proc), daemon=True,
+                         name=f"watch-rank{rank}").start()
+
+
 def main(argv=None):
+    argv = sys.argv[1:] if argv is None else list(argv)
     args = parser().parse_args(argv)
     logging.basicConfig(level=logging.INFO)
-    models = build_models(args)
-    ssl_ctx = None
-    if args.certfile:
-        ssl_ctx = ssl.SSLContext(ssl.PROTOCOL_TLS_SERVER)
-        ssl_ctx.load_cert_chain(args.certfile, args.keyfile or None)
+    world = parallel_world(args)
+    children, rdv_dir = [], None
+    stopping = threading.Event()
+    stopped = False
+    if args.dist_rank == 0:
+        # SIGTERM (the supervisor's) stops the server like ^C: its
+        # shutdown stops the worker ranks
+        signal.signal(signal.SIGTERM, _interrupt)
+    try:
+        if world:
+            children, rdv_dir = join_ranks(args, argv, world)
+            watch_ranks(children, stopping)
+        models = build_models(args)
+        if args.dist_rank > 0:
+            from asr2pass_tpu_torch.server.fanout import serve_worker
 
-    from asr2pass_tpu_torch.server.ws_server import AsrWsServer
+            serve_worker(models)
+            if models.device.type == "cuda":
+                import json
 
-    AsrWsServer(models, host=args.host, port=args.port,
-                decode_workers=args.decode_workers,
-                ssl_context=ssl_ctx, use_engine=args.engine,
-                engine_capacity=args.engine_capacity,
-                upload_overlap=args.upload_overlap,
-                decide_async=args.decide_async,
-                max_message_bytes=args.max_message_mb << 20,
-                max_upload_bytes=args.max_upload_mb << 20).run_forever()
+                from asr2pass_tpu_torch.ops import attention as att
+
+                log.info("rank %d: attention launches %s", args.dist_rank,
+                         json.dumps(att.launch_counts_by_dtype()))
+            stopped = True
+            return
+        ssl_ctx = None
+        if args.certfile:
+            ssl_ctx = ssl.SSLContext(ssl.PROTOCOL_TLS_SERVER)
+            ssl_ctx.load_cert_chain(args.certfile, args.keyfile or None)
+
+        from asr2pass_tpu_torch.server.ws_server import AsrWsServer
+
+        try:
+            AsrWsServer(models, host=args.host, port=args.port,
+                        decode_workers=args.decode_workers,
+                        ssl_context=ssl_ctx, use_engine=args.engine,
+                        engine_capacity=args.engine_capacity,
+                        upload_overlap=args.upload_overlap,
+                        decide_async=args.decide_async,
+                        max_message_bytes=args.max_message_mb << 20,
+                        max_upload_bytes=args.max_upload_mb << 20
+                        ).run_forever()
+        except KeyboardInterrupt:
+            log.info("stopped")
+        stopped = True
+    finally:
+        stopping.set()
+        if world and stopped:
+            end_group(args.dist_timeout)
+        for proc in children:
+            # after a stop the workers leave serve_worker and end the group
+            # with rank 0; after a failure they may wait in a collective:
+            # end them
+            try:
+                proc.wait(timeout=args.dist_timeout if stopped else 0.1)
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                proc.wait()
+        if rdv_dir is not None:
+            shutil.rmtree(rdv_dir, ignore_errors=True)
+
+
+def end_group(timeout_s: float) -> None:
+    """destroy_process_group on every rank at once (NCCL's finalize waits
+    for all of them, so rank 0 must not wait for its workers' exit
+    first), given at most timeout_s."""
+    import torch.distributed as dist
+
+    if dist.is_initialized():
+        t = threading.Thread(target=dist.destroy_process_group,
+                             daemon=True, name="end-group")
+        t.start()
+        t.join(timeout_s)
+        if t.is_alive():
+            log.warning("the process group did not end within %.0f s",
+                        timeout_s)
+
+
+def _interrupt(signum, frame):
+    raise KeyboardInterrupt
 
 
 if __name__ == "__main__":

@@ -139,6 +139,27 @@ class AsrWsServer:
         self._engine_lock = None
         self._engine_conns = {}   # sid -> (ws, ConnectionState)
 
+    def stats(self) -> dict:
+        """The "stats" action's report: the stage metrics; on the card,
+        the attention kernels' launches and the memory allocated; with a
+        fan-out, its numbers and the shards held."""
+        report = METRICS.report()
+        dev = self.models.device
+        if dev.type == "cuda":
+            import torch
+
+            from asr2pass_tpu_torch.ops import attention as att
+
+            report["launches"] = att.launch_counts_by_dtype()
+            report["memory"] = {
+                "allocated": torch.cuda.memory_allocated(dev),
+                "max_allocated": torch.cuda.max_memory_allocated(dev)}
+        fan = self.models.fanout
+        if fan is not None:
+            report["fanout"] = dict(
+                fan.stats(), shards=sorted(self.models._tp_shard_cache))
+        return report
+
     # -- decode helpers (run in executor) ------------------------------
     def _feed(self, st: ConnectionState, samples, is_final: bool):
         with METRICS.stage("2pass_feed"):
@@ -187,7 +208,7 @@ class AsrWsServer:
         loop = asyncio.get_running_loop()
         if obj.get("action") == "stats":
             # observability extension (the reference has none, SURVEY §5)
-            await self._send(ws, {"stats": METRICS.report()})
+            await self._send(ws, {"stats": self.stats()})
             return
         if not st.started:
             if st.engine_refused and set(obj) <= {"is_speaking"}:
@@ -437,6 +458,10 @@ class AsrWsServer:
             st.engine_final = True
         self._engine_wakeup.set()
 
+    def _step(self):
+        with METRICS.stage("tick"):
+            self.engine.step()
+
     async def _engine_loop(self):
         """Engine loop. Event-driven, not busy-polling: when no slot has
         work and nothing is in flight, the loop parks on a wakeup event
@@ -468,14 +493,19 @@ class AsrWsServer:
                 async with self._engine_lock:
                     try:
                         await loop.run_in_executor(self.executor,
-                                                   self.engine.step)
+                                                   self._step)
                     except Exception:
                         log.exception(
                             "engine tick failure; serving continues")
                         await asyncio.sleep(0.05)
             # results may also arrive from the async pass-2 lane while no
-            # tick work is pending — poll every iteration
+            # tick work is pending — poll every iteration. drained() is
+            # read BEFORE the poll: a lane that posts its result between
+            # the two would otherwise have it sent after the is_final,
+            # which ends the client's read
             for sid, (ws, st) in list(self._engine_conns.items()):
+                done = (getattr(st, "engine_final", False)
+                        and self.engine.drained(sid))
                 results = self.engine.poll(sid)
                 for r in results:
                     payload = {"text": r["text"], "mode": r["mode"],
@@ -488,8 +518,7 @@ class AsrWsServer:
                         await self._send(ws, payload)
                     except Exception:
                         pass
-                if getattr(st, "engine_final", False) \
-                        and self.engine.drained(sid):
+                if done:
                     st.engine_final = False
                     try:
                         await self._send(ws, {
@@ -580,3 +609,6 @@ class AsrWsServer:
                 self.engine.shutdown()
             if self._offline_executor is not None:
                 self._offline_executor.shutdown(wait=False)
+            # the worker ranks leave serve_worker
+            if self.models.fanout is not None:
+                self.models.fanout.stop()

@@ -65,8 +65,10 @@ Phases, each of which fails the run if it fails:
               real socket on 127.0.0.1, driven by the reference client's
               messages (its first JSON, 9600-sample frames,
               {"is_speaking": false}): 8a 64 connections paced at 600 ms
-              a frame, each two bursts of 9.5-13.5 s between 2-4 s of
-              digital silence; 8b 128 unpaced connections of ~10 s; 8c a
+              a frame, each two bursts of 9.5-13.5 s after 2-4 s of
+              digital silence (P8A_BURSTS; one in P8A_WRAP_EVERY led by
+              silence so that its second segment's ring gather wraps);
+              8b 128 unpaced connections of ~10 s; 8c a
               60 s offline upload; 8d a 10 s online stream. Gates: one
               is_final per connection, last; one non-empty pass-2 result
               per burst with timestamps in the reference schema inside
@@ -193,10 +195,37 @@ Phases, each of which fails the run if it fails:
               over tp (logits 1e-4, the sharded prune's sets). Alone:
               python3 chip_smoke.py --phase 13
 
+ 14. serving the launcher's servers as processes, on 9a's dir (phase 3's
+   on       model with the hotword block) with phase 7's dirs: 14a
+   several  --tp-devices 1 (rank 0 through the fan-out, no worker)
+   cards    beside --tp-devices 0 on the same card: the 150 s and 270 s
+            uploads (#2, #3), 8 x 10 s uploads with hotwords of their
+            own and 4 paced connections 3 s apart (one final a burst)
+            equal at tp 1 (finals, timestamps, partials), peak memory
+            flat over the 8 recognizers, one shard a role, #1-#3
+            launched; SenseVoice (9b's dir, no engine) likewise on an
+            upload and a session; the fan-out's
+            broadcasts, bytes and lock wait, latencies beside tp 0; 14b
+            run_all_servers with a 2pass engine entry and an offline
+            entry at tp_devices 1: answers equal to 14a's, a killed child
+            restarted once, SIGTERM leaving no process; 14a-lane
+            in-process engines at tp 1 and tp 0 fed in lockstep, so both
+            decode the same lane batches (several chunks a call, wrapped
+            ring gathers): results equal, ring features equal to the
+            samples'. With two or more
+            cards, 14c: --tp-devices 2 and 4 (worker ranks on NCCL; upload
+            texts equal to the unsharded server's, timestamps counted),
+            --sp-devices (300 s past --sp-threshold 4096: token count
+            equal), a killed worker ending its server non-zero. Alone:
+            python3 chip_smoke.py --phase 14 (or 14c); 14a's load
+            control, two tp 1 and two tp 0 servers under uploads beside
+            connections started together (agreement measured, not
+            gated): python3 chip_smoke.py --phase 14x
+
 Prints the card's name and power limit, one JSON line of the native
 library's numbers ({"native": {...}}), one JSON line of kernel numbers
 ({"kernels": [...]}, with each kernel's launches on the offline path, in
-the 2pass session, in the engine run and on phase 9's to 13's paths),
+the 2pass session, in the engine run and on phase 9's to 14's paths),
 and as its last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 Exits non-zero, printing no result, without a CUDA device or outside a
@@ -283,7 +312,7 @@ VAD_DECIBEL_THRES = -30.0
 # phase 8: the server. The reference client's first message
 # (tests/test_protocol_replay.py:63-82) and its 9600-sample frames
 # (chunk_size [5, 10, 5], chunk_interval 10); the launcher's default engine
-# capacity; 64 paced connections of two bursts each, 128 unpaced ones of
+# capacity; 64 paced connections of PACED_BURSTS each, 128 unpaced ones of
 # ~10 s or more with one burst, one 60 s offline upload, one 10 s online stream
 ENGINE_CAPACITY = 128
 PACED_CONNECTIONS = 64
@@ -295,6 +324,11 @@ VAD_TAIL_SIL_MS = 350
 # the engine's traced windows (8a, 9c, 9d, 10c): a tick traces ~18k
 # kernels, and reading them back takes seconds a tick
 TRACE_TICKS = 3
+TRACE_AT_S = 8.0          # the traced window opens this far into a paced run
+PACED_BURSTS = 1          # 9c, 9d, 10c: bursts a paced connection
+P8A_BURSTS = 2            # 8a: a second segment a connection, and a ring
+P8A_WRAP_EVERY = 8        # gather that wraps: every 8th connection's
+                          # second burst crosses the audio ring's end
 UPLOAD_8K_SECONDS = 30.0  # 8c: an 8 kHz WAV upload, resampled to 16 kHz
 # the native host library against its plain Python versions: the
 # resampler on 60 s at two rates (interior limit: the JAX package's own,
@@ -1749,15 +1783,17 @@ def wav_bytes(wave, fs: int) -> bytes:
     return buf.getvalue()
 
 
-def burst_stream(seed: int, n_bursts: int, total_s: float = None):
+def burst_stream(seed: int, n_bursts: int, total_s: float = None,
+                 lead_s: float = 0.0):
     """Seeded client audio as phase 7 draws it: n_bursts speech-like
     bursts of 9.5-13.5 s, each after 2-4 s of digital silence, then a
-    silent tail (2 s, or up to total_s). Returns (s16le bytes, burst spans
-    in ms)."""
+    silent tail (2 s, or up to total_s); lead_s more seconds of silence
+    first. Returns (s16le bytes, burst spans in ms)."""
     import numpy as np
 
     rng = np.random.default_rng(seed)
-    parts, spans, at = [], [], 0
+    at = int(lead_s * FS)
+    parts, spans = [np.zeros(at, np.float32)], []
     for k in range(n_bursts):
         sil, sec = rng.uniform(2.0, 4.0), rng.uniform(9.5, 13.5)
         parts += [np.zeros(int(sil * FS), np.float32),
@@ -1768,6 +1804,17 @@ def burst_stream(seed: int, n_bursts: int, total_s: float = None):
     tail = 2.0 if total_s is None else max(2.0, total_s - at / FS)
     parts.append(np.zeros(int(tail * FS), np.float32))
     return s16_bytes(np.concatenate(parts)), spans
+
+
+def p8a_stream(seed: int, wrap: bool, ring: int):
+    """An 8a connection: burst_stream's P8A_BURSTS bursts; with wrap, led
+    by the silence that ends its last burst 1 s past the engine's audio
+    ring (`ring` samples), so that segment's ring gather wraps."""
+    data, spans = burst_stream(seed, P8A_BURSTS)
+    if not wrap:
+        return data, spans
+    lead = max(0.0, ring / FS + 1.0 - spans[-1][1] / 1000)
+    return burst_stream(seed, P8A_BURSTS, lead_s=lead)
 
 
 async def ws_client(port: int, name: str, data: bytes, mode: str,
@@ -2000,7 +2047,8 @@ def server_phase(model_dir: str, tmp: str, card: str):
     if not isinstance(models.itn, ChineseITN) or models.device.type != "cuda":
         fail("server: build_models did not give ITN models on the card")
     fcfg = models.asr_cfg.frontend
-    rec = {"ticks": [], "segs": {}, "lane": [], "fwd": [], "vad": []}
+    rec = {"ticks": [], "segs": {}, "lane": [], "fwd": [], "vad": [],
+           "wraps": 0}
     numbers = {"card": card}
 
     async def main():
@@ -2038,6 +2086,9 @@ def server_phase(model_dir: str, tmp: str, card: str):
             for sid, slot, fr in pairs:
                 rec["segs"].setdefault(conn_name(sid, slot), []).append(
                     (fr.global_start, fr.global_end, len(fr.data)))
+                # a segment across the audio ring's end: its gather wraps
+                rec["wraps"] += (fr.samp_start // eng._ring_samples
+                                 != (fr.samp_end - 1) // eng._ring_samples)
             return process(pairs, settled)
 
         forward = eng.offline.asr._forward
@@ -2078,8 +2129,10 @@ def server_phase(model_dir: str, tmp: str, card: str):
                                                      recording_reset)
         try:
             # -- 8a: 64 paced connections ----------------------------------
-            streams = [burst_stream(1000 + i, 2)
+            streams = [p8a_stream(1000 + i, i % P8A_WRAP_EVERY == 0,
+                                  eng._ring_samples)
                        for i in range(PACED_CONNECTIONS)]
+            rec["wraps"] = 0
             METRICS.reset()
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
@@ -2089,7 +2142,7 @@ def server_phase(model_dir: str, tmp: str, card: str):
             trace = {}
 
             async def traced_window():
-                await asyncio.sleep(15.0)
+                await asyncio.sleep(TRACE_AT_S)
                 n0 = len(rec["ticks"])
                 prof.start()
                 trace["t"] = time.perf_counter()
@@ -2116,6 +2169,10 @@ def server_phase(model_dir: str, tmp: str, card: str):
             ticks_a = list(rec["ticks"])
             fwd_a = list(rec["fwd"])
             lane_a = list(rec["lane"])
+            numbers["ring_wraps_8a"] = rec["wraps"]
+            if not rec["wraps"]:
+                fail("server: 8a: no pass-2 segment crossed the audio "
+                     "ring's end")
             partial, final = [], []
             for i, ((sends, msgs), (_, spans)) in enumerate(zip(paced,
                                                                 streams)):
@@ -2143,7 +2200,8 @@ def server_phase(model_dir: str, tmp: str, card: str):
                   f" / {numbers['partial_ms_p95']:.1f} ms; final p50/p95 "
                   f"{numbers['final_ms_p50']:.1f} / "
                   f"{numbers['final_ms_p95']:.1f} ms; pass-2 lane batches "
-                  f"{lane_a}; forwards (B, T) {fwd_a}; peak memory "
+                  f"{lane_a}; forwards (B, T) {fwd_a}; segments across "
+                  f"the ring's end {rec['wraps']}; peak memory "
                   f"{numbers['paced_peak_mem_gib']:.2f} GiB", flush=True)
             print_stages("8a")
             # every automaton step of 8a ran natively: one call a slot a
@@ -2334,7 +2392,7 @@ SVS_TP_BLOCKS = 20        # the tp stack of a converted SenseVoiceSmall
 SVS_BEAM = 10
 SVS_CONTEXT_WORDS = 5
 P9B_BEAM_SECONDS = 30.0   # 9b's longer beam segment against the Python spec
-P9_CONNECTIONS = 16       # 9c and 9d: paced connections, two bursts each
+P9_CONNECTIONS = 16       # 9c and 9d: paced connections, PACED_BURSTS each
 SVS_LANGS = ("zh", "en", "auto")
 HW_TOL = 1e-5             # compiled embeddings card vs CPU (of their range)
 
@@ -2362,6 +2420,50 @@ def hotword_list(n: int, seed: int) -> dict:
     return words
 
 
+def save_hotword_dir(tmp: str, gen) -> str:
+    """9a's dir, `hotword`: paraformer_large(timestamp=True, hotword=True)
+    with a converted HotwordConfig() compiler (no null row) and a
+    seg_dict, weights drawn from gen on the card."""
+    import numpy as np
+
+    from asr2pass_tpu_torch.config import HotwordConfig, paraformer_large
+    from asr2pass_tpu_torch.models import hotword, paraformer
+    from asr2pass_tpu_torch.runtime import model_zoo
+
+    cfg = paraformer_large(timestamp=True, hotword=True)
+    tokens = cjk_tokens(cfg.vocab_size)
+    d = cfg.frontend.lfr_dim
+    cmvn = (np.full(d, -12.0, np.float32), np.full(d, 0.25, np.float32))
+    hw_dir = os.path.join(tmp, "hotword")
+    model_zoo.save_offline_bundle(
+        hw_dir, paraformer.init(cfg, gen, "cuda"), cfg, tokens, cmvn,
+        hotword_params=hotword.init(HotwordConfig(), gen, "cuda",
+                                    learned_null=False))
+    with open(os.path.join(hw_dir, "seg_dict"), "w", encoding="utf-8") as f:
+        for k, w in enumerate(LATIN_WORDS[:-1]):
+            f.write(f"{w}\t{tokens[10 + 2 * k]} {tokens[11 + 2 * k]}\n")
+    return hw_dir
+
+
+def save_svs_dir(tmp: str, gen) -> str:
+    """9b's dir, `svs`: sensevoice_small() with a SVS_TP_BLOCKS-block tp
+    stack, weights drawn from gen on the card."""
+    import numpy as np
+
+    from asr2pass_tpu_torch.config import sensevoice_small
+    from asr2pass_tpu_torch.models import sensevoice
+    from asr2pass_tpu_torch.runtime import model_zoo
+
+    cfg = sensevoice_small()
+    d = cfg.frontend.lfr_dim
+    cmvn = (np.full(d, -12.0, np.float32), np.full(d, 0.25, np.float32))
+    svs_dir = os.path.join(tmp, "svs")
+    model_zoo.save_svs_bundle(
+        svs_dir, sensevoice.init(cfg, gen, "cuda", tp_blocks=SVS_TP_BLOCKS),
+        cfg, cjk_tokens(cfg.vocab_size), cmvn)
+    return svs_dir
+
+
 def hotword_phase(tmp: str, gen, card: str):
     """9a. The deployed hotword model: paraformer_large(timestamp=True,
     hotword=True) with a converted hotword compiler (no null row) and a
@@ -2370,30 +2472,17 @@ def hotword_phase(tmp: str, gen, card: str):
     import numpy as np
     import torch
 
-    from asr2pass_tpu_torch.config import HotwordConfig, paraformer_large
     from asr2pass_tpu_torch.frontend.fbank import num_frames
-    from asr2pass_tpu_torch.models import hotword, paraformer
+    from asr2pass_tpu_torch.models import hotword
     from asr2pass_tpu_torch.ops import attention as att
-    from asr2pass_tpu_torch.runtime import model_zoo
     from asr2pass_tpu_torch.runtime.offline_asr import ParaformerOffline
     from asr2pass_tpu_torch.runtime.streaming_frontend import (
         offline_frontend_device)
     from asr2pass_tpu_torch.server.run_server import build_models, parser
 
     t0 = time.perf_counter()
-    cfg = paraformer_large(timestamp=True, hotword=True)
-    tokens = cjk_tokens(cfg.vocab_size)
-    d = cfg.frontend.lfr_dim
-    cmvn = (np.full(d, -12.0, np.float32), np.full(d, 0.25, np.float32))
     with CLOCK.part("build"):
-        hw_dir = os.path.join(tmp, "hotword")
-        model_zoo.save_offline_bundle(
-            hw_dir, paraformer.init(cfg, gen, "cuda"), cfg, tokens, cmvn,
-            hotword_params=hotword.init(HotwordConfig(), gen, "cuda",
-                                        learned_null=False))
-        with open(os.path.join(hw_dir, "seg_dict"), "w", encoding="utf-8") as f:
-            for k, w in enumerate(LATIN_WORDS[:-1]):
-                f.write(f"{w}\t{tokens[10 + 2 * k]} {tokens[11 + 2 * k]}\n")
+        hw_dir = save_hotword_dir(tmp, gen)
     args = parser().parse_args([
         "--model-dir", hw_dir,
         "--online-model-dir", os.path.join(tmp, "online"),
@@ -2546,7 +2635,6 @@ def sensevoice_phase(tmp: str, gen, card: str):
     """9b. sensevoice_small() with a 20-block tp stack, saved as an svs
     dir and loaded back. Returns (svs dir, launches of the 60/150/270 s
     run, numbers)."""
-    import numpy as np
     import torch
 
     from asr2pass_tpu_torch.config import sensevoice_small
@@ -2566,13 +2654,8 @@ def sensevoice_phase(tmp: str, gen, card: str):
     t0 = time.perf_counter()
     cfg = sensevoice_small()
     tokens = cjk_tokens(cfg.vocab_size)
-    d = cfg.frontend.lfr_dim
-    cmvn = (np.full(d, -12.0, np.float32), np.full(d, 0.25, np.float32))
     with CLOCK.part("build"):
-        svs_dir = os.path.join(tmp, "svs")
-        model_zoo.save_svs_bundle(
-            svs_dir, sensevoice.init(cfg, gen, "cuda", tp_blocks=SVS_TP_BLOCKS),
-            cfg, tokens, cmvn)
+        svs_dir = save_svs_dir(tmp, gen)
         sb = model_zoo.load_svs_bundle(svs_dir)
         rec = SenseVoiceOffline(sb.params, sb.cfg, sb.vocab, cmvn=sb.cmvn)
     n_params = sum(p.numel() for p in rec.model.parameters())
@@ -2754,7 +2837,8 @@ def p9_server(models, args, label: str, firsts: list, card: str):
     rec = {"ticks": [], "segs": {}, "fwd": [], "pairs": [], "vad": [],
            "uniform": [], "lms": [], "vad_by": {}}
     numbers = {"card": card}
-    streams = [burst_stream(3000 + i, 2) for i in range(len(firsts))]
+    streams = [burst_stream(3000 + i, PACED_BURSTS)
+               for i in range(len(firsts))]
 
     async def main():
         server = AsrWsServer(
@@ -2836,7 +2920,7 @@ def p9_server(models, args, label: str, firsts: list, card: str):
         trace = {}
 
         async def traced_window():
-            await asyncio.sleep(15.0)
+            await asyncio.sleep(TRACE_AT_S)
             n0 = len(rec["ticks"])
             prof.start()
             t1 = time.perf_counter()
@@ -2941,7 +3025,7 @@ def hotword_server_phase(models, args, card: str):
     hotworded = {f"c{i}" for i, h in enumerate(hots) if h}
     wrong = [(n, hw) for n, hw, _, _ in rec["pairs"]
              if hw != (n in hotworded)]
-    if wrong or len(rec["pairs"]) != 2 * P9_CONNECTIONS \
+    if wrong or len(rec["pairs"]) != PACED_BURSTS * P9_CONNECTIONS \
             or not all(rec["uniform"]):
         fail(f"server: 9c hotword embeddings reached pass 2 for the wrong "
              f"segments {wrong} ({len(rec['pairs'])} segments; forwards "
@@ -3012,7 +3096,7 @@ def svs_server_phase(args, svs_dir: str, card: str):
     wrong = [p for p in rec["pairs"]
              if p[0] is None or p[2] != langs[int(p[0][1:])]
              or p[3] != (hots[int(p[0][1:])] is not None)]
-    if wrong or len(rec["pairs"]) != 2 * P9_CONNECTIONS:
+    if wrong or len(rec["pairs"]) != PACED_BURSTS * P9_CONNECTIONS:
         fail(f"server: 9d segments reached SenseVoice with the wrong "
              f"options: {wrong}")
     # each hotworded segment took the native beam, once; the others greedy
@@ -5872,6 +5956,947 @@ def phase13_alone(gen, card: str, t_start: float, one_card: bool) -> int:
     return 0
 
 
+P14_CAPACITY = 4           # the Paraformer servers' --engine-capacity
+P14_CONNECTIONS = 4        # paced 2pass connections a server, one burst each
+P14_BURST_S = 10.0         # each after 2 s of silence, 2 s of silence after
+P14_STAGGER_S = 3.0        # between the connections' starts: longer than a
+                           # pass-2 lane call, so each segment decodes alone
+P14_UPLOADS = (150.0, 270.0)   # through #2 and #3 (one VAD segment each)
+P14_MEM_UPLOADS = 8        # 10 s uploads, each with hotwords of its own
+P14_MEM_SECONDS = 10.0
+P14_MEM_SHARE = 0.25       # growth over 8 uploads, of one model's bytes
+P14_SVS_SECONDS = 60.0
+P14_DIST_TIMEOUT_S = 60    # the servers' --dist-timeout
+P14_WAIT_S = 600           # a server's start (its models loaded)
+P14_DEVICE = "cuda"        # the servers' --device
+P14_SP_SECONDS = 300.0     # 14c: T ~ 5000 LFR frames, past the threshold
+P14_SP_THRESHOLD = 4096
+P14_TPS = (2, 4)
+P14_CPU_SCALE = 1.0        # audio lengths (the CPU rehearsal shrinks them)
+# 14a-lane: four streams through in-process engines at tp 1 and tp 0, fed
+# in lockstep, so both lane calls carry the same batches: each stream's two
+# bursts (s) end together, at P14_LANE_ENDS, so one lane call decodes four
+# segments in three chunks (two rows in one; c0 hotworded). Segments of
+# bucket 64 and 128 are gathered from the audio ring (a 256 one is past
+# its freshness margin and takes the samples); the second bursts end past
+# the ring's 32.8 s, so their gathers wrap
+P14_LANE_BURSTS = ((2.5, 6.0), (6.0, 2.5), (6.0, 2.5), (12.0, 6.0))
+P14_LANE_ENDS = (18.0, 34.0)
+P14_LANE_TAIL_S = 2.5
+P14_LANE_FEATS_TOL = 1e-3  # ring-gathered features against the samples'
+
+
+def free_port() -> int:
+    import socket
+
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    return port
+
+
+class P14Server:
+    """A server process (`python -m ...run_server`, or the supervisor) in
+    a session of its own, so that stop() ends its worker ranks too; its
+    output goes to <tmp>/p14_<name>.log."""
+
+    def __init__(self, tmp: str, name: str, argv: list, port: int = None,
+                 module: str = "asr2pass_tpu_torch.server.run_server"):
+        self.name, self.port = name, port
+        self.log = os.path.join(tmp, f"p14_{name}.log")
+        env = dict(os.environ, PYTHONPATH=REPO)
+        with open(self.log, "w") as out:
+            self.proc = subprocess.Popen(
+                [sys.executable, "-m", module, *argv], cwd=REPO, env=env,
+                stdout=out, stderr=subprocess.STDOUT, start_new_session=True)
+        self.t0 = time.perf_counter()
+
+    @classmethod
+    def server(cls, tmp: str, name: str, flags: list):
+        port = free_port()
+        return cls(tmp, name, ["--host", "127.0.0.1", "--port", str(port),
+                               "--device", P14_DEVICE, "--dist-timeout",
+                               str(P14_DIST_TIMEOUT_S), *flags], port)
+
+    def tail(self, n: int = 3000) -> str:
+        with open(self.log, errors="replace") as f:
+            return f.read()[-n:]
+
+    def wait_up(self, port: int = None, proc=None):
+        """Until `port` (this server's by default) takes connections; fail
+        when the process ends first."""
+        import socket
+
+        port = port or self.port
+        deadline = time.perf_counter() + P14_WAIT_S
+        while time.perf_counter() < deadline:
+            if self.proc.poll() is not None:
+                fail(f"14: {self.name} exited {self.proc.returncode}:\n"
+                     f"{self.tail()}")
+            try:
+                socket.create_connection(("127.0.0.1", port),
+                                         timeout=1).close()
+                return time.perf_counter() - self.t0
+            except OSError:
+                time.sleep(0.2)
+        fail(f"14: {self.name} not listening after {P14_WAIT_S} s:\n"
+             f"{self.tail()}")
+
+    def stop(self, timeout: float = 60.0):
+        """SIGTERM, then the session's SIGKILL; returns the exit code."""
+        import signal
+
+        if self.proc.poll() is None:
+            self.proc.send_signal(signal.SIGTERM)
+        try:
+            rc = self.proc.wait(timeout=timeout)
+        except subprocess.TimeoutExpired:
+            rc = None
+        try:
+            os.killpg(self.proc.pid, signal.SIGKILL)
+        except ProcessLookupError:
+            pass
+        self.proc.wait()
+        return rc
+
+    def left(self) -> bool:
+        """Whether a process of this server's session is still alive."""
+        try:
+            os.killpg(self.proc.pid, 0)
+            return True
+        except ProcessLookupError:
+            return False
+
+
+async def p14_stats(port: int) -> dict:
+    import websockets
+
+    async with websockets.connect(f"ws://127.0.0.1:{port}") as ws:
+        await ws.send(json.dumps({"action": "stats"}))
+        return json.loads(await ws.recv())["stats"]
+
+
+async def p14_upload(port: int, name: str, wave, **fields):
+    """One offline upload; returns (text, timestamp string, seconds)."""
+    t0 = time.perf_counter()
+    _, msgs = await ws_client(
+        port, name, s16_bytes(wave), "offline",
+        first=reference_first_message("offline", name, **{
+            "hotwords": "", **fields}))
+    ms = [m for _, m in msgs]
+    if len(ms) != 1 or ms[0]["mode"] != "offline" or not ms[0]["is_final"]:
+        fail(f"14: upload {name} gave {ms}")
+    return ms[0]["text"], ms[0].get("timestamp"), time.perf_counter() - t0
+
+
+def p14_stream_view(msgs) -> dict:
+    """What a 2pass connection's results carry, timing-free: the
+    concatenated partials and each final's text and timestamps."""
+    ms = [m for _, m in msgs]
+    return {"partial": "".join(m["text"] for m in ms
+                               if m["mode"] == "2pass-online"),
+            "finals": [[m["text"], m.get("timestamp")] for m in ms
+                       if m["mode"] == "2pass-offline"]}
+
+
+def p14_check_stream(label: str, name: str, msgs, spans, stamps=True):
+    """One is_final, the last message; one non-empty pass-2 result per
+    burst (with timestamps where the pass 2 has them); partials."""
+    ms = [m for _, m in msgs]
+    finals = [i for i, m in enumerate(ms) if m.get("is_final")]
+    offs = [m for m in ms if m["mode"] == "2pass-offline"]
+    if (finals != [len(ms) - 1] or len(offs) != len(spans)
+            or any(not m["text"] or ("timestamp" in m) != stamps
+                   for m in offs)
+            or not any(m["mode"] == "2pass-online" and m["text"]
+                       for m in ms)):
+        fail(f"14: {label} {name}: finals at {finals} of {len(ms)}, "
+             f"{len(offs)} pass-2 results for {len(spans)} bursts: "
+             f"{[m for m in ms if m['mode'] != '2pass-online']}")
+
+
+def p14_agreement(got: list, want: list) -> dict:
+    """How many connections' partials, finals and timestamps are equal,
+    and where the first differing final text differs."""
+    out = {"partials": 0, "finals": 0, "stamps": 0, "of": len(got),
+           "first_diff": None}
+    for g, w in zip(got, want):
+        g, w = p14_stream_view(g), p14_stream_view(w)
+        out["partials"] += g["partial"] == w["partial"]
+        texts = ([f[0] for f in g["finals"]], [f[0] for f in w["finals"]])
+        out["finals"] += texts[0] == texts[1]
+        out["stamps"] += g["finals"] == w["finals"]
+        if texts[0] != texts[1] and out["first_diff"] is None:
+            a, b = "".join(texts[0]), "".join(texts[1])
+            k = next((i for i, (x, y) in enumerate(zip(a, b)) if x != y),
+                     min(len(a), len(b)))
+            out["first_diff"] = [k, len(a), len(b)]
+    return out
+
+
+def p14_launch_delta(before: dict, after: dict) -> dict:
+    return {name: {dt: after[name][dt] - before.get(name, {}).get(dt, 0)
+                   for dt in by} for name, by in after.items()}
+
+
+def p14_dirs(tmp: str) -> dict:
+    return {k: os.path.join(tmp, k)
+            for k in ("hotword", "online", "vad", "punc", "svs")}
+
+
+def p14_flags(d: dict, svs: bool = False) -> list:
+    """A Paraformer server with the engine, or a SenseVoice one without:
+    its 2pass connection runs a session, pass 2 at one segment a call."""
+    flags = ["--model-dir", d["hotword"], "--online-model-dir", d["online"],
+             "--vad-dir", d["vad"], "--punc-dir", d["punc"]]
+    if svs:
+        return flags + ["--svs-dir", d["svs"]]
+    return flags + ["--engine", "--engine-capacity", str(P14_CAPACITY)]
+
+
+def p14_requests():
+    """14a's requests: per paced connection (its audio and burst spans,
+    its first message), the memory gate's uploads (audio, hotwords), the
+    long uploads."""
+    import numpy as np
+
+    quiet = np.zeros(2 * FS, np.float32)
+    streams = [(s16_bytes(np.concatenate(
+        [quiet, synth_audio(P14_BURST_S, 1400 + i), quiet])),
+        [(2000, 2000 + int(P14_BURST_S * 1000))])
+        for i in range(P14_CONNECTIONS)]
+    firsts = [reference_first_message(
+        "2pass", f"c{i}", hotwords=json.dumps(hotword_list(5, 140))
+        if i == 0 else "") for i in range(P14_CONNECTIONS)]
+    mem = [(synth_audio(P14_MEM_SECONDS * P14_CPU_SCALE, 140 + i),
+            json.dumps(hotword_list(3, 150 + i)))
+           for i in range(P14_MEM_UPLOADS)]
+    longs = [synth_audio(s * P14_CPU_SCALE, 160 + k)
+             for k, s in enumerate(P14_UPLOADS)]
+    return streams, firsts, mem, longs
+
+
+async def p14_uploads(port: int, longs):
+    """One server's long uploads (one VAD segment each), one at a time."""
+    return [await p14_upload(port, f"long{k}", w, vad_max_len=400000)
+            for k, w in enumerate(longs)]
+
+
+async def p14_clients(port: int, streams, firsts,
+                      stagger: float = P14_STAGGER_S):
+    """One server's paced connections, `stagger` s apart."""
+    import asyncio
+
+    return await asyncio.gather(*[
+        ws_client(port, f"c{i}", data, "2pass", PACE_S, i * stagger,
+                  first=first)
+        for i, ((data, _), first) in enumerate(zip(streams, firsts))])
+
+
+async def p14_drive(port: int, streams, firsts, longs):
+    """A server's long uploads, then its paced connections. Returns
+    (clients, uploads)."""
+    ups = await p14_uploads(port, longs)
+    return await p14_clients(port, streams, firsts), ups
+
+
+def p14_supervisor_yaml(tmp: str, d: dict, ports) -> str:
+    """14b's fleet: a 2pass engine server and an offline server with
+    tp_devices 1, both on card 0."""
+    where = ("    cpu: true\n" if P14_DEVICE == "cpu"
+             else "    device: 0\n")
+    common = (f"    model_dir: {d['hotword']}\n    vad_dir: {d['vad']}\n"
+              f"    punc_dir: {d['punc']}\n    itn: true\n" + where)
+    text = ("servers:\n"
+            f"  - name: p14-2pass\n    port: {ports[0]}\n    mode: 2pass\n"
+            + common + f"    online_model_dir: {d['online']}\n"
+            f"    engine: true\n    engine_capacity: {P14_CAPACITY}\n"
+            f"  - name: p14-offline\n    port: {ports[1]}\n"
+            "    mode: offline\n" + common + "    tp_devices: 1\n"
+            "restart:\n  autorestart: true\n  startretries: 3\n")
+    path = os.path.join(tmp, "p14_servers.yaml")
+    with open(path, "w") as f:
+        f.write(text)
+    return path
+
+
+def p14_child_pid(sup: "P14Server", name: str, nth: int = 0) -> int:
+    marker = f"started {name} on port "
+    lines = [ln for ln in sup.tail(100000).splitlines()
+             if ln.startswith(marker)]
+    return int(lines[nth].split("(pid ")[1].rstrip(")"))
+
+
+def p14_start(tmp: str) -> dict:
+    """Start 14a's servers and 14b's supervisor without waiting for them
+    (the whole script starts them before phase 13, whose card work then
+    hides their start-up)."""
+    d = p14_dirs(tmp)
+    ports = (free_port(), free_port())
+    return {"servers": {
+                "tp1": P14Server.server(tmp, "tp1", p14_flags(d) + [
+                    "--tp-devices", "1"]),
+                "tp0": P14Server.server(tmp, "tp0", p14_flags(d)),
+                "svs_tp1": P14Server.server(tmp, "svs_tp1", p14_flags(
+                    d, svs=True) + ["--tp-devices", "1"]),
+                "svs_tp0": P14Server.server(tmp, "svs_tp0",
+                                            p14_flags(d, svs=True))},
+            "ports": ports,
+            "sup": P14Server(tmp, "supervisor", [
+                "--config", p14_supervisor_yaml(tmp, d, ports)],
+                module="asr2pass_tpu_torch.server.run_all_servers")}
+
+
+def p14_stop(fleet: dict) -> dict:
+    """Stop every process of p14_start's fleet; their exit codes."""
+    rcs = {k: s.stop() for k, s in fleet["servers"].items()}
+    rcs["supervisor"] = fleet["sup"].stop()
+    return rcs
+
+
+def phase14(tmp: str, card: str, one_card: bool = True, fleet=None):
+    """Phase 14: serving on torch.distributed through the port's launcher
+    and supervisor, as processes. 14a: on one card, --tp-devices 1 (rank 0
+    through the fan-out, no workers) against --tp-devices 0, each on 9a's
+    dir (paraformer_large with timestamps and the hotword block) with
+    phase 7's dirs, and SenseVoice (9b's dir) the same way; 14b: the
+    supervisor with a 2pass engine entry and an offline entry at
+    tp_devices 1 on card 0, a killed child restarted, SIGTERM. With two
+    or more cards, 14c: --tp-devices 2 and 4 with real worker ranks, an
+    --sp-devices server on a 300 s upload, and a killed worker.
+    one_card=False runs 14c alone; `fleet`, p14_start's, when it has
+    started 14a's servers. Returns ({path: launches}, numbers)."""
+    import torch
+
+    d = p14_dirs(tmp)
+    numbers = {"card": card}
+    launches = {}
+    torch.cuda.empty_cache()
+    if one_card:
+        with CLOCK.phase("14ab"):
+            launches["tp14"], numbers["14a"], numbers["14b"] = p14_one_card(
+                tmp, d, card, fleet or p14_start(tmp))
+        with CLOCK.phase("14a-lane"):
+            launches["lane14"], numbers["14a-lane"] = p14_lane(tmp, d, card)
+    cards = torch.cuda.device_count()
+    if cards > 1:
+        with CLOCK.phase("14c"):
+            numbers["14c"] = p14_multi_card(tmp, d, card, cards)
+    return launches, numbers
+
+
+def p14_one_card(tmp: str, d: dict, card: str, fleet: dict):
+    """14a and 14b (phase14) on p14_start's fleet, which they stop.
+    Returns (tp 1 server's launches, numbers of 14a, of 14b)."""
+    import asyncio
+    import signal
+
+    t0 = time.perf_counter()
+    streams, firsts, mem, longs = p14_requests()
+    servers, ports, sup = fleet["servers"], fleet["ports"], fleet["sup"]
+    a, b = {"card": card}, {"card": card}
+    try:
+        with CLOCK.part("build"):
+            a["start_s"] = {k: s.wait_up() for k, s in servers.items()}
+            b["start_s"] = [sup.wait_up(p) for p in ports]
+        print(f"14: servers up, s since start {a['start_s']}, the "
+              f"supervisor's {b['start_s']}", flush=True)
+        port = {k: s.port for k, s in servers.items()}
+
+        async def one_and_eight(p):
+            """The memory gate's uploads on one server: allocated after
+            the first and after all."""
+            res, mems = [], []
+            for i, (wave, hot) in enumerate(mem):
+                res.append(await p14_upload(p, f"m{i}", wave, hotwords=hot))
+                if i in (0, len(mem) - 1):
+                    mems.append((await p14_stats(p)).get("memory"))
+            return res, mems
+
+        async def part0():
+            return await asyncio.gather(*[
+                p14_upload(p, f"b{k}", mem[0][0], hotwords=mem[0][1])
+                for k, p in enumerate(ports)])
+
+        async def part1():
+            before = await asyncio.gather(*[p14_stats(port[k])
+                                            for k in ("tp1", "tp0")])
+            got = await asyncio.gather(one_and_eight(port["tp1"]),
+                                       one_and_eight(port["tp0"]))
+            return before, got
+
+        # 14b: each entry answers once; a child killed then restarts while
+        # 14a's traffic runs
+        b0, b1 = asyncio.run(part0())
+        killed = p14_child_pid(sup, "p14-offline")
+        os.kill(killed, signal.SIGKILL)
+        t_kill = time.perf_counter()
+        t1 = time.perf_counter()
+        before, (m1, m0) = asyncio.run(part1())
+        a["memory_uploads_s"] = time.perf_counter() - t1
+
+        async def part2():
+            svs = [p14_drive(port[k], streams[:1], firsts[:1], [
+                synth_audio(P14_SVS_SECONDS * P14_CPU_SCALE, 170)])
+                for k in ("svs_tp1", "svs_tp0")]
+            ups = await asyncio.gather(p14_uploads(port["tp1"], longs),
+                                       p14_uploads(port["tp0"], longs))
+            got = await asyncio.gather(
+                p14_clients(port["tp1"], streams, firsts),
+                p14_clients(port["tp0"], streams, firsts), *svs)
+            stats = await asyncio.gather(*[p14_stats(port[k])
+                                           for k in servers])
+            return [(got[0], ups[0]), (got[1], ups[1])] + got[2:], dict(
+                zip(servers, stats))
+
+        t1 = time.perf_counter()
+        (g1, g0, s1, s0), stats = asyncio.run(part2())
+        a["traffic_s"] = time.perf_counter() - t1
+        # 14b after the restart: the offline entry answers again
+        while "restart 1/3" not in sup.tail(100000):
+            if time.perf_counter() - t_kill > P14_WAIT_S:
+                fail(f"14b: p14-offline not restarted:\n{sup.tail()}")
+            time.sleep(0.2)
+        sup.wait_up(ports[1])
+        b["restart_s"] = time.perf_counter() - t_kill
+        b2 = asyncio.run(p14_upload(ports[1], "b2", mem[0][0],
+                                    hotwords=mem[0][1]))
+    finally:
+        rcs = p14_stop(fleet)
+    print(f"14: exit codes {rcs}", flush=True)
+    if any(rc != 0 for rc in rcs.values()) or any(
+            s.left() for s in list(servers.values()) + [sup]):
+        fail(f"14: a server did not stop cleanly: {rcs}")
+    # -- 14a gates ----------------------------------------------------------
+    for label, (clients, ups) in (("tp1", g1), ("tp0", g0)):
+        for i, ((_, msgs), (_, spans)) in enumerate(zip(clients, streams)):
+            p14_check_stream(label, f"c{i}", msgs, spans)
+    # tp 1 is bit-equal to tp 0 where both decode the same batches: every
+    # upload (one segment a forward), the SenseVoice session, and the
+    # paced connections, whose segments end P14_STAGGER_S apart, so that
+    # each lane call decodes one (with the long uploads running at the
+    # same time, most connections' results differed between the two)
+    ups = {k: [u[:2] for u in g[1]] for k, g in (("tp1", g1), ("tp0", g0))}
+    if ups["tp1"] != ups["tp0"] or not all(u[0] and u[1]
+                                           for u in ups["tp1"]):
+        fail(f"14a: the long uploads differ at tp 1 or are empty: {ups}")
+    if [r[:2] for r in m1[0]] != [r[:2] for r in m0[0]] or not all(
+            r[0] for r in m1[0]):
+        fail(f"14a: the uploads differ or are empty: {m1[0]} {m0[0]}")
+    p14_check_stream("svs_tp1", "c0", s1[0][0][1], streams[0][1],
+                     stamps=False)
+    if s1[1][0][:2] != s0[1][0][:2] or not s1[1][0][0]:
+        fail(f"14a: SenseVoice's upload at tp 1 differs from tp 0: "
+             f"{s1[1][0][:2]} {s0[1][0][:2]}")
+    a["streams_equal"] = p14_agreement(
+        [m for _, m in g1[0]] + [s1[0][0][1]],
+        [m for _, m in g0[0]] + [s0[0][0][1]])
+    if any(a["streams_equal"][k] != a["streams_equal"]["of"]
+           for k in ("partials", "finals", "stamps")):
+        fail(f"14a: the paced connections differ at tp 1 from tp 0: "
+             f"{a['streams_equal']}")
+    fan = stats["tp1"].get("fanout") or {}
+    if fan.get("shards") != ["asr"] or stats["svs_tp1"].get(
+            "fanout", {}).get("shards") != ["svs"] or "fanout" in stats["tp0"]:
+        fail(f"14a: shards held {fan.get('shards')}, "
+             f"{stats['svs_tp1'].get('fanout')}")
+    mem1 = m1[1]
+    a["memory"] = {"tp1": mem1, "tp0": m0[1]}
+    if P14_DEVICE != "cpu":
+        from asr2pass_tpu_torch.runtime.model_zoo import load_offline_bundle
+
+        nbytes = sum(p.numel() * p.element_size() for p in
+                     load_offline_bundle(d["hotword"]).params.values())
+        grew = mem1[1]["max_allocated"] - mem1[0]["max_allocated"]
+        a["memory"]["model_bytes"] = nbytes
+        a["memory"]["grew_after_8"] = grew
+        if grew > P14_MEM_SHARE * nbytes:
+            fail(f"14a: peak memory grew {grew} B over {P14_MEM_UPLOADS} "
+                 f"uploads with their own recognizers ({nbytes} B a model)")
+    delta = p14_launch_delta(before[0].get("launches", {}),
+                             stats["tp1"].get("launches", {}))
+    a["launches"] = {"tp1": delta, "tp0": p14_launch_delta(
+        before[1].get("launches", {}), stats["tp0"].get("launches", {}))}
+    # latencies: the paced connections' partials and finals, the tick
+    for k, (clients, _) in (("tp1", g1), ("tp0", g0)):
+        partial, final = [], []
+        for (sends, msgs), (_, spans) in zip(clients, streams):
+            p, f = server_latencies(sends, msgs, spans)
+            partial += p
+            final += f
+        st = stats[k]["stages"]
+        a[k] = {"partial_ms_p50_p95": [_pct(partial, 50), _pct(partial, 95)],
+                "final_ms_p50_p95": [_pct(final, 50), _pct(final, 95)],
+                "tick_ms_p50_p95": [st["tick"]["p50_ms"],
+                                    st["tick"]["p95_ms"]]
+                if "tick" in st else None,
+                "p2_recognize_ms_p50_p95": [
+                    st["p2_recognize"]["p50_ms"], st["p2_recognize"]["p95_ms"]]
+                if "p2_recognize" in st else None,
+                "uploads_s": [u[2] for u in (g1 if k == "tp1" else g0)[1]]}
+    a["fanout"] = {k: {f: stats[k]["fanout"][f] for f in (
+        "calls", "broadcasts", "bytes", "broadcasts_a_call", "bytes_a_call",
+        "lock_wait_ms", "pings")} for k in ("tp1", "svs_tp1")}
+    print(f"14a: tp 1 = tp 0 on the "
+          f"{', '.join(f'{s:.0f}' for s in P14_UPLOADS)} s uploads, "
+          f"{P14_MEM_UPLOADS} uploads with their own hotwords and "
+          f"SenseVoice's upload, and on {P14_CONNECTIONS} paced "
+          f"connections (c0 hotworded) and SenseVoice's, each one final a "
+          f"burst: {json.dumps(a['streams_equal'])}; fan-out "
+          f"{json.dumps(a['fanout'])}; "
+          f"memory {json.dumps(a['memory'])}; launches {a['launches']}; "
+          f"tp 1 {a['tp1']}, tp 0 {a['tp0']} on {card}", flush=True)
+    if P14_DEVICE != "cpu":
+        want = [("mh_flash_attention", "float32"), ("_attention_ss",
+                 "float32"), ("_attention_flash", "float32")]
+        if any(delta.get(n, {}).get(dt, 0) <= 0 for n, dt in want):
+            fail(f"14a: the tp 1 server's launches {delta}")
+    # -- 14b gates ----------------------------------------------------------
+    b.update(killed_pid=killed, results_equal=[
+        b0[:2] == m1[0][0][:2], b1[:2] == m1[0][0][:2],
+        b2[:2] == m1[0][0][:2]])
+    log = sup.tail(100000)
+    if not all(b["results_equal"]) or log.count("restart ") != 1:
+        fail(f"14b: results {b['results_equal']}, restarts "
+             f"{log.count('restart ')}:\n{log[-3000:]}")
+    pids = [int(ln.split("(pid ")[1].rstrip(")")) for ln in log.splitlines()
+            if ln.startswith("started ")]
+    for pid in pids:
+        try:
+            os.kill(pid, 0)
+            fail(f"14b: process {pid} is left after SIGTERM")
+        except ProcessLookupError:
+            pass
+    b["children"] = len(pids)
+    print(f"14b: the supervisor's 2pass and tp-1 offline entries answered "
+          f"as 14a; p14-offline killed, restarted once in "
+          f"{b['restart_s']:.1f} s and answered again; SIGTERM left none of "
+          f"its {len(pids)} processes; {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    return delta, a, b
+
+
+def p14_lane_waves():
+    """14a-lane's streams (P14_LANE_BURSTS ending at P14_LANE_ENDS), on
+    the PCM grid a client's s16 frames give."""
+    import numpy as np
+
+    waves = []
+    for i, bursts in enumerate(P14_LANE_BURSTS):
+        parts, at = [], 0.0
+        for k, (sec, end) in enumerate(zip(bursts, P14_LANE_ENDS)):
+            parts += [np.zeros(int((end - sec - at) * FS), np.float32),
+                      synth_audio(sec, 1500 + 10 * i + k)]
+            at = end
+        parts.append(np.zeros(int(P14_LANE_TAIL_S * FS), np.float32))
+        w = np.concatenate(parts)
+        waves.append(np.round(np.clip(w, -1, 1) * 32767).astype(np.float32)
+                     / 32768.0)
+    return waves
+
+
+def p14_lane_run(models, waves, hw_emb, chunks=None) -> list:
+    """The streams through a StreamEngine (pass 2 in the tick) in 600 ms
+    messages, one a stream a tick, until drained; per stream its
+    partials and [final, timestamps]. With `chunks`, each lane chunk's
+    ring-gathered features are held against the front-end on the
+    segments' samples: (rows, bb, bucket, wrapped, max_abs_err, or None
+    for a chunk that took the samples) appended."""
+    import numpy as np
+
+    from asr2pass_tpu_torch.frontend.fbank import num_frames
+    from asr2pass_tpu_torch.frontend.lfr import lfr_len
+    from asr2pass_tpu_torch.runtime import streaming_frontend as sf
+    from asr2pass_tpu_torch.runtime.engine import StreamEngine
+
+    eng = StreamEngine(models, capacity=P14_CAPACITY)
+    if chunks is not None:
+        ring_override = eng._ring_feats_override
+        asr = eng.offline.asr
+        fcfg, (means, vars_) = asr.cfg.frontend, asr.cmvn
+
+        def checked(pairs):
+            inner = ring_override(pairs)
+            frames = [fr for _, _, fr in pairs]
+
+            def override(idxs, bucket, bb):
+                feats = inner(idxs, bucket, bb)
+                need = sf.offline_window_samples(fcfg, bucket)
+                wrapped = any(frames[i].samp_start % eng._ring_samples
+                              + need > eng._ring_samples for i in idxs)
+                if feats is None:
+                    chunks.append((len(idxs), bb, bucket, wrapped, None))
+                    return None
+                ref = sf.offline_frontend_device(
+                    [frames[i].data for i in idxs],
+                    [num_frames(len(frames[i].data), fcfg) for i in idxs],
+                    bucket, fcfg, means, vars_, batch_b=bb,
+                    device=asr.device)
+                err = 0.0
+                for row, i in enumerate(idxs):
+                    n = lfr_len(num_frames(len(frames[i].data), fcfg),
+                                fcfg.lfr_m, fcfg.lfr_n)
+                    err = max(err, float((feats[row, :n] - ref[row, :n])
+                                         .abs().max()))
+                chunks.append((len(idxs), bb, bucket, wrapped, err))
+                return feats
+
+            return override
+
+        eng._ring_feats_override = checked
+    sids = [eng.open(hw_emb=hw_emb if i == 0 else None)
+            for i in range(len(waves))]
+    out = {sid: [] for sid in sids}
+    for off in range(0, max(len(w) for w in waves), MESSAGE):
+        for sid, w in zip(sids, waves):
+            if off < len(w):
+                eng.feed(sid, w[off: off + MESSAGE],
+                         is_final=off + MESSAGE >= len(w))
+        eng.step()
+        for sid in sids:
+            out[sid] += eng.poll(sid)
+    deadline = time.perf_counter() + 120
+    while not (all(eng.drained(s) for s in sids)
+               and not eng.has_inflight()):
+        if time.perf_counter() > deadline:
+            fail("14a-lane: the engine did not drain")
+        eng.step()
+        for sid in sids:
+            out[sid] += eng.poll(sid)
+    eng.shutdown()
+    return [{"partial": "".join(r["text"] for r in out[s]
+                                if r["mode"] == "2pass-online"),
+             "finals": [[r["text"], r.get("timestamp")] for r in out[s]
+                        if r["mode"] == "2pass-offline"]}
+            for s in sids]
+
+
+def p14_lane(tmp: str, d: dict, card: str):
+    """14a-lane (phase14): the pass-2 lane at tp 1 (through the fan-out,
+    its ring features broadcast) against tp 0 on the same batches: four
+    streams fed in lockstep to in-process engines on one world-size-1
+    group, so that each lane call carries four segments in three chunks.
+    Gates: every partial, final and timestamp equal; a call broadcast two
+    or more chunks' features, one of two rows or more; a gather wrapped
+    the ring, and every chunk's ring features equal the front-end's on the
+    samples within P14_LANE_FEATS_TOL. Returns (tp 1's launches,
+    numbers)."""
+    import dataclasses
+
+    import torch
+    import torch.distributed as dist
+
+    from asr2pass_tpu_torch.ops import attention as att
+    from asr2pass_tpu_torch.parallel.multihost import init_distributed
+    from asr2pass_tpu_torch.parallel.sharding import make_mesh
+    from asr2pass_tpu_torch.server.run_server import build_models, parser
+
+    t0 = time.perf_counter()
+    waves = p14_lane_waves()
+    with CLOCK.part("build"):
+        init_distributed(f"file://{tmp}/p14_rdv", 1, 0, device=P14_DEVICE,
+                         timeout_s=P14_DIST_TIMEOUT_S)
+    try:
+        with CLOCK.part("build"):
+            m0 = build_models(parser().parse_args(
+                p14_flags(d) + ["--device", P14_DEVICE]))
+            m1 = dataclasses.replace(m0, tp_mesh=make_mesh(1, tp=1))
+            hw = m0.compile_hotwords(hotword_list(5, 140))
+        want = p14_lane_run(m0, waves, hw)
+        fan, chunks = m1.fanout, []
+        att.reset_launch_counts()
+        got = p14_lane_run(m1, waves, hw, chunks)
+        launches = att.launch_counts_by_dtype()
+        stats = fan.stats()
+        fan.stop()
+    finally:
+        dist.destroy_process_group()
+    n = {"card": card, "equal": got == want,
+         "finals": [len(g["finals"]) for g in got],
+         "chunks_rows_bb_bucket_wrapped_err": chunks,
+         "broadcasts_a_call_max": stats["broadcasts_a_call"]["max"],
+         "calls": stats["calls"], "bytes": stats["bytes"],
+         "s": time.perf_counter() - t0}
+    print(f"14a-lane: {len(waves)} streams in lockstep, tp 1 (fan-out) "
+          f"against tp 0: {json.dumps(n)}", flush=True)
+    if not n["equal"]:
+        fail(f"14a-lane: tp 1 differs from tp 0 on the same batches:\n"
+             f"{got}\n{want}")
+    if any(len(g["finals"]) != len(P14_LANE_ENDS) or not all(
+            f[0] for f in g["finals"]) for g in got):
+        fail(f"14a-lane: finals {got}")
+    if (stats["broadcasts_a_call"]["max"] or 0) < 4 or max(
+            c[0] for c in chunks) < 2:
+        fail(f"14a-lane: no lane call broadcast two chunks, or none of two "
+             f"rows: {chunks}, {stats}")
+    ring = [c for c in chunks if c[4] is not None]
+    if not any(c[3] for c in ring) or any(
+            c[4] > P14_LANE_FEATS_TOL for c in ring):
+        fail(f"14a-lane: no wrapped gather, or ring features off: {chunks}")
+    if P14_DEVICE != "cpu" and launches.get("mh_flash_attention", {}).get(
+            "float32", 0) <= 0:
+        fail(f"14a-lane: launches {launches}")
+    del m0, m1
+    torch.cuda.empty_cache()
+    return launches, n
+
+
+def p14_multi_card(tmp: str, d: dict, card: str, cards: int):
+    """14c (phase14): --tp-devices 2 and 4 with worker ranks on NCCL
+    against an unsharded server on the same requests, an --sp-devices
+    server on a 300 s upload, and a worker killed under traffic."""
+    import asyncio
+
+    streams, firsts, _, longs = p14_requests()
+    sp_wave = synth_audio(P14_SP_SECONDS * P14_CPU_SCALE, 180)
+    tps = [tp for tp in P14_TPS if tp <= cards]
+    sp = min(cards, 4)
+    servers = {"tp0": P14Server.server(tmp, "c_tp0", p14_flags(d))}
+    for tp in tps:
+        servers[f"tp{tp}"] = P14Server.server(
+            tmp, f"c_tp{tp}", p14_flags(d) + ["--tp-devices", str(tp)])
+    servers[f"sp{sp}"] = P14Server.server(
+        tmp, f"c_sp{sp}", p14_flags(d) + [
+            "--sp-devices", str(sp), "--sp-threshold",
+            str(P14_SP_THRESHOLD)])
+    c = {"card": card, "cards": cards}
+    try:
+        with CLOCK.part("build"):
+            c["start_s"] = {k: s.wait_up() for k, s in servers.items()}
+
+        async def drive(k):
+            got = await p14_drive(servers[k].port, streams, firsts, longs)
+            return got, await p14_stats(servers[k].port)
+
+        async def sp_upload(k):
+            return await p14_upload(servers[k].port, k, sp_wave,
+                                    vad_max_len=400000)
+
+        ref, _ = asyncio.run(drive("tp0"))
+        sp_got = asyncio.run(sp_upload(f"sp{sp}"))
+        sp_ref = asyncio.run(sp_upload("tp0"))
+        results = {}
+        for tp in tps:
+            results[tp] = asyncio.run(drive(f"tp{tp}"))
+        # a worker killed while two connections and an upload run
+        victim = servers[f"tp{tps[0]}"]
+        fault = p14_kill_worker(victim, streams, firsts, longs)
+    finally:
+        rcs = {k: s.stop() for k, s in servers.items()}
+    want_up = [u[:2] for u in ref[1]]
+    for tp, (got, st) in results.items():
+        for i, ((_, msgs), (_, spans)) in enumerate(zip(got[0], streams)):
+            p14_check_stream(f"tp{tp}", f"c{i}", msgs, spans)
+        ups = [u[:2] for u in got[1]]
+        if [u[0] for u in ups] != [u[0] for u in want_up]:
+            fail(f"14c: tp {tp}'s upload texts differ from the unsharded "
+                 "server's")
+        c[f"tp{tp}"] = {
+            "upload_stamps_moved": sum(a[1] != b[1]
+                                       for a, b in zip(ups, want_up)),
+            "streams_equal": p14_agreement([m for _, m in got[0]],
+                                           [m for _, m in ref[0]]),
+            "fanout": st.get("fanout"), "launches_rank0": st.get("launches")}
+    n_sp, n_ref = (len(json.loads(x[1] or "[]")) for x in (sp_got, sp_ref))
+    from asr2pass_tpu_torch.tools.compute_wer import align
+
+    c["sp"] = {"tokens": n_sp, "tokens_unsharded": n_ref,
+               "char_edits": align(list(sp_ref[0]), list(sp_got[0]))[1],
+               "chars": len(sp_ref[0])}
+    if n_sp != n_ref or not n_sp:
+        fail(f"14c: the sp {sp} upload has {n_sp} tokens, the unsharded "
+             f"{n_ref}")
+    c["fault"] = fault
+    c["exit_codes"] = rcs
+    c["worker_launches"] = {k: p14_worker_launches(s) for k, s in
+                            servers.items() if k.startswith("tp")}
+    print(f"14c: {json.dumps(c)}", flush=True)
+    if any(rc != 0 for k, rc in rcs.items() if k != f"tp{tps[0]}") or any(
+            s.left() for s in servers.values()):
+        fail(f"14c: servers did not stop cleanly: {rcs}")
+    return c
+
+
+def p14_worker_launches(server: "P14Server") -> dict:
+    """{rank: the attention launches it logged on its way out}."""
+    marker = ": attention launches "
+    out = {}
+    for ln in server.tail(10 ** 7).splitlines():
+        if marker in ln and "rank " in ln:
+            rank = ln.split("rank ")[1].split(":")[0]
+            out[rank] = json.loads(ln.split(marker)[1])
+    return out
+
+
+def p14_kill_worker(server: "P14Server", streams, firsts, longs) -> dict:
+    """Two paced connections and one upload on a server with worker
+    ranks; its rank 1 killed 3 s in. The server must exit non-zero
+    within its --dist-timeout (and a margin), leaving no process."""
+    import asyncio
+    import signal
+
+    needle = f"--port\0{server.port}\0".encode()
+    worker = None
+    for pid in os.listdir("/proc"):
+        if not pid.isdigit():
+            continue
+        try:
+            with open(f"/proc/{pid}/cmdline", "rb") as f:
+                cmd = f.read()
+        except OSError:
+            continue
+        if needle in cmd and b"--dist-rank\x001\x00" in cmd:
+            worker = int(pid)
+    if worker is None:
+        fail(f"14c: no rank 1 of {server.name}")
+
+    async def traffic():
+        jobs = [asyncio.ensure_future(ws_client(
+                    server.port, f"k{i}", data, "2pass", PACE_S,
+                    first=first))
+                for i, ((data, _), first) in enumerate(zip(streams[:2],
+                                                           firsts[:2]))]
+        jobs.append(asyncio.ensure_future(p14_upload(
+            server.port, "k_up", longs[0], vad_max_len=400000)))
+        await asyncio.sleep(3.0)
+        os.kill(worker, signal.SIGKILL)
+        return await asyncio.gather(*jobs, return_exceptions=True)
+
+    t0 = time.perf_counter()
+    outcome = asyncio.run(traffic())
+    try:
+        rc = server.proc.wait(timeout=P14_DIST_TIMEOUT_S + 60)
+    except subprocess.TimeoutExpired:
+        fail(f"14c: {server.name} still running "
+             f"{P14_DIST_TIMEOUT_S + 60} s after its worker died")
+    took = time.perf_counter() - t0
+    server.stop(timeout=5)
+    if rc == 0 or server.left():
+        fail(f"14c: {server.name} exited {rc} after its worker died, or "
+             f"left a process:\n{server.tail()}")
+    return {"exit_code": rc, "exit_s": took, "requests_failed": sum(
+        isinstance(r, BaseException) for r in outcome)}
+
+
+def phase14_alone(gen, card: str, t_start: float, one_card: bool) -> int:
+    """`chip_smoke.py --phase 14`: the kernels' build, the dirs phase 14
+    serves (phase 7's, 9a's and 9b's), then phase 14 alone (its
+    multi-card part on every visible card); `--phase 14c`: the
+    multi-card part alone."""
+    import torch
+
+    with tempfile.TemporaryDirectory() as tmp:
+        with CLOCK.part("build"):
+            save_2pass_dirs(tmp, gen)
+            save_hotword_dir(tmp, gen)
+            save_svs_dir(tmp, gen)
+        with CLOCK.phase("14"):
+            _, p14 = phase14(tmp, card, one_card)
+    print(f"phase 14: {json.dumps(p14)}")
+    print(f"phase seconds: {json.dumps(CLOCK.rows)}")
+    print(f"total: {time.perf_counter() - t_start:.1f} s")
+    print(card)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+def p14_control(tmp: str, d: dict, card: str) -> dict:
+    """14x: the load control for 14a's paced connections. Four servers on
+    one card, two at --tp-devices 1 and two at --tp-devices 0, each given
+    the 150 s and 270 s uploads while its paced connections start
+    together (not P14_STAGGER_S apart), so that the lane's batches follow
+    the messages' timing. Gated: every stream (one final a burst) and
+    every upload equal on the four; measured: how many connections agree,
+    each server against its twin and tp 1 against tp 0, the first
+    differing connection's results, and each server's tick and pass-2
+    stage times and fan-out numbers."""
+    import asyncio
+
+    streams, firsts, _, longs = p14_requests()
+    tp1 = p14_flags(d) + ["--tp-devices", "1"]
+    servers = {"tp1": P14Server.server(tmp, "x_tp1", tp1),
+               "tp1b": P14Server.server(tmp, "x_tp1b", tp1),
+               "tp0": P14Server.server(tmp, "x_tp0", p14_flags(d)),
+               "tp0b": P14Server.server(tmp, "x_tp0b", p14_flags(d))}
+
+    async def drive(port):
+        ups, clients = await asyncio.gather(
+            p14_uploads(port, longs),
+            p14_clients(port, streams, firsts, stagger=0.0))
+        return clients, ups, await p14_stats(port)
+
+    async def every():
+        return await asyncio.gather(*[drive(s.port)
+                                      for s in servers.values()])
+
+    t0 = time.perf_counter()
+    try:
+        with CLOCK.part("build"):
+            start = {k: s.wait_up() for k, s in servers.items()}
+        res = dict(zip(servers, asyncio.run(every())))
+    finally:
+        rcs = {k: s.stop() for k, s in servers.items()}
+    if any(rc != 0 for rc in rcs.values()) or any(
+            s.left() for s in servers.values()):
+        fail(f"14x: a server did not stop cleanly: {rcs}")
+    for k, (clients, _, _) in res.items():
+        for i, ((_, msgs), (_, spans)) in enumerate(zip(clients, streams)):
+            p14_check_stream(k, f"c{i}", msgs, spans)
+    ups = {k: [u[:2] for u in r[1]] for k, r in res.items()}
+    if any(u != ups["tp0"] for u in ups.values()) or not all(
+            u[0] for u in ups["tp0"]):
+        fail(f"14x: the long uploads differ or are empty: {ups}")
+    view = {k: [m for _, m in r[0]] for k, r in res.items()}
+    n = {"card": card, "start_s": start, "traffic_s":
+         time.perf_counter() - t0 - max(start.values())}
+    for a, b in (("tp0b", "tp0"), ("tp1b", "tp1"), ("tp1", "tp0"),
+                 ("tp1b", "tp0b")):
+        n[f"{a}_vs_{b}"] = p14_agreement(view[a], view[b])
+    stage = lambda st, k: [st["stages"][k]["p50_ms"], st["stages"][k]["p95_ms"],
+                           st["stages"][k].get("count")] \
+        if k in st["stages"] else None
+    n["stages"] = {k: {s_: stage(r[2], s_) for s_ in ("tick",
+                                                     "p2_recognize")}
+                   for k, r in res.items()}
+    n["fanout"] = {k: {f: r[2]["fanout"][f] for f in (
+        "calls", "broadcasts_a_call", "lock_wait_ms")}
+        for k, r in res.items() if "fanout" in r[2]}
+    for i in range(len(streams)):
+        a, b = (p14_stream_view(view[k][i]) for k in ("tp1", "tp0"))
+        if a != b:
+            n["first_differing"] = {"connection": i, "tp1": a, "tp0": b}
+            break
+    print(f"14x: {P14_CONNECTIONS} paced connections started together "
+          f"beside the {', '.join(f'{s:.0f}' for s in P14_UPLOADS)} s "
+          f"uploads on four servers: {json.dumps(n, ensure_ascii=False)}",
+          flush=True)
+    return n
+
+
+def phase14_control(gen, card: str, t_start: float) -> int:
+    """`chip_smoke.py --phase 14x`: the kernels' build, the dirs 14a
+    serves (phase 7's, 9a's), then p14_control."""
+    import torch
+
+    with tempfile.TemporaryDirectory() as tmp:
+        with CLOCK.part("build"):
+            save_2pass_dirs(tmp, gen)
+            save_hotword_dir(tmp, gen)
+        with CLOCK.phase("14x"):
+            n = p14_control(tmp, p14_dirs(tmp), card)
+    print(f"phase 14x: {json.dumps(n)}")
+    print(f"phase seconds: {json.dumps(CLOCK.rows)}")
+    print(f"total: {time.perf_counter() - t_start:.1f} s")
+    print(card)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
 def main() -> int:
     import torch
 
@@ -5930,9 +6955,15 @@ def main() -> int:
     if sys.argv[1:] in (["--phase", "13"], ["--phase", "13f"]):
         early.__exit__(None, None, None)
         return phase13_alone(gen, card, t_start, sys.argv[2] == "13")
+    if sys.argv[1:] in (["--phase", "14"], ["--phase", "14c"]):
+        early.__exit__(None, None, None)
+        return phase14_alone(gen, card, t_start, sys.argv[2] == "14")
+    if sys.argv[1:] == ["--phase", "14x"]:
+        early.__exit__(None, None, None)
+        return phase14_control(gen, card, t_start)
     if sys.argv[1:]:
         print(f"chip_smoke: unknown arguments {sys.argv[1:]} (takes none, "
-              "--phase 13 or --phase 13f)", file=sys.stderr)
+              "--phase 13, 13f, 14, 14c or 14x)", file=sys.stderr)
         return 2
     kernels, svs_kernels = kernel_phase(gen)
     early.__exit__(None, None, None)
@@ -5954,8 +6985,16 @@ def main() -> int:
             launches_p11, p11 = phase11(tmp, gen, card)
         with CLOCK.phase("12"):
             launches_p12, p12 = phase12(tmp, card)
-        with CLOCK.phase("13"):
-            launches_p13, p13 = phase13(tmp, gen, card)
+        # phase 14's servers start while phase 13 runs
+        fleet = p14_start(tmp)
+        try:
+            with CLOCK.phase("13"):
+                launches_p13, p13 = phase13(tmp, gen, card)
+        except BaseException:
+            p14_stop(fleet)
+            raise
+        with CLOCK.phase("14"):
+            launches_p14, p14 = phase14(tmp, card, fleet=fleet)
     # kernel #1 fp32 at the engine's pass-2 shape: the largest batch the
     # lane ran at bucket 256
     b_eng = max(b for b, t in engine_fwd if t == 256)
@@ -6026,7 +7065,7 @@ def main() -> int:
                 **{f"launches_{path}": by[name][dtype]
                    for path, by in {**launches_p9, **launches_p10,
                                     **launches_p11, **launches_p12,
-                                    **launches_p13}.items()},
+                                    **launches_p13, **launches_p14}.items()},
                 **{k: head[k] for k in keys},
                 "shape": head["shape"], "dtype": dtype,
                 "tol_ratio": head["tol_ratio"],
@@ -6067,6 +7106,7 @@ def main() -> int:
     print(f"phase 11: {json.dumps(p11)}")
     print(f"phase 12: {json.dumps(p12)}")
     print(f"phase 13: {json.dumps(p13_numbers(p13))}")
+    print(f"phase 14: {json.dumps(p14)}")
     print(f"phase seconds: {json.dumps(CLOCK.rows)}")
     print(f"total: {time.perf_counter() - t_start:.1f} s")
     print(card)

@@ -820,3 +820,42 @@ def test_sharded_prune_world_one_on_the_card(nccl_world_one, dev):
     assert torch.equal(a, b)
     torch.testing.assert_close(lp.gather(-1, oa), rlp.gather(-1, ob),
                                rtol=0, atol=1e-5)
+
+
+def test_server_models_tp_world_one_on_the_card(nccl_world_one, dev):
+    """ServerModels over a 1 x 1 mesh on the card: rank 0's recognizers
+    run through the fan-out (its headers on a gloo group, the engine's
+    ring features broadcast over NCCL), share one shard, and answer an
+    upload and a 2pass session as the unsharded models do, bit for bit."""
+    from asr2pass_tpu_torch.config import VadConfig, paraformer_tiny
+    from asr2pass_tpu_torch.models import fsmn_vad, paraformer
+    from asr2pass_tpu_torch.parallel import comm
+    from asr2pass_tpu_torch.server.engine import ServerModels
+    from asr2pass_tpu_torch.text.vocab import make_test_vocab
+
+    cfg = paraformer_tiny()
+    g = torch.Generator().manual_seed(0)
+    kw = dict(asr_params=paraformer.init(cfg, g, "cpu").state_dict(),
+              asr_cfg=cfg, vocab=make_test_vocab(cfg.vocab_size),
+              vad_params=fsmn_vad.init(VadConfig(), g, "cpu").state_dict(),
+              vad_cfg=VadConfig())
+    whole = ServerModels(**kw)
+    tp = ServerModels(tp_mesh=nccl_world_one, **kw)
+    rng = np.random.default_rng(3)
+    wave = (rng.standard_normal(16000 * 3) * 0.1).astype(np.float32)
+    got = {}
+    for name, m in (("whole", whole), ("tp", tp)):
+        comm.reset_collective_counts()
+        up = m.create_offline_recognizer().transcribe(wave)
+        sess = m.create_session()
+        finals = []
+        for off in range(0, len(wave), 9600):
+            res = sess.feed(wave[off: off + 9600], off + 9600 >= len(wave))
+            finals.append((res.partial, res.final_text, res.timestamps))
+        got[name] = ((up.text, up.timestamps), finals,
+                     comm.collective_counts())
+    assert got["tp"][:2] == got["whole"][:2]
+    assert got["whole"][2]["broadcast"] == 0
+    assert got["tp"][2]["broadcast"] == tp.fanout.broadcasts > 0
+    assert list(tp._tp_shard_cache) == ["asr"]
+    tp.fanout.stop()

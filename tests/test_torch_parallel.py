@@ -244,7 +244,7 @@ def test_tp_collectives_per_forward(para, name):
     all-gather per SAN-M memory and one for the vocab head."""
     hotword = name == "tp2"
     want = {"all_reduce": 2 * 2 + 2 * 2 + 1 + hotword,
-            "all_gather": 2 + 1, "halo": 0}
+            "all_gather": 2 + 1, "halo": 0, "broadcast": 0}
     assert para["outs"][0]["json"][f"{name}/collectives"] == want
 
 
@@ -438,9 +438,9 @@ def test_sharded_prune_matches_jax(svs, tp):
     # the id set's log-probs add one all-reduce
     js = svs["outs"][0]["json"]
     assert js[f"svs{tp}/prune_collectives"] == {
-        "all_reduce": 2, "all_gather": 2, "halo": 0}
+        "all_reduce": 2, "all_gather": 2, "halo": 0, "broadcast": 0}
     assert js[f"svs{tp}/prune_gather_collectives"] == {
-        "all_reduce": 3, "all_gather": 2, "halo": 0}
+        "all_reduce": 3, "all_gather": 2, "halo": 0, "broadcast": 0}
 
 
 @pytest.mark.parametrize("tp", SVS_TPS)
@@ -450,11 +450,12 @@ def test_svs_tp_exchanges_no_whole_logits(svs, tp):
     prune's collectives to the forward's: no all-gather of the logits."""
     js = svs["outs"][0]["json"]
     assert js[f"svs{tp}/greedy_collectives"] == {
-        "all_reduce": 0, "all_gather": 2, "halo": 0}
+        "all_reduce": 0, "all_gather": 2, "halo": 0, "broadcast": 0}
     fwd = js[f"svs{tp}/forward_collectives"]
     assert js[f"svs{tp}/beam_collectives"] == {
         "all_reduce": fwd["all_reduce"] + 2,
-        "all_gather": fwd["all_gather"] + 2 + 2, "halo": 0}
+        "all_gather": fwd["all_gather"] + 2 + 2, "halo": 0,
+        "broadcast": 0}
 
 
 @pytest.mark.parametrize("tp", SVS_TPS)

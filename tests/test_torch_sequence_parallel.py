@@ -123,7 +123,7 @@ def test_sp_collectives_per_block(sp, n):
     blocks = ENCODERS[0]["blocks"]
     assert sp["outs"][0]["json"][f"whole/sp{n}/collectives"] == {
         "all_reduce": 0, "all_gather": 2 * blocks + 1,
-        "halo": blocks}
+        "halo": blocks, "broadcast": 0}
 
 
 @pytest.mark.parametrize("n", SPS)

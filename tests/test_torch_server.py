@@ -19,6 +19,7 @@ import torch
 from asr2pass_tpu import config as jconfig
 from asr2pass_tpu.models import ct_transformer as jct
 from asr2pass_tpu.models import fsmn_vad as jvad
+from asr2pass_tpu.runtime import engine as jengine
 from asr2pass_tpu.server.engine import ServerModels as JServerModels
 from asr2pass_tpu.server.ws_server import AsrWsServer as JAsrWsServer
 from asr2pass_tpu.text.punc_tokenizer import PuncTokenizer as JTokenizer
@@ -47,6 +48,21 @@ def _two_threads():
     torch.set_num_threads(2)
     yield
     torch.set_num_threads(n)
+
+
+@pytest.fixture(autouse=True)
+def _jax_final_after_results(monkeypatch):
+    """The JAX server's engine loop polls a connection's results before it
+    reads drained() (its ws_server.py:479-492): a pass-2 result that the
+    lane posts between the two goes out after the is_final, which ends
+    the client's read, so under load a replay misses a final. Here the
+    JAX engine's drained() also waits for the posted results to be
+    polled; the port's loop reads drained() before it polls
+    (test_engine_final_follows_its_results)."""
+    drained = jengine.StreamEngine.drained
+    monkeypatch.setattr(
+        jengine.StreamEngine, "drained",
+        lambda self, sid: drained(self, sid) and not self.slots[sid].results)
 
 
 @pytest.fixture(scope="module")
@@ -234,6 +250,42 @@ def test_replay_matches_jax_server(models, jax_models, case):
         assert partial
     if mode != "online":
         assert finals and all(ts for _, _, ts in finals)
+
+
+def test_engine_final_follows_its_results(models, jax_models, monkeypatch):
+    """A pass-2 result that the lane posts just after the engine loop
+    polled a connection (here a poll that finds only lane work left waits
+    for it) still goes out before that connection's is_final: the loop
+    reads drained() before it polls. The replay equals the JAX
+    server's."""
+    from asr2pass_tpu_torch.runtime.engine import StreamEngine
+
+    poll = StreamEngine.poll
+
+    def late_poll(self, sid):
+        out = poll(self, sid)
+        slot = self.slots[sid]
+        with self._results_lock:        # the lane settles under it
+            inflight = slot.p2_inflight
+            slot.p2_inflight = 0
+            lane_only = inflight and self.drained(sid)
+            slot.p2_inflight = inflight
+        deadline = time.time() + 60
+        while lane_only and slot.p2_inflight and time.time() < deadline:
+            time.sleep(0.005)
+        return out
+
+    monkeypatch.setattr(StreamEngine, "poll", late_poll)
+    audio = _pcm(2.4, 4)
+    msgs = {name: _serve(m, lambda server, port: _reference_replay(
+        port, "2pass", "w", audio), server_cls=cls, use_engine=True,
+        engine_capacity=4)
+        for name, cls, m in (("port", AsrWsServer, models),
+                             ("jax", JAsrWsServer, jax_models))}
+    got = msgs["port"]
+    assert [m["is_final"] for m in got] == [False] * (len(got) - 1) + [True]
+    assert _summary(got) == _summary(msgs["jax"])
+    assert _summary(got)[1]
 
 
 # -- the deployed hotword model and SenseVoice pass 2 ----------------------

@@ -11,6 +11,7 @@ the non-array results as JSON under "json").
 """
 from __future__ import annotations
 
+import contextlib
 import fcntl
 import json
 import os
@@ -27,22 +28,29 @@ GROUP_TIMEOUT_S = 120    # a collective that does not complete raises
 SPAWN_LOCK = ".torch_parallel_spawn.lock"
 
 
+@contextlib.contextmanager
+def spawn_lock(tmp_path):
+    """One spawn at a time across the run's xdist workers (their
+    temporary directories share the parent of their base): the ranks'
+    cores are not taken from the tests that wait on a wall clock."""
+    with open(Path(tmp_path).resolve().parents[1] / SPAWN_LOCK, "a") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        yield
+
+
 def spawn(case: str, tmp_path, world: int, inputs: dict, spec=None,
-          env=None):
+          env=None, expect_fail: bool = False):
     """Run CASE on `world` ranks; returns each rank's outputs (dicts of
     numpy arrays, "json" decoded). Fails with the ranks' output when a
-    rank fails or the spawn outlives TIMEOUT_S."""
+    rank fails or the spawn outlives TIMEOUT_S. With expect_fail, returns
+    each rank's (exit code, output) instead."""
     d = Path(tmp_path) / case
     d.mkdir(parents=True, exist_ok=True)
     np.savez(d / "in.npz", **inputs)
     (d / "spec.json").write_text(json.dumps(spec or {}))
     child_env = dict(os.environ, OMP_NUM_THREADS="1",
                      PYTHONPATH=str(REPO), **(env or {}))
-    # one spawn at a time across the run's xdist workers (their temporary
-    # directories share the parent of their base): the ranks' cores are
-    # not taken from the tests that wait on a wall clock
-    with open(Path(tmp_path).resolve().parents[1] / SPAWN_LOCK, "a") as lock:
-        fcntl.flock(lock, fcntl.LOCK_EX)
+    with spawn_lock(tmp_path):
         procs = [subprocess.Popen(
             [sys.executable, __file__, case, str(d), str(r), str(world)],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
@@ -59,6 +67,8 @@ def spawn(case: str, tmp_path, world: int, inputs: dict, spec=None,
                 p.kill()
             raise AssertionError(f"{case}: ranks still running after "
                                  f"{TIMEOUT_S} s")
+    if expect_fail:
+        return [(p.returncode, log) for p, log in zip(procs, logs)]
     for r, (p, log) in enumerate(zip(procs, logs)):
         assert p.returncode == 0, f"{case} rank {r} failed:\n{log[-4000:]}"
     outs = []
@@ -444,10 +454,256 @@ def case_multihost(data, spec, rank, world):
                 "tp_rank": mesh.get_local_rank("tp")}
 
 
+# ---------------------------------------------------------------------------
+# serving on several ranks (server/fanout.py)
+# ---------------------------------------------------------------------------
+
+MESSAGE = 9600           # samples a client message carries: 600 ms
+
+
+def session_results(sess, wave) -> dict:
+    """A session fed 600 ms messages: its concatenated partials and its
+    finals with their timestamps."""
+    partial, finals = "", []
+    for off in range(0, len(wave), MESSAGE):
+        res = sess.feed(wave[off: off + MESSAGE],
+                        off + MESSAGE >= len(wave))
+        partial += res.partial or ""
+        if res.final_text:
+            finals.append([res.final_text, _stamps(res.timestamps)])
+    return {"partial": partial, "finals": finals}
+
+
+def _stamps(ts):
+    return [[int(a) for a in p] for p in ts] if ts else []
+
+
+def engine_results(eng, waves, opens=None) -> list:
+    """Streams through a StreamEngine (either package's) in 600 ms
+    messages, one a stream a tick, then ticks until every stream is
+    drained; per stream its concatenated partials and [final text,
+    timestamps]."""
+    sids = [eng.open(**(opens[i] if opens else {}))
+            for i in range(len(waves))]
+    out = {sid: [] for sid in sids}
+    for off in range(0, max(len(w) for w in waves), MESSAGE):
+        for sid, w in zip(sids, waves):
+            if off < len(w):
+                eng.feed(sid, w[off: off + MESSAGE],
+                         is_final=off + MESSAGE >= len(w))
+        eng.step()
+        for sid in sids:
+            out[sid] += eng.poll(sid)
+    deadline = time.time() + 120
+    while time.time() < deadline and not (
+            all(eng.drained(s) for s in sids) and not eng.has_inflight()):
+        eng.step()
+        for sid in sids:
+            out[sid] += eng.poll(sid)
+        time.sleep(0.005)
+    for sid in sids:
+        out[sid] += eng.poll(sid)
+        assert eng.drained(sid)
+    eng.shutdown()
+    return [{"partial": "".join(r["text"] for r in out[s]
+                                if r["mode"] == "2pass-online"),
+             "finals": [[r["text"], _stamps(r.get("timestamp"))]
+                        for r in out[s] if r["mode"] == "2pass-offline"]}
+            for s in sids]
+
+
+def upload_result(rec, wave) -> list:
+    res = rec.transcribe(wave)
+    return [res.text, _stamps(res.timestamps)]
+
+
+def _server_models(spec, name: str, extra=()):
+    """ServerModels from saved dirs through the launcher's build_models,
+    on the CPU, over the group's ranks with --tp-devices or
+    --sp-devices in `extra`."""
+    from asr2pass_tpu_torch.server.run_server import build_models, parser
+
+    return build_models(parser().parse_args(
+        spec["argv"][name] + ["--device", "cpu", *extra]))
+
+
+def _serve_rank0(models, work) -> dict:
+    """Rank 0's side of one server config: run `work(models)`, stop the
+    workers, add this rank's collectives and fan-out numbers."""
+    from asr2pass_tpu_torch.parallel import comm
+
+    comm.reset_collective_counts()
+    js = work(models)
+    models.fanout.stop()
+    js["collectives"] = comm.collective_counts()
+    js["fanout"] = models.fanout.stats()
+    return js
+
+
+def _serve_worker(models) -> dict:
+    from asr2pass_tpu_torch.parallel import comm
+    from asr2pass_tpu_torch.server.fanout import serve_worker
+
+    comm.reset_collective_counts()
+    serve_worker(models)
+    return {"collectives": comm.collective_counts()}
+
+
+def _hotword_work(data, spec):
+    """The Paraformer server's requests: an upload, a 2pass session, a
+    hotworded session, an engine of two streams (one hotworded), two
+    uploads from two threads at once, then the shards held."""
+    import threading
+
+    def work(models):
+        js = {}
+        waves = [data[f"wave{i}"] for i in range(3)]
+        hot = spec["hotwords"]
+        js["upload"] = upload_result(models.create_offline_recognizer(),
+                                     waves[0])
+        sessions = [models.create_session(), models.create_session(
+            hw_emb=models.compile_hotwords(hot), hotwords=hot)]
+        js["session"] = session_results(sessions[0], waves[1])
+        js["hotword"] = session_results(sessions[1], waves[1])
+        from asr2pass_tpu_torch.runtime.engine import StreamEngine
+
+        eng = StreamEngine(models, capacity=4, fused_fetch=True,
+                           pass2_async=True)
+        eng.warmup()
+        eng.warm_pass2_ring()
+        js["engine"] = engine_results(eng, waves[:2], [
+            {}, dict(hw_emb=models.compile_hotwords(hot), hotwords=hot)])
+        # two rank-0 threads at once: the fan-out's lock orders them
+        recs = [models.create_offline_recognizer(vad_tail_sil=800 + k)
+                for k in range(2)]
+        got = [None, None]
+
+        def upload(k):
+            got[k] = upload_result(recs[k], waves[2 - k])
+
+        threads = [threading.Thread(target=upload, args=(k,))
+                   for k in range(2)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        js["threads"] = got
+        js["serial"] = [upload_result(recs[k], waves[2 - k])
+                        for k in range(2)]
+        shard = models._tp_shard_cache["asr"]
+        js["shards"] = sorted(models._tp_shard_cache)
+        js["shared"] = all(
+            r.model is shard for r in
+            [s.offline_asr for s in sessions] + [eng.offline.asr]
+            + [r.asr for r in recs])
+        js["lock_waits"] = len(models.fanout.lock_wait_s)
+        return js
+
+    return work
+
+
+def _svs_work(data, spec):
+    """The SenseVoice server's requests: a session with a hotword context
+    and svs_lang, an upload."""
+    def work(models):
+        wave = data["wave1"]
+        sess = models.create_session(use_svs=True, svs_lang="zh",
+                                     hotwords=spec["svs_hotwords"])
+        return {"context": session_results(sess, wave),
+                "upload": upload_result(models.create_offline_recognizer(
+                    use_svs=True, svs_lang="en"), data["wave0"]),
+                "shards": sorted(models._tp_shard_cache)}
+
+    return work
+
+
+def _tlg_work(data, spec):
+    """The SenseVoice server with a CTC TLG graph: a session."""
+    def work(models):
+        sess = models.create_session(use_svs=True)
+        return {"tlg": session_results(sess, data["wave1"])}
+
+    return work
+
+
+def case_serving_tp(data, spec, rank, world):
+    """Servers at tp `world` through the launcher's build_models: rank 0
+    serves the requests of _hotword_work, _svs_work and _tlg_work through
+    the fan-out, the others run serve_worker; each rank reports its
+    collectives."""
+    js = {}
+    extra = ["--tp-devices", str(world)]
+    for name, work in (("hotword", _hotword_work(data, spec)),
+                       ("svs", _svs_work(data, spec)),
+                       ("tlg", _tlg_work(data, spec))):
+        models = _server_models(spec, name, extra)
+        js[name] = (_serve_rank0(models, work) if rank == 0
+                    else _serve_worker(models))
+    return {}, js
+
+
+def case_serving_sp(data, spec, rank, world):
+    """An --sp-devices server with a small --sp-threshold: an upload past
+    it (fanned out) and one below it (rank 0 alone)."""
+    extra = ["--sp-devices", str(world), "--sp-threshold",
+             str(spec["sp_threshold"])]
+    models = _server_models(spec, "asr", extra)
+    if rank > 0:
+        return {}, _serve_worker(models)
+
+    def work(models):
+        rec = models.create_offline_recognizer(vad_max_len=spec["max_len"])
+        long = upload_result(rec, data["long"])
+        calls = models.fanout.calls
+        short = upload_result(rec, data["wave2"])
+        return {"long": long, "short": short, "calls_long": calls,
+                "calls_short": models.fanout.calls - calls}
+
+    return {}, _serve_rank0(models, work)
+
+
+def case_serving_dp(data, spec, rank, world):
+    """Serving dp: every process its own StreamEngine on its own audio in
+    one gloo group; a fresh engine on the same audio in the same process
+    gives the same results."""
+    from asr2pass_tpu_torch.runtime.engine import StreamEngine
+
+    models = _server_models(spec, "asr")
+    wave = data[f"wave{rank}"]
+    got = engine_results(StreamEngine(models, capacity=2), [wave])[0]
+    fresh = engine_results(StreamEngine(models, capacity=2), [wave])[0]
+    return {}, {"engine": got, "fresh": fresh}
+
+
+def case_serving_fault(data, spec, rank, world):
+    """A rank-0 failure after a call went out: rank 0's forward raises
+    once the header is sent; both ranks must exit non-zero."""
+    models = _server_models(spec, "asr", ["--tp-devices", str(world)])
+    if rank > 0:
+        return {}, _serve_worker(models)
+    rec = models.create_offline_recognizer()
+    try:
+        rec.asr.dispatch_batch([data["wave0"][:1000]], hw_embs=[
+            np.zeros((2, 3, 4), np.float32)])
+    except ValueError as e:
+        print(f"refused before sending: {e}", flush=True)
+    calls = models.fanout.calls
+
+    def boom(*a, **k):
+        raise RuntimeError("injected failure after the send")
+
+    rec.asr._forward = boom
+    print(f"calls before the fault: {calls}", flush=True)
+    rec.transcribe(data["wave0"])
+    return {}, {"unreachable": True}
+
+
 CASES = {"paraformer_tp": case_paraformer_tp,
          "sensevoice_tp": case_sensevoice_tp,
          "sequence": case_sequence, "train": case_train,
-         "multihost": case_multihost}
+         "multihost": case_multihost, "serving_tp": case_serving_tp,
+         "serving_sp": case_serving_sp, "serving_dp": case_serving_dp,
+         "serving_fault": case_serving_fault}
 
 
 def main():
