@@ -5,7 +5,8 @@ greedy_ids). One forward = encoder -> alphas -> integrate-and-fire ->
 parallel decoder -> logits, batched and masked; timestamp models also
 return the upsampled alphas and their peak trace. apply_sp runs the
 encoder sequence-parallel (JAX's apply_sp); a model that
-parallel/sharding.shard_params cut runs apply tensor-parallel.
+parallel/sharding.shard_params cut runs apply tensor-parallel, and
+apply_sp with its encoder gathered whole.
 """
 from __future__ import annotations
 
@@ -19,6 +20,7 @@ from asr2pass_tpu_torch.config import ParaformerConfig
 from asr2pass_tpu_torch.models import cif, sanm_decoder, sanm_encoder
 from asr2pass_tpu_torch.models.layers import length_mask, quantized_like
 from asr2pass_tpu_torch.parallel.sequence import encode_sequence_parallel
+from asr2pass_tpu_torch.parallel.sharding import gather_whole
 from asr2pass_tpu_torch.utils import resolve_device
 
 
@@ -115,12 +117,20 @@ def apply_sp(params, cfg: ParaformerConfig, feats, lengths, mesh,
     """Sequence-parallel forward for very long segments: the encoder, the
     dominant work, runs with the time axis cut over the mesh's `axis`
     (parallel/sequence.py); CIF and the decoder run on the all-gathered
-    encodings, whole on every rank. T must be a multiple of the axis
-    size (the recognizer pads it); lengths [B] carry the true lengths.
-    Every rank calls with the same arguments and gets the same output."""
+    encodings on every rank. T must be a multiple of the axis size (the
+    recognizer pads it); lengths [B] carry the true lengths. Every rank
+    calls with the same arguments and gets the same output.
+
+    A tensor-parallel model (sharding.shard_params) all-gathers its
+    encoder's shards over tp into a whole encoder for this call
+    (sharding.gather_whole), dropped when the encoder returns, and runs
+    CIF and the decoder tensor-parallel, as the JAX package's `tail` jit
+    runs on TP-sharded params."""
     lengths = torch.as_tensor(lengths, dtype=torch.long, device=feats.device)
-    enc = encode_sequence_parallel(params.encoder, feats, cfg.encoder, mesh,
+    encoder = gather_whole(params.encoder)
+    enc = encode_sequence_parallel(encoder, feats, cfg.encoder, mesh,
                                    axis=axis, lengths=lengths.tolist())
+    del encoder
     mask = length_mask(lengths, feats.shape[1])
     return _predict_and_decode(params, cfg, enc, mask, lengths,
                                max_tokens=max_tokens)

@@ -27,6 +27,22 @@ it on. Each key it shards the JAX rules shard on the same dim (tested);
 the keys the JAX rules shard and the port keeps whole are the
 replicated modules above, which the JAX package shards only because
 GSPMD can reshard anything.
+
+A unit (an attention, an FFN, a vocab head) stays whole on every rank,
+none of its keys sliced and no tp_group set, so that models/layers.py
+runs it as the unsharded layer with no collective, in two cases:
+  * an attention whose heads the axis does not divide (GSPMD computes
+    such an attention whole as well);
+  * a unit holding an int8 Dense (w_q or w_q8): the JAX rules match only
+    the float `w`, so its int8 leaves stay whole on every device.
+An int8 Paraformer under TP is thus whole on every rank, as it is under
+the JAX rules: TP then saves no memory, and the recognizer still splits
+its rows over dp. Quantize before sharding: utils.quantize_params
+refuses a shard (JAX's scales on a row-parallel shard are a max over
+the whole input axis, not over the rank's rows).
+
+gather_whole undoes shard_params for a module or a part of one (the
+sequence-parallel encoder of a TP model takes whole weights).
 """
 from __future__ import annotations
 
@@ -38,6 +54,7 @@ from torch import nn
 
 from asr2pass_tpu_torch.models.layers import (CrossAttention, Dense, Ffn,
                                               SanmAttention)
+from asr2pass_tpu_torch.parallel.comm import all_gather, group_size, tp_group
 
 # key suffix -> dim the port shards on
 _COL_W = ("qkv/w", "kv/w", "q/w", "w1/w", "decoder/out/w", "ctc/w",
@@ -95,26 +112,50 @@ def make_mesh(n_devices: Optional[int] = None, tp: Optional[int] = None):
                             mesh_dim_names=("dp", "tp"))
 
 
-def _check(model: nn.Module, specs: Dict[str, Optional[int]], n: int):
+def _units(model: nn.Module) -> Dict[str, nn.Module]:
+    """{name: module} of the units that shard as one: every attention,
+    FFN and vocab head."""
+    units = {}
     for name, mod in model.named_modules():
-        if isinstance(mod, Dense) and mod.weight_key != "w":
-            raise ValueError(
-                f"tensor parallelism takes a float model: {name} holds the "
-                f"int8 {mod.weight_key} {tuple(mod.weight.shape)} (quantize "
-                "after sharding is not supported either)")
-        if isinstance(mod, (SanmAttention, CrossAttention)) and mod.heads % n:
-            w = mod.qkv.w if isinstance(mod, SanmAttention) else mod.q.w
-            raise ValueError(
-                f"{name}: {mod.heads} heads (projection "
-                f"{tuple(w.shape)}) do not split over tp={n}; the port "
-                "shards attention by head")
-    params = dict(model.named_parameters())
-    for key, dim in specs.items():
-        if dim is None:
-            continue
+        if isinstance(mod, (SanmAttention, CrossAttention, Ffn)) or (
+                isinstance(mod, Dense)
+                and _path(f"{name}.w").endswith(VOCAB_HEADS)):
+            units[name] = mod
+    return units
+
+
+def whole_units(model: nn.Module, n: int) -> set:
+    """The names of the units that stay whole over tp=n: each attention
+    whose heads n does not divide, each unit holding an int8 Dense."""
+    whole = set()
+    for name, mod in _units(model).items():
+        if any(isinstance(d, Dense) and d.weight_key != "w"
+               for d in mod.modules()) or (
+                isinstance(mod, (SanmAttention, CrossAttention))
+                and mod.heads % n):
+            whole.add(name)
+    return whole
+
+
+def _owner(key: str, units) -> Optional[str]:
+    """The unit a parameter key belongs to."""
+    mod = key.rsplit(".", 1)[0]
+    while mod:
+        if mod in units:
+            return mod
+        mod = mod.rsplit(".", 1)[0] if "." in mod else ""
+    return None
+
+
+def _blocks(key: str) -> int:
+    return _FUSED.get(key.replace("/", ".").rsplit(".", 2)[-2], 1)
+
+
+def _check(params: Mapping, sliced: Dict[str, int], n: int):
+    """The widths of what is sliced must split over tp=n."""
+    for key, dim in sliced.items():
         width = params[key].shape[dim]
-        blocks = _FUSED.get(key.rsplit(".", 2)[-2], 1)
-        if width % (blocks * n):
+        if width % (_blocks(key) * n):
             raise ValueError(
                 f"{key} {tuple(params[key].shape)}: dim {dim} of {width} "
                 f"does not split over tp={n}")
@@ -123,50 +164,105 @@ def _check(model: nn.Module, specs: Dict[str, Optional[int]], n: int):
 def local_slice(key: str, value, dim: int, n: int, rank: int):
     """Rank `rank`'s part of one parameter: its heads' column blocks of a
     fused qkv or kv projection, else its 1/n range of `dim`."""
-    blocks = _FUSED.get(key.replace("/", ".").rsplit(".", 2)[-2], 1)
+    blocks = _blocks(key)
     parts = [blk.chunk(n, dim)[rank] for blk in value.chunk(blocks, dim)]
     return parts[0] if blocks == 1 else torch.cat(parts, dim)
 
 
+def gather_param(part, key: str, dim: int, group):
+    """The whole parameter from each rank's `part` (local_slice's inverse):
+    the parts all-gathered along `dim`, a fused projection's per-rank
+    [q_r | k_r | v_r] blocks put back into [q | k | v]. A collective of
+    the group."""
+    n, blocks = group_size(group), _blocks(key)
+    whole = all_gather(part, dim, group)
+    if blocks == 1:
+        return whole
+    parts = whole.chunk(n * blocks, dim)
+    return torch.cat([parts[r * blocks + b] for b in range(blocks)
+                      for r in range(n)], dim)
+
+
+def sliced_params(model: nn.Module) -> Dict[str, tuple]:
+    """{parameter key: (dim, group)} of every parameter shard_params
+    sliced in `model` (a shard, or a part of one)."""
+    out = {}
+    for name, mod in model.named_modules():
+        group = tp_group(mod)
+        if group is None:
+            continue
+        for rel, dim in getattr(mod, "tp_dims", {}).items():
+            out[f"{name}.{rel}" if name else rel] = (dim, group)
+    return out
+
+
 def shard_params(model: nn.Module, mesh, axis: str = "tp") -> nn.Module:
     """This rank's local module: a copy of `model` holding its shards of
-    the parameters param_specs names, its sharded modules marked with the
-    mesh's `axis` group (comm.tp_group). Raises ValueError for a head
-    count or a sharded width that the axis does not divide, and for a
-    quantized model."""
+    the parameters param_specs names, each sliced unit marked with the
+    mesh's `axis` group (comm.tp_group) and its sliced keys (tp_dims);
+    the units whole_units names stay whole. Raises ValueError for a
+    sliced width that the axis does not divide (a vocab head, an FFN)."""
     group = mesh.get_group(axis)
     n = axis_size(mesh, axis)
     rank = mesh.get_local_rank(axis)
-    specs = param_specs(dict(model.named_parameters()))
-    _check(model, specs, n)
+    params = dict(model.named_parameters())
+    units = _units(model)
+    whole = whole_units(model, n)
+    sliced = {key: dim for key, dim in param_specs(params).items()
+              if dim is not None and _owner(key, units) not in whole}
+    _check(params, sliced, n)
     local = copy.deepcopy(model)
-    for key, dim in specs.items():
-        if dim is None:
-            continue
+    for key, dim in sliced.items():
         mod_name, pname = key.rsplit(".", 1)
         old = getattr(local.get_submodule(mod_name), pname)
         part = local_slice(key, old.detach(), dim, n, rank).clone()
         setattr(local.get_submodule(mod_name), pname,
                 nn.Parameter(part, requires_grad=old.requires_grad))
-    for mod in local.modules():
-        if isinstance(mod, (SanmAttention, CrossAttention, Ffn)):
-            mod.tp_group = group
-    for key in specs:
-        if _path(key).endswith(VOCAB_HEADS):
-            local.get_submodule(key.rsplit(".", 1)[0]).tp_group = group
+        unit = _owner(key, units)
+        mod = local.get_submodule(unit)
+        mod.tp_group = group
+        mod.tp_dims = {**getattr(mod, "tp_dims", {}),
+                       key[len(unit) + 1:]: dim}
+    local.tp_shard_group = group
     return local
+
+
+def gather_whole(model: nn.Module) -> nn.Module:
+    """A whole copy of a shard or of a part of one (the encoder of a TP
+    model): every sliced parameter all-gathered over its unit's group
+    (gather_param), no tp_group left; `model` itself where nothing in it
+    is sliced. A collective of each group: every rank of the shard calls
+    it. The copy is the caller's to drop."""
+    sliced = sliced_params(model)
+    if not sliced:
+        return model
+    # neither the groups nor the shards are copied: the copy's sliced
+    # parameters are replaced below
+    memo = {id(g): g for _, g in sliced.values()}
+    params = dict(model.named_parameters())
+    memo.update((id(params[k]), params[k]) for k in sliced)
+    whole = copy.deepcopy(model, memo=memo)
+    for key, (dim, group) in sliced.items():
+        mod_name, pname = key.rsplit(".", 1)
+        mod = whole.get_submodule(mod_name)
+        old = getattr(mod, pname)
+        setattr(mod, pname, nn.Parameter(
+            gather_param(old.detach(), key, dim, group),
+            requires_grad=False))
+    for mod in whole.modules():
+        for attr in ("tp_group", "tp_dims", "tp_shard_group"):
+            mod.__dict__.pop(attr, None)
+    return whole
 
 
 def check_sharded(model: nn.Module, mesh, axis: str = "tp") -> None:
     """Raise ValueError unless `model` is a shard over the mesh's `axis`
-    (shard_params' output for this rank): what a recognizer given a
-    presharded module holds to."""
+    (shard_params' output for this rank, whose units may all be whole):
+    what a recognizer given a presharded module holds to."""
     if mesh is None:
         raise ValueError("a presharded module needs the tp_mesh it was "
                          "sharded over")
-    group = mesh.get_group(axis)
-    if not any(getattr(m, "tp_group", None) is group
-               for m in model.modules()):
+    if getattr(model, "tp_shard_group", None) is not mesh.get_group(axis):
         raise ValueError("presharded: the module is not sharded over this "
                          f"mesh's {axis!r} axis (shard it with "
                          "sharding.shard_params)")

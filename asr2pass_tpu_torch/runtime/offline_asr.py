@@ -24,13 +24,19 @@ Several cards (torch.distributed, one process a rank; every rank
 constructs the recognizer and calls it with the same arguments, and
 every rank returns the whole result list):
 - tp_mesh, a ("dp", "tp") DeviceMesh: the model is sharded over tp
-  (parallel/sharding.shard_params: each rank runs H/tp heads), and each
-  chunk's rows are split over dp, its outputs all-gathered over dp;
+  (parallel/sharding.shard_params: each rank runs H/tp heads; an
+  attention whose heads tp does not divide, and an int8 model, stay
+  whole), and each chunk's rows are split over dp, its outputs
+  all-gathered over dp;
 - sp_mesh: segments over sp_threshold LFR frames (default 4096) run
   the encoder time-sharded over the mesh's sp_axis (paraformer.apply_sp),
   padded to a multiple of 64 a rank and batched by padded length. As in
-  the JAX package they are decoded without hotwords. The two options do
-  not combine: the sequence-parallel encoder takes whole weights.
+  the JAX package they are decoded without hotwords.
+The two combine, as in the JAX package: segments up to sp_threshold take
+the TP path, rows over dp; longer ones the SP path, whose encoder is
+gathered whole from the TP shards for the call and whose CIF and decoder
+run tensor-parallel on every rank's whole SP batch. The sp_mesh must
+then span the tp_mesh's ranks.
 A server shards once and hands every recognizer the rank's shard
 (presharded=True); its rank 0 sets `fanout` (server/fanout.py), through
 which dispatch_batch and forward_feats reach the other ranks.
@@ -112,9 +118,13 @@ class ParaformerOffline:
                  lm_decoder=None, device="cuda", tp_mesh=None, sp_mesh=None,
                  sp_axis: str = "sp", sp_threshold: int = 4096,
                  presharded: bool = False):
-        if tp_mesh is not None and sp_mesh is not None:
-            raise ValueError("tp_mesh and sp_mesh do not combine: the "
-                             "sequence-parallel encoder takes whole weights")
+        if tp_mesh is not None and sp_mesh is not None and sorted(
+                tp_mesh.mesh.flatten().tolist()) != sorted(
+                    sp_mesh.mesh.flatten().tolist()):
+            raise ValueError(
+                "tp_mesh and sp_mesh must span the same ranks (every rank "
+                f"runs both paths): tp over {tp_mesh.mesh.tolist()}, sp over "
+                f"{sp_mesh.mesh.tolist()}")
         self.device = resolve_device(device)
         fp32_products()
         if isinstance(params, nn.Module):

@@ -14,7 +14,10 @@ same ServerModels): with tp_mesh the pass-2 model of each role ("asr",
 "svs") is sharded once, at first use, and every recognizer gets that
 shard (the JAX package's _tp_params cache); with sp_mesh the offline
 recognizers (uploads and the engine's lane) run segments past
-sp_threshold sequence-parallel, as in the JAX package. Either mesh makes
+sp_threshold sequence-parallel, as in the JAX package. The two combine:
+the Paraformer role's offline recognizers then take both meshes (the
+TP shard, with its encoder gathered whole for the SP segments), the
+SenseVoice role only tp_mesh, as in the JAX package. Either mesh makes
 a fan-out (server/fanout.py): rank 0's recognizers that hold a mesh send
 each pass-2 call to the other ranks, which serve_worker(models) replays.
 Pass 1, the VAD, punctuation and the hotword compiler stay whole on
@@ -123,7 +126,7 @@ class ServerModels:
     server_hotwords: Any = None
     device: Any = "cuda"
     # sequence parallelism for very long offline segments: a DeviceMesh
-    # with an sp_axis axis over every rank; segments longer than
+    # over every rank with an sp_axis axis; segments longer than
     # sp_threshold LFR frames run the encoder time-sharded over it
     # (parallel/sequence.py). None = one card.
     sp_mesh: Any = None
@@ -134,9 +137,6 @@ class ServerModels:
     tp_mesh: Any = None
 
     def __post_init__(self):
-        if self.tp_mesh is not None and self.sp_mesh is not None:
-            raise ValueError("tp_mesh and sp_mesh do not combine: the "
-                             "sequence-parallel encoder takes whole weights")
         self.device = dev = resolve_device(self.device)
         fp32_products()
         self.asr_params = _on_device(
@@ -318,7 +318,7 @@ class ServerModels:
                 device=self.device, **shard)
         else:
             if sp and self.sp_mesh is not None:
-                shard = dict(sp_mesh=self.sp_mesh, sp_axis=self.sp_axis,
+                shard.update(sp_mesh=self.sp_mesh, sp_axis=self.sp_axis,
                              sp_threshold=self.sp_threshold)
             rec = ParaformerOffline(
                 self._tp_params("asr", self.asr_params), self.asr_cfg,

@@ -27,9 +27,11 @@ What decides a call's collectives, and so what it carries:
       by the items' feature lengths and hotword counts: the samples, or
       their lengths, and the hotword embeddings); _record's all_gather
       over dp of the handles, and of the logits where an item has an LM
-      (one flag an item); under sp_mesh the sequence-parallel encoder of
-      the segments past sp_threshold (only those are sent; the rest run
-      on rank 0 alone)
+      (one flag an item); under sp_mesh alone the sequence-parallel
+      encoder of the segments past sp_threshold (only those are sent;
+      the rest run on rank 0 alone); under both meshes the whole call,
+      with the SP segments' samples where the TP chunks' features are
+      broadcast
   SenseVoiceOffline.dispatch_batch  the TP forward (chunks by length; each
       item's language and ITN flag are inputs of the forward), the greedy
       ids' all_gathers, whole_logits where an item of the chunk has an LM
@@ -237,18 +239,26 @@ class Fanout:
             call.update(hw=hw_embs,
                         lm=[(lm if lm is not None else rec.lm_decoder)
                             is not None for lm in lm_decoders])
+            long = []
             if rec.sp_mesh is not None:
                 fcfg = rec.cfg.frontend
                 long = [i for i, b in enumerate(bufs)
                         if lfr_len(num_frames(len(b), fcfg), fcfg.lfr_m,
                                    fcfg.lfr_n) > rec.sp_threshold]
+                call["sp"] = True
+            if rec.sp_mesh is not None and rec.tp_mesh is None:
                 if not long:
                     return None, True
                 # the SP groups alone: they decode without hotwords or
                 # LM rows, so only their samples matter to the workers
-                call.update(sp=True, audio=[bufs[i] for i in long],
+                call.update(audio=[bufs[i] for i in long],
                             hw=[None] * len(long), lm=[False] * len(long))
                 return call, True
+            if long and kw.get("feats_override") is not None:
+                # a TP and SP recognizer: the SP segments' encoder runs on
+                # each rank's own time slice of their features, so their
+                # samples travel beside the TP chunks' broadcast features
+                call["sp_audio"] = {i: bufs[i] for i in long}
         if kw.get("feats_override") is not None:
             call["lengths"] = [len(b) for b in bufs]
         else:
@@ -362,6 +372,8 @@ class Fanout:
             else:
                 segs = [np.broadcast_to(np.float32(0), (n,))
                         for n in call["lengths"]]
+                for i, samples in call.get("sp_audio", {}).items():
+                    segs[i] = samples
                 dim = rec.cfg.frontend.lfr_dim
 
                 def override(idxs, bucket, bb):

@@ -14,8 +14,9 @@ SIGTERM and SIGINT on to every child.
 
 Cards: `device: K` runs the entry on card K alone (CUDA_VISIBLE_DEVICES=K,
 --device cuda); `device: "0,1"` gives an entry two cards, for
-`tp_devices: 2` or `sp_devices: 2`, whose child starts its own worker
-ranks (run_server's launcher); `cpu: true` serves on the CPU (--device
+`tp_devices: 2` or `sp_devices: 2` (or both, the smaller dividing the
+larger), whose child starts its own worker ranks (run_server's
+launcher); `cpu: true` serves on the CPU (--device
 cpu). When a worker rank dies, its rank 0 exits, and the entry restarts
 as a whole.
 """

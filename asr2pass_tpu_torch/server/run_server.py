@@ -43,7 +43,14 @@ N. Rank 0 serves; the others replay its pass-2 calls
 (server/fanout.serve_worker). A collective that does not complete
 within --dist-timeout seconds ends the ranks, and rank 0 exits non-zero
 when a worker ends: the fleet supervisor (server/run_all_servers.py)
-restarts it. The two flags do not combine.
+restarts it. The two flags combine when the smaller count divides the
+larger: the larger is the number of ranks, the TP mesh is (ranks / N)
+dp x N tp with the rows over dp, and each group of M consecutive ranks
+runs the SP encoder; segments up to --sp-threshold take TP, longer
+ones SP:
+
+    python -m asr2pass_tpu_torch.server.run_server --model-dir DIR \
+        --vad-dir DIR --tp-devices 2 --sp-devices 4
 """
 from __future__ import annotations
 
@@ -149,15 +156,19 @@ def parser() -> argparse.ArgumentParser:
 
 
 def parallel_world(args) -> int:
-    """The ranks --tp-devices or --sp-devices asks for (0: one process).
-    Raises SystemExit for both, or for a device the ranks cannot take."""
-    if args.tp_devices and args.sp_devices:
-        raise SystemExit("--tp-devices and --sp-devices do not combine: "
-                         "the sequence-parallel encoder takes whole "
-                         "weights")
-    n = args.tp_devices or args.sp_devices
-    if n < 0:
+    """The ranks --tp-devices and --sp-devices ask for (0: one process):
+    the larger count when both are given, which the smaller must divide.
+    Raises SystemExit for another pair (the JAX launcher takes any pair:
+    its meshes are the first N and the first M devices of one process),
+    or for a device the ranks cannot take."""
+    tp, sp = args.tp_devices, args.sp_devices
+    if tp < 0 or sp < 0:
         raise SystemExit("--tp-devices/--sp-devices take a count >= 0")
+    n = max(tp, sp)
+    if tp and sp and n % min(tp, sp):
+        raise SystemExit(f"--tp-devices {tp} with --sp-devices {sp}: the "
+                         "ranks are the larger count, which the smaller "
+                         "must divide")
     if n and args.device not in ("cuda", "cpu"):
         raise SystemExit(f"--device {args.device}: the ranks take a card "
                          "each by their rank; pass --device cuda (or cpu)")
@@ -197,21 +208,29 @@ def join_ranks(args, argv, world: int):
 
 
 def mesh_options(args) -> dict:
-    """ServerModels' mesh fields from --tp-devices / --sp-devices, over
-    the joined group: a dp 1 x tp N mesh (the JAX launcher's
-    make_mesh(n, tp=n)), or a 1-D "sp" mesh with --sp-threshold."""
+    """ServerModels' mesh fields from --tp-devices N / --sp-devices M,
+    over the joined group of parallel_world's ranks: a (ranks / N) dp x
+    N tp mesh (dp 1 alone: the JAX launcher's make_mesh(n, tp=n)), and a
+    (ranks / M) x M "sp" mesh with --sp-threshold, each group of M
+    consecutive ranks running the sequence-parallel encoder on its own
+    (with M the smaller count, the same work as the JAX launcher's sp
+    mesh over M devices, every rank holding the result)."""
+    import torch.distributed as dist
+
+    opts = {}
     if args.tp_devices:
         from asr2pass_tpu_torch.parallel.sharding import make_mesh
 
-        return {"tp_mesh": make_mesh(args.tp_devices, tp=args.tp_devices)}
+        opts["tp_mesh"] = make_mesh(tp=args.tp_devices)
     if args.sp_devices:
         from torch.distributed.device_mesh import init_device_mesh
 
-        return {"sp_mesh": init_device_mesh(
+        world = dist.get_world_size()
+        opts.update(sp_mesh=init_device_mesh(
             "cuda" if args.device.startswith("cuda") else "cpu",
-            (args.sp_devices,), mesh_dim_names=("sp",)),
-            "sp_threshold": args.sp_threshold}
-    return {}
+            (world // args.sp_devices, args.sp_devices),
+            mesh_dim_names=("dp", "sp")), sp_threshold=args.sp_threshold)
+    return opts
 
 
 def build_models(args):

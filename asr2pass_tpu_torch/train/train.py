@@ -23,7 +23,10 @@ token count and utterance count are all-reduced over dp as denominators,
 so each rank's loss is its share of the whole batch's and the gradients,
 summed over dp, are the whole batch's: the step equals train_step on the
 whole batch. AdamW runs on each rank's shards: it is elementwise, so
-that is exact.
+that is exact. A unit that shard_params keeps whole (an attention whose
+heads tp does not divide) runs on the replicated activations, so its
+gradient is the whole one on every tp rank and, like the replicated
+layer norms', is reduced over dp only.
 """
 from __future__ import annotations
 

@@ -118,9 +118,17 @@ def quantize_params(params: Union[nn.Module, Mapping[str, torch.Tensor]],
     takes an int8 product) or, with weight_only, `w_q8` (w8a16: the
     product runs in the activations' dtype), plus `scale`; `b` stays.
     Cast to bf16 first for the bf16 serving route, as the JAX package's
-    bench does, so that `scale` is bf16."""
+    bench does, so that `scale` is bf16. A tensor-parallel shard
+    (parallel/sharding.shard_params) is refused: quantize, then shard."""
     key = "w_q8" if weight_only else "w_q"
     if isinstance(params, nn.Module):
+        for name, mod in params.named_modules():
+            if getattr(mod, "tp_group", None) is not None:
+                raise ValueError(
+                    f"{name} is a tensor-parallel shard: quantize the whole "
+                    "model, then shard it (the JAX package's scales on a "
+                    "row-parallel shard are a max over the whole input "
+                    "axis, not over this rank's rows)")
         for name, mod in params.named_modules():
             if (hasattr(mod, "quantize_") and mod.weight_key == "w"
                     and not set(name.split(".")) & set(QUANT_SKIP)):

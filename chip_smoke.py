@@ -188,11 +188,22 @@ Phases, each of which fails the run if it fails:
               training steps at B = 8 x 15 s (losses 1e-4); 13d the
               sharded prune on [16, 1028, 25055] logits (the whole
               prune's candidate sets); 13e #1/#2/#3 at the heads a rank
-              holds at tp 2 and 4. With two or more cards, 13f: one
+              holds at tp 2 and 4; 13g the recognizer given both
+              meshes (tp 1 x sp 1) on 16 x 60 s + 150 s (TP: #1, #2)
+              and the 300 s (SP), results equal to 13a's and 13b's, the
+              encoder gather's ms and added memory; phase 11a's w8a16
+              and w8a8 trees sharded (every unit whole): ids and logits
+              equal to the unsharded int8 forward; a 3-head model (d
+              384, head dim 128, 12 + 4 blocks) at tp 2 over two gloo
+              ranks sharing the card, its attention whole: logits 1e-4
+              of their range. With two or more cards, 13f: one
               NCCL rank a card, tp 2 and 4 (the same gates but the
               logits, and the sharded decoder on equal inputs 1e-4),
-              sp over all, dp x tp training, SenseVoice at vocab 25056
-              over tp (logits 1e-4, the sharded prune's sets). Alone:
+              sp over all, tp x sp over all (the TP results counted,
+              the SP segment's length equal), the 3-head model at tp
+              over all through the recognizer, dp x tp training,
+              SenseVoice at vocab 25056 over tp (logits 1e-4, the
+              sharded prune's sets). Alone:
               python3 chip_smoke.py --phase 13
 
  14. serving the launcher's servers as processes, on 9a's dir (phase 3's
@@ -216,7 +227,9 @@ Phases, each of which fails the run if it fails:
             cards, 14c: --tp-devices 2 and 4 (worker ranks on NCCL; upload
             texts equal to the unsharded server's, timestamps counted),
             --sp-devices (300 s past --sp-threshold 4096: token count
-            equal), a killed worker ending its server non-zero. Alone:
+            equal), --tp-devices with --sp-devices (4 x 4, 2 x 4: the
+            150 s upload's text equal, the 300 s token count equal), a
+            killed worker ending its server non-zero. Alone:
             python3 chip_smoke.py --phase 14 (or 14c); 14a's load
             control, two tp 1 and two tp 0 servers under uploads beside
             connections started together (agreement measured, not
@@ -5263,6 +5276,14 @@ P13_SVS_VOCAB = 25056
 P13_SVS_BLOCKS = (6, 2)
 P13_SVS_SEGMENTS = 4         # x 60 s
 P13_TIMEOUT_S = 120          # a collective that does not complete raises
+# 13g: the whole-heads model, paraformer_large but 3 heads of 128 (d 384:
+# 3 splits over neither 2 nor 4 ranks) at reduced depth, its FFN and
+# vocab widths unchanged; B x 60 s of random features
+P13G_HEADS = 3
+P13G_BLOCKS = (12, 4)
+P13G_BATCH = 4
+P13G_RANKS = 2               # gloo ranks sharing the one card
+P13G_GATHER_RUNS = 3
 
 
 def p13_device():
@@ -5569,12 +5590,296 @@ def p13_sp(bundle, whole, sp_mesh, seg, label: str) -> dict:
     out = dict(gate, **differ, launches=launches,
                collectives=collectives, t_lfr=got_len[0],
                audio_s_per_s_sp=audio_s / sp_s,
-               audio_s_per_s_whole=audio_s / whole_s)
+               audio_s_per_s_whole=audio_s / whole_s, results=res)
     print(f"{label}: T={got_len[0]}: forwards {gate}; {differ}; "
           f"launches {launches} (the encoder's attention is "
           f"plain); collectives {collectives}; audio-s/s sp "
           f"{out['audio_s_per_s_sp']:.1f}, unsharded "
           f"{out['audio_s_per_s_whole']:.1f}", flush=True)
+    return out
+
+
+def p13_tpsp(bundle, ref_res: list, sp_res: list, tp_mesh, sp_mesh, segs,
+             label: str) -> dict:
+    """13g: the recognizer given both meshes on `segs` (all but the last
+    through TP, the last past P13_SP_THRESHOLD through SP): their results
+    against the unsharded recognizer's (`ref_res`) and the last against
+    the sequence-parallel recognizer's (`sp_res`), equal at tp 1 and
+    counted past it; kernel launches by route (counted from 0 around the
+    call: #1 and #2 must launch); the encoder gather's ms and the memory
+    it adds; audio-s/s."""
+    import torch
+
+    from asr2pass_tpu_torch.ops import attention as att
+    from asr2pass_tpu_torch.parallel import comm
+    from asr2pass_tpu_torch.parallel.sharding import axis_size, gather_whole
+    from asr2pass_tpu_torch.runtime.offline_asr import ParaformerOffline
+
+    n_tp = axis_size(tp_mesh, "tp")
+    with CLOCK.part("build"):
+        rec = ParaformerOffline(bundle.params, bundle.cfg, bundle.vocab,
+                                cmvn=bundle.cmvn, tp_mesh=tp_mesh,
+                                sp_mesh=sp_mesh,
+                                sp_threshold=P13_SP_THRESHOLD)
+    rec.recognize_batch(segs[:1])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    att.reset_launch_counts()
+    comm.reset_collective_counts()
+    t0 = time.perf_counter()
+    res = rec.recognize_batch(segs)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    by_dtype = att.launch_counts_by_dtype()
+    launches = {k: {d: n for d, n in v.items() if n}
+                for k, v in by_dtype.items()}
+    out = {"collectives": comm.collective_counts(),
+           "launches_by_dtype": by_dtype,
+           "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+           "audio_s_per_s": sum(len(x) for x in segs) / FS / secs,
+           "launches": launches}
+    if not launches.get("mh_flash_attention") or \
+            not launches.get("_attention_ss"):
+        fail(f"{label}: the TP segments launched {launches}: #1 and #2 "
+             "expected")
+    with torch.inference_mode():
+        base = torch.cuda.memory_allocated()
+        gather_ms, added = [], 0
+        for _ in range(P13G_GATHER_RUNS):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            whole_enc = gather_whole(rec.model.encoder)
+            torch.cuda.synchronize()
+            gather_ms.append((time.perf_counter() - t0) * 1e3)
+            added = torch.cuda.max_memory_allocated() - base
+            del whole_enc
+    out.update(gather_ms=gather_ms, gather_added_gib=added / 2**30,
+               encoder_params=sum(p.numel() for p in
+                                  rec.model.encoder.parameters()))
+    exact = n_tp == 1
+    out["tp"] = p13_texts_gate(f"{label} TP segments", ref_res, res[:-1],
+                               exact)
+    out["sp"] = p13_texts_gate(f"{label} SP segment", sp_res, res[-1:],
+                               exact)
+    if not exact and [len(t) for t, _ in res[-1:]] != \
+            [len(t) for t, _ in sp_res]:
+        fail(f"{label}: the SP segment has {len(res[-1][0])} characters, "
+             f"the sequence-parallel recognizer's {len(sp_res[0][0])}")
+    print(f"{label}: {json.dumps(out)}", flush=True)
+    return out
+
+
+def p13_int8_whole(bundle, mesh, gen, label: str) -> dict:
+    """13g: phase 11a's w8a16 and w8a8 trees (the bf16 cast, quantized)
+    sharded over `mesh`: no key sliced, and the shard's ids and logits
+    on bf16 features equal to the unsharded int8 forward's; the shard's
+    kernel launches."""
+    import torch
+
+    from asr2pass_tpu_torch.models import paraformer
+    from asr2pass_tpu_torch.ops import attention as att
+    from asr2pass_tpu_torch.parallel.sharding import (shard_params,
+                                                      sliced_params)
+    from asr2pass_tpu_torch.utils import cast_floats, quantize_params
+
+    fcfg = bundle.cfg.frontend
+    t_b = int(60.0 * 1000 / (fcfg.frame_shift_ms * fcfg.lfr_n))
+    feats = torch.randn(P13G_BATCH, t_b, fcfg.lfr_dim, generator=gen,
+                        device="cuda").to(torch.bfloat16)
+    lens = torch.full((P13G_BATCH,), t_b, dtype=torch.long, device="cuda")
+    sd16 = cast_floats(bundle.params, torch.bfloat16)
+    out = {"launches_by_dtype": {k: dict.fromkeys(v, 0) for k, v in
+                                 att.launch_counts_by_dtype().items()}}
+    for form, weight_only in (("w8a16", True), ("w8a8", False)):
+        whole = paraformer.from_state_dict(
+            quantize_params(sd16, weight_only=weight_only), bundle.cfg,
+            "cuda")
+        local = shard_params(whole, mesh)
+        with torch.inference_mode():
+            torch.cuda.synchronize()
+            att.reset_launch_counts()
+            got = paraformer.apply(local, bundle.cfg, feats, lens,
+                                   max_tokens=t_b // 2 + 8)
+            torch.cuda.synchronize()
+            by_dtype = att.launch_counts_by_dtype()
+            for k, v in by_dtype.items():
+                for d, n in v.items():
+                    out["launches_by_dtype"][k][d] += n
+            launches = {k: {d: n for d, n in v.items() if n}
+                        for k, v in by_dtype.items()}
+            ref = paraformer.apply(whole, bundle.cfg, feats, lens,
+                                   max_tokens=t_b // 2 + 8)
+        same = (torch.equal(got.logits, ref.logits)
+                and torch.equal(got.token_num, ref.token_num)
+                and torch.equal(got.logits.argmax(-1),
+                                ref.logits.argmax(-1)))
+        out[form] = {"sliced": len(sliced_params(local)), "equal": same,
+                     "tokens": int(ref.token_num.sum()),
+                     "launches": launches}
+        if out[form]["sliced"] or not same:
+            fail(f"{label} {form}: {out[form]['sliced']} keys sliced; ids "
+                 f"and logits equal to the unsharded int8 forward: {same}")
+        del whole, local, got, ref
+    print(f"{label}: {json.dumps(out)}", flush=True)
+    return out
+
+
+def p13g_heads_cfg():
+    """paraformer_large with P13G_HEADS heads of 128 and P13G_BLOCKS of
+    depth (the FFN and vocab widths unchanged)."""
+    import dataclasses
+
+    from asr2pass_tpu_torch.config import paraformer_large
+
+    cfg = paraformer_large()
+    d = 128 * P13G_HEADS
+    return dataclasses.replace(
+        cfg,
+        encoder=dataclasses.replace(cfg.encoder, output_size=d,
+                                    attention_heads=P13G_HEADS,
+                                    num_blocks=P13G_BLOCKS[0]),
+        decoder=dataclasses.replace(cfg.decoder, attention_heads=P13G_HEADS,
+                                    num_blocks=P13G_BLOCKS[1]),
+        predictor=dataclasses.replace(cfg.predictor, idim=d))
+
+
+def p13g_heads_forward(mesh, label: str) -> dict:
+    """The whole-heads model (p13g_heads_cfg) sharded over the mesh's tp,
+    which its heads do not split over: every attention module whole on
+    each rank, the FFNs and the vocab head sliced; its forward on
+    P13G_BATCH x 60 s of random features against the unsharded forward
+    on the same card (p13_forward_gate, exact: logits within CPU_TOL of
+    their range, token_num and ids equal); the kernels' launches."""
+    import torch
+
+    from asr2pass_tpu_torch.models import paraformer
+    from asr2pass_tpu_torch.ops import attention as att
+    from asr2pass_tpu_torch.parallel.sharding import (axis_size,
+                                                      shard_params,
+                                                      sliced_params,
+                                                      whole_units)
+
+    cfg = p13g_heads_cfg()
+    n_tp = axis_size(mesh, "tp")
+    dev = p13_device()
+    with torch.no_grad():
+        whole = paraformer.init(cfg, torch.Generator().manual_seed(13),
+                                "cpu").to(dev)
+    local = shard_params(whole, mesh)
+    units = whole_units(whole, n_tp)
+    attention = [n for n, m in whole.named_modules()
+                 if type(m).__name__ in ("SanmAttention", "CrossAttention")]
+    if sorted(units) != sorted(attention):
+        fail(f"{label}: whole units {sorted(units)}, attention modules "
+             f"{sorted(attention)}")
+    t_b = int(60.0 * 1000 / (cfg.frontend.frame_shift_ms
+                             * cfg.frontend.lfr_n))
+    g = torch.Generator(device=dev).manual_seed(14)
+    feats = torch.randn(P13G_BATCH, t_b, cfg.frontend.lfr_dim, generator=g,
+                        device=dev)
+    lens = torch.tensor([t_b - 37 * k for k in range(P13G_BATCH)],
+                        device=dev)
+    recs = {}
+    with torch.inference_mode():
+        for name, model in (("whole", whole), ("tp", local)):
+            torch.cuda.synchronize()
+            att.reset_launch_counts()
+            out = paraformer.apply(model, cfg, feats, lens,
+                                   max_tokens=t_b // 2 + 8)
+            torch.cuda.synchronize()
+            recs[name] = ([p13_record(0, lens.tolist(), out)],
+                          {k: {d: n for d, n in v.items() if n} for k, v in
+                           att.launch_counts_by_dtype().items()})
+    gate = p13_forward_gate(label, recs["whole"][0], recs["tp"][0],
+                            exact=True)
+    res = dict(gate, tp=n_tp, whole_units=len(units),
+               sliced=len(sliced_params(local)),
+               qkv=list(local.encoder.first.att.qkv.w.shape),
+               w1=list(local.encoder.first.ffn.w1.w.shape),
+               launches_tp=recs["tp"][1], launches_whole=recs["whole"][1])
+    if res["launches_tp"] != res["launches_whole"] or \
+            not res["launches_tp"].get("mh_flash_attention"):
+        fail(f"{label}: launches {res['launches_tp']}, unsharded "
+             f"{res['launches_whole']}")
+    print(f"{label}: {json.dumps(res)}", flush=True)
+    return res
+
+
+def p13_heads_recognizer(world: int, segs, label: str) -> dict:
+    """13f: the whole-heads model (p13g_heads_cfg, seeded alike on every
+    rank) through the recognizer at tp = world against the unsharded one
+    (p13_recognizers: forwards gated, results counted)."""
+    from types import SimpleNamespace
+
+    import numpy as np
+    import torch
+
+    from asr2pass_tpu_torch.models import paraformer
+    from asr2pass_tpu_torch.parallel.sharding import make_mesh
+    from asr2pass_tpu_torch.runtime.offline_asr import ParaformerOffline
+    from asr2pass_tpu_torch.text.vocab import Vocab
+
+    cfg = p13g_heads_cfg()
+    d = cfg.frontend.lfr_dim
+    with CLOCK.part("build"), torch.no_grad():
+        model = paraformer.init(cfg, torch.Generator().manual_seed(13),
+                                "cpu").to(p13_device())
+    bundle = SimpleNamespace(
+        params=model, cfg=cfg, vocab=Vocab(cjk_tokens(cfg.vocab_size)),
+        cmvn=(np.full(d, -12.0, np.float32), np.full(d, 0.25, np.float32)))
+    whole = ParaformerOffline(model, cfg, bundle.vocab, cmvn=bundle.cmvn)
+    whole.recognize_batch(segs)
+    return p13_recognizers(bundle, whole, p13_run(whole, segs),
+                           make_mesh(world, tp=world), segs, label)
+
+
+def p13g_heads_rank(rank: int, world: int, tmp: str) -> None:
+    """One of P13G_RANKS gloo ranks on the one card (gloo carries the
+    collectives of CUDA tensors through the host): p13g_heads_forward at
+    tp = world; numbers to <tmp>/p13g_rank<rank>.json."""
+    sys.path.insert(0, REPO)
+    import datetime
+
+    import torch
+    import torch.distributed as dist
+
+    from asr2pass_tpu_torch.parallel.sharding import make_mesh
+
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dist.init_process_group(
+        "gloo", init_method=f"file://{tmp}/p13g_rdv", world_size=world,
+        rank=rank, timeout=datetime.timedelta(seconds=P13_TIMEOUT_S))
+    try:
+        out = p13g_heads_forward(make_mesh(world, tp=world),
+                                 f"13g rank {rank} heads whole at tp "
+                                 f"{world} (gloo, one card)")
+        with open(os.path.join(tmp, f"p13g_rank{rank}.json"), "w") as f:
+            json.dump(out, f)
+    finally:
+        dist.destroy_process_group()
+
+
+def p13g_heads_start(tmp: str):
+    """13g's whole heads on one card: P13G_RANKS gloo ranks there, started
+    (they gate correctness only, so they run beside 13a-13e, as phase
+    14's servers start beside phase 13); p13g_heads_join waits."""
+    import torch.multiprocessing as mp
+
+    return mp.spawn(p13g_heads_rank, args=(P13G_RANKS, tmp),
+                    nprocs=P13G_RANKS, join=False)
+
+
+def p13g_heads_join(ctx, tmp: str) -> list:
+    """The ranks' numbers; raises if a rank failed."""
+    while not ctx.join():
+        pass
+    out = []
+    for r in range(P13G_RANKS):
+        with open(os.path.join(tmp, f"p13g_rank{r}.json")) as f:
+            out.append(json.load(f))
     return out
 
 
@@ -5699,7 +6004,8 @@ def p13_prune(mesh, gen, label: str) -> dict:
 
 def p13_kernel_cases(gen) -> list:
     """#1, #2 and #3 (fp32, the recognizer's) at the heads a rank holds
-    at tp 2 and 4: paraformer_large's d 512 over 4 heads of 128."""
+    at tp 2 and 4: paraformer_large's d 512 over 4 heads of 128; and #1
+    at 13g's whole-heads forward's shape (3 heads of 128, T 1000)."""
     runs = []
     for tp in (2, 4):
         for name, shape in (
@@ -5710,6 +6016,14 @@ def p13_kernel_cases(gen) -> list:
                      path=f"tp{tp}: {4 // tp} heads a rank")
             print_case(name, r, f" (tp {tp}: {4 // tp} heads a rank)")
             runs.append(r)
+    # 13g's whole-heads model: all P13G_HEADS heads on every rank
+    shape = (P13G_BATCH, 1000, 1000, 128 * P13G_HEADS, P13G_HEADS)
+    r = dict(kernel_case("mh_flash_attention", shape, "float32", gen),
+             name="mh_flash_attention",
+             path=f"whole heads: {P13G_HEADS} a rank")
+    print_case("mh_flash_attention", r, f" (whole: {P13G_HEADS} heads a "
+               "rank)")
+    runs.append(r)
     return runs
 
 
@@ -5729,6 +6043,7 @@ def p13_svs(mesh, label: str) -> dict:
     from asr2pass_tpu_torch.frontend.fbank import num_frames
     from asr2pass_tpu_torch.frontend.lfr import lfr_len
     from asr2pass_tpu_torch.models import sensevoice
+    from asr2pass_tpu_torch.ops import attention as att
     from asr2pass_tpu_torch.parallel import comm
     from asr2pass_tpu_torch.parallel.ctc_shard import (
         ctc_first_prune, ctc_first_prune_sharded)
@@ -5750,7 +6065,12 @@ def p13_svs(mesh, label: str) -> dict:
     segs = [synth_audio(60.0, 340 + i) for i in range(P13_SVS_SEGMENTS)]
     recs = {"whole": SenseVoiceOffline(model, cfg, vocab),
             "tp": SenseVoiceOffline(model, cfg, vocab, tp_mesh=mesh)}
-    res = {k: r.recognize_batch(segs) for k, r in recs.items()}
+    res = {"whole": recs["whole"].recognize_batch(segs)}
+    torch.cuda.synchronize()
+    att.reset_launch_counts()
+    res["tp"] = recs["tp"].recognize_batch(segs)
+    torch.cuda.synchronize()
+    tp_launches = att.launch_counts()
     # the beam with a context: the sharded prune with the context units'
     # log-probs, in the recognizer
     tokens = cjk_tokens(P13_SVS_VOCAB)
@@ -5797,6 +6117,7 @@ def p13_svs(mesh, label: str) -> dict:
                                  exact=False)
     out = dict(gate, prune=prune, **differ, beam=beam_differ,
                beam_collectives=beam_collectives,
+               launches_tp_recognizer=tp_launches,
                heads_per_rank=local.encoder.first.att.qkv.w.shape[1] // 3
                // (cfg.encoder.output_size // cfg.encoder.attention_heads),
                vocab_per_rank=local.ctc.w.shape[1])
@@ -5807,8 +6128,9 @@ def p13_svs(mesh, label: str) -> dict:
 def p13_rank(rank: int, world: int, tmp: str, model_dir: str) -> None:
     """One NCCL rank of the multi-card phase 13 (a card each): the
     recognizers at tp 2 and 4, the sequence-parallel one over all ranks,
-    dp x tp training and SenseVoice's sharded prune; its numbers go to
-    <tmp>/p13_rank<rank>.json."""
+    the one given both meshes over all ranks, a 3-head model's at tp over
+    all ranks (its attention whole), dp x tp training and SenseVoice's
+    sharded prune; its numbers go to <tmp>/p13_rank<rank>.json."""
     sys.path.insert(0, REPO)
     import torch
     import torch.distributed as dist
@@ -5841,6 +6163,16 @@ def p13_rank(rank: int, world: int, tmp: str, model_dir: str) -> None:
         sp_mesh = init_device_mesh("cuda", (world,), mesh_dim_names=("sp",))
         out[f"sp{world}"] = p13_sp(bundle, whole, sp_mesh, long_seg,
                                    f"13 rank {rank} sp {world}")
+        sp_res = out[f"sp{world}"].pop("results")
+        short = P13_SEGMENTS + 1
+        out[f"tpsp{world}"] = p13_tpsp(
+            bundle, ref["res"][:short], sp_res, make_mesh(world, tp=world),
+            sp_mesh, segs[:short] + [long_seg],
+            f"13 rank {rank} tp {world} x sp {world}")
+        out[f"tpsp{world}"].pop("launches_by_dtype")
+        out[f"heads_tp{world}"] = p13_heads_recognizer(
+            world, segs[:P13_SEGMENTS], f"13 rank {rank} 3 heads at tp "
+            f"{world}")
         if world % 2 == 0:
             out["train"] = p13_train(
                 bundle, make_mesh(world, tp=2),
@@ -5848,7 +6180,7 @@ def p13_rank(rank: int, world: int, tmp: str, model_dir: str) -> None:
         out[f"svs_tp{world}"] = p13_svs(
             make_mesh(world, tp=world),
             f"13 rank {rank} SenseVoice tp {world}")
-        for key in ("tp2", "tp4"):
+        for key in ("tp2", "tp4", f"heads_tp{world}"):
             out.get(key, {}).pop("launches_by_dtype", None)
         with open(os.path.join(tmp, f"p13_rank{rank}.json"), "w") as f:
             json.dump(out, f)
@@ -5858,12 +6190,15 @@ def p13_rank(rank: int, world: int, tmp: str, model_dir: str) -> None:
 
 def phase13(tmp: str, gen, card: str, one_card: bool = True):
     """Phase 13. On a world-size-1 NCCL group in this process: 13a the
-    tensor-parallel recognizer, 13b the sequence-parallel one, 13c the
-    sharded training step, 13d the sharded prune, each against the
-    unsharded port on the card, 13e the kernels at the heads a rank holds
-    at tp 2 and 4 (one_card=False leaves 13a-13e out). With two or more
-    cards, 13f: one NCCL rank a card (p13_rank). Returns ({path:
-    launches}, numbers)."""
+    tensor-parallel recognizer, 13b the sequence-parallel one, 13g the
+    recognizer given both meshes and phase 11a's int8 trees sharded
+    (every unit whole), 13c the sharded training step, 13d the sharded
+    prune, each against the unsharded port on the card, 13e the kernels
+    at the heads a rank holds at tp 2 and 4; and, beside them, 13g's
+    whole heads, a 3-head model at tp 2 over two gloo ranks on the card
+    (one_card=False
+    leaves 13a-13e and 13g out). With two or more cards, 13f: one NCCL
+    rank a card (p13_rank). Returns ({path: launches}, numbers)."""
     import torch
 
     numbers = {"card": card, "torch": torch.__version__}
@@ -5871,6 +6206,12 @@ def phase13(tmp: str, gen, card: str, one_card: bool = True):
     if one_card:
         numbers.update(p13_one_card(tmp, gen))
         launches["tp13"] = numbers["13a"].pop("launches_by_dtype")
+        g = numbers["13g"]
+        launches["tpsp13g"] = g["tpsp"].pop("launches_by_dtype")
+        launches["int8_tp13g"] = g["int8"].pop("launches_by_dtype")
+        launches["heads13g"] = {
+            k: {d: g["heads"][0]["launches_tp"].get(k, {}).get(d, 0)
+                for d in v} for k, v in launches["tp13"].items()}
     world = torch.cuda.device_count()
     if world > 1:
         import torch.multiprocessing as mp
@@ -5896,6 +6237,7 @@ def p13_one_card(tmp: str, gen) -> dict:
     from asr2pass_tpu_torch.runtime.model_zoo import load_offline_bundle
     from asr2pass_tpu_torch.runtime.offline_asr import ParaformerOffline
 
+    heads = p13g_heads_start(tmp)
     with CLOCK.part("build"):
         init_distributed(f"file://{tmp}/p13_rdv", 1, 0, device="cuda",
                          timeout_s=P13_TIMEOUT_S)
@@ -5908,11 +6250,21 @@ def p13_one_card(tmp: str, gen) -> dict:
     numbers = {}
     try:
         with CLOCK.phase("13a"):
-            numbers["13a"] = p13_recognizers(
-                bundle, whole, p13_run(whole, segs), mesh, segs, "13a tp 1")
+            ref = p13_run(whole, segs)
+            numbers["13a"] = p13_recognizers(bundle, whole, ref, mesh, segs,
+                                             "13a tp 1")
         with CLOCK.phase("13b"):
             numbers["13b"] = p13_sp(bundle, whole, sp_mesh, long_seg,
                                     "13b sp 1")
+        sp_res = numbers["13b"].pop("results")
+        with CLOCK.phase("13g"):
+            short = P13_SEGMENTS + 1        # 16 x 60 s and the 150 s
+            numbers["13g"] = {
+                "tpsp": p13_tpsp(bundle, ref["res"][:short], sp_res, mesh,
+                                 sp_mesh, segs[:short] + [long_seg],
+                                 "13g tp 1 x sp 1"),
+                "int8": p13_int8_whole(bundle, mesh, gen, "13g int8 tp 1")}
+        del ref
         with CLOCK.phase("13c"):
             numbers["13c"] = p13_train(bundle, mesh, "13c dp 1 x tp 1")
         with CLOCK.phase("13d"):
@@ -5923,6 +6275,8 @@ def p13_one_card(tmp: str, gen) -> dict:
         numbers["13e"] = p13_kernel_cases(gen)
     del bundle, whole
     torch.cuda.empty_cache()
+    with CLOCK.phase("13g-heads"):
+        numbers["13g"]["heads"] = p13g_heads_join(heads, tmp)
     return numbers
 
 
@@ -6417,7 +6771,9 @@ def p14_one_card(tmp: str, d: dict, card: str, fleet: dict):
     delta = p14_launch_delta(before[0].get("launches", {}),
                              stats["tp1"].get("launches", {}))
     a["launches"] = {"tp1": delta, "tp0": p14_launch_delta(
-        before[1].get("launches", {}), stats["tp0"].get("launches", {}))}
+        before[1].get("launches", {}), stats["tp0"].get("launches", {})),
+        "svs_tp1_since_start": stats["svs_tp1"].get("launches"),
+        "svs_tp0_since_start": stats["svs_tp0"].get("launches")}
     # latencies: the paced connections' partials and finals, the tick
     for k, (clients, _) in (("tp1", g1), ("tp0", g0)):
         partial, final = [], []
@@ -6645,7 +7001,9 @@ def p14_lane(tmp: str, d: dict, card: str):
 def p14_multi_card(tmp: str, d: dict, card: str, cards: int):
     """14c (phase14): --tp-devices 2 and 4 with worker ranks on NCCL
     against an unsharded server on the same requests, an --sp-devices
-    server on a 300 s upload, and a worker killed under traffic."""
+    server on a 300 s upload, servers with --tp-devices and --sp-devices
+    together (tp 4 x sp 4, tp 2 x sp 4) on a 150 s (TP) and the 300 s
+    (SP) upload, and a worker killed under traffic."""
     import asyncio
 
     streams, firsts, _, longs = p14_requests()
@@ -6660,6 +7018,15 @@ def p14_multi_card(tmp: str, d: dict, card: str, cards: int):
         tmp, f"c_sp{sp}", p14_flags(d) + [
             "--sp-devices", str(sp), "--sp-threshold",
             str(P14_SP_THRESHOLD)])
+    # both flags: tp = sp, and tp dividing sp
+    tpsp = [(tp, sp) for tp in (sp, 2) if tp <= sp and sp % tp == 0
+            and sp > 1]
+    tpsp = list(dict.fromkeys(tpsp))
+    for tp, n in tpsp:
+        servers[f"tp{tp}sp{n}"] = P14Server.server(
+            tmp, f"c_tp{tp}sp{n}", p14_flags(d) + [
+                "--tp-devices", str(tp), "--sp-devices", str(n),
+                "--sp-threshold", str(P14_SP_THRESHOLD)])
     c = {"card": card, "cards": cards}
     try:
         with CLOCK.part("build"):
@@ -6676,6 +7043,13 @@ def p14_multi_card(tmp: str, d: dict, card: str, cards: int):
         ref, _ = asyncio.run(drive("tp0"))
         sp_got = asyncio.run(sp_upload(f"sp{sp}"))
         sp_ref = asyncio.run(sp_upload("tp0"))
+        tpsp_got = {}
+        for tp, n in tpsp:
+            k = f"tp{tp}sp{n}"
+            tpsp_got[k] = (asyncio.run(p14_upload(
+                servers[k].port, k, longs[0], vad_max_len=400000)),
+                asyncio.run(sp_upload(k)),
+                asyncio.run(p14_stats(servers[k].port)))
         results = {}
         for tp in tps:
             results[tp] = asyncio.run(drive(f"tp{tp}"))
@@ -6707,6 +7081,19 @@ def p14_multi_card(tmp: str, d: dict, card: str, cards: int):
     if n_sp != n_ref or not n_sp:
         fail(f"14c: the sp {sp} upload has {n_sp} tokens, the unsharded "
              f"{n_ref}")
+    for k, (short, long_, st) in tpsp_got.items():
+        n_long = len(json.loads(long_[1] or "[]"))
+        c[k] = {"short_text_equal": short[0] == want_up[0][0],
+                "short_stamps_equal": short[1] == want_up[0][1],
+                "long_tokens": n_long,
+                "long_char_edits_vs_sp": align(list(sp_got[0]),
+                                               list(long_[0]))[1],
+                "fanout": st.get("fanout"),
+                "launches_rank0": st.get("launches")}
+        if short[0] != want_up[0][0] or n_long != n_ref:
+            fail(f"14c: {k}: the 150 s upload's text equal to the "
+                 f"unsharded server's: {short[0] == want_up[0][0]}; the "
+                 f"300 s upload {n_long} tokens, the unsharded {n_ref}")
     c["fault"] = fault
     c["exit_codes"] = rcs
     c["worker_launches"] = {k: p14_worker_launches(s) for k, s in

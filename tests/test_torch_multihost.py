@@ -248,6 +248,39 @@ def test_sharded_adamw_step_params_match_jax(trained, step):
                  trained["jax"]["adamw"][step][1], o, step)
 
 
+# tp 4 over 2 heads: the loss within HEADS_LOSS_RTOL, each gradient
+# norm within HEADS_GRAD_RTOL of the unsharded step's, floored at
+# ROUNDING_GRAD of the largest (the key biases' gradients are rounding)
+HEADS_LOSS_RTOL = 1e-4
+HEADS_GRAD_RTOL = 1e-3
+
+
+def test_sharded_step_over_more_ranks_than_heads(trained):
+    """make_sharded_train_step at tp 4 over the model's 2 heads (every
+    attention module whole on each rank, reduced over dp only): the loss
+    of the unsharded train_step and of JAX's, and each parameter's
+    gradient norm, gathered from the shards, the unsharded step's; the
+    same on every rank."""
+    outs = trained["outs"]
+    js = outs[0]["json"]
+    assert js["heads/whole_units"] == 2 + 2   # encoder and decoder blocks
+    want = trained["jax"]["adamw"][0][0]
+    for o in outs:
+        got = o["json"]
+        assert got["heads/loss"] == js["heads/loss"]
+        np.testing.assert_allclose(got["heads/loss"],
+                                   got["heads/whole_loss"],
+                                   rtol=HEADS_LOSS_RTOL)
+        np.testing.assert_allclose(got["heads/loss"], want,
+                                   rtol=HEADS_LOSS_RTOL)
+    ref = js["heads/whole_grad_norms"]
+    assert js["heads/grad_norms"].keys() == ref.keys()
+    floor = ROUNDING_GRAD * max(ref.values())
+    for k, n in js["heads/grad_norms"].items():
+        assert abs(n - ref[k]) <= HEADS_GRAD_RTOL * max(ref[k], floor), \
+            (k, n, ref[k])
+
+
 @pytest.mark.parametrize("kind", ["adamw", "sgd"])
 def test_sharded_step_metrics_are_the_whole_batchs(trained, kind):
     """ce, quantity and acc are the whole batch's, equal on every rank,

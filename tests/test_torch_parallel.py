@@ -1,8 +1,9 @@
 """The port's tensor parallelism against the JAX package on the CPU: the
 sharding rules against JAX's, the TP Paraformer forward at tp 2 and 4
-(heads = tp) with hotwords and timestamps, the dp x tp recognizer,
-SenseVoice at tp 2 and 4 with the vocab-sharded CTC prune, and the three
-refusals. The port runs in 4 gloo ranks spawned by the module's fixtures
+(heads = tp) with hotwords and timestamps, the dp x tp recognizer, tp 4
+over 2 heads (the attention whole), int8 trees at tp 2 (every unit
+whole), tp with sp, SenseVoice at tp 2 and 4 with the vocab-sharded CTC
+prune, and the two refusals. The port runs in 4 gloo ranks spawned by the module's fixtures
 (tests/torch_parallel_workers.py, one spawn a fixture); JAX runs here,
 unsharded and on its 8 virtual CPU devices."""
 import dataclasses
@@ -32,6 +33,8 @@ WORLD = 4
 RANGE_TOL = 1e-4
 PRUNE_K = 16
 LOGP_ATOL = 1e-5
+# LFR frames (3.84 s): the 1 s segment takes the TP path, the 6 s one SP
+SP_THRESHOLD = 64
 
 # keys the JAX rules shard and the port keeps whole, and why
 REPLICATED = {
@@ -169,8 +172,9 @@ def para(tmp_path_factory):
     for i, s in enumerate(segs):
         inputs[f"seg{i}"] = s
     inputs["n_segs"] = np.array(len(segs))
+    inputs["long"] = speechy(6.0, 40)
     outs = spawn("paraformer_tp", tmp_path_factory.mktemp("para"), WORLD,
-                 inputs, {"forwards": FORWARDS})
+                 inputs, {"forwards": FORWARDS, "sp_threshold": SP_THRESHOLD})
     return dict(outs=outs, trees=trees, inputs=inputs, segs=segs)
 
 
@@ -286,31 +290,181 @@ def test_tp_recognizer_lm_rows_match_unsharded(para):
         assert [t for t, _ in got] != [t for t, _ in o["json"]["rec/tp"]]
 
 
-@pytest.mark.parametrize("what", ["heads", "vocab", "int8"])
+@pytest.mark.parametrize("what", ["vocab", "quantize_after"])
 def test_tp_refusals_pinned(para, what):
-    """The port's shard_params refuses, with the shapes named: 2 heads
-    over tp 4 (JAX's GSPMD reshards and serves it), a vocab of 66 over tp
-    4 (JAX's device_put refuses it too), an int8 model (JAX's rules match
-    only the float `w`, so its int8 leaves stay whole)."""
+    """The port's shard_params refuses a vocab of 66 over tp 4, with the
+    shape named (JAX's device_put refuses it too); quantize_params
+    refuses a shard, naming JAX's whole-axis scales (quantize, then
+    shard)."""
     msg = para["outs"][0]["json"]["refusals"][what]
     assert msg is not None
-    mesh = jsharding.make_mesh(8, tp=4)
-    if what == "heads":
-        assert "2 heads" in msg and "(560, 96)" in msg
-        cfg, tree = para["trees"]["tp2"]
-        jsharding.shard_params(tree, mesh)   # JAX: no error
-    elif what == "vocab":
+    if what == "vocab":
         assert "(32, 66)" in msg
         tree = _tree(_jcfg(4, vocab=66), 0)
         with pytest.raises(ValueError, match="divisible"):
-            jsharding.shard_params(tree, mesh)
+            jsharding.shard_params(tree, jsharding.make_mesh(8, tp=4))
     else:
-        assert "int8" in msg and "w_q" in msg
-        from asr2pass_tpu.utils import quantize_params
+        assert "tensor-parallel shard" in msg and "whole input" in msg
 
-        q = quantize_params(para["trees"]["tp4"][1])
-        sh = jsharding.param_shardings(q, mesh)
-        assert tuple(sh["encoder"]["first"]["att"]["qkv"]["w_q"].spec) == ()
+
+# -- tp 4 over 2 heads: the attention modules stay whole ---------------------
+
+def _jax_sharded_forward(para, name, mesh):
+    """JAX's apply on the tree placed by its rules on `mesh` (GSPMD)."""
+    cfg, tree = para["trees"][name]
+    inp = para["inputs"]
+    return jparaformer.apply(
+        jsharding.shard_params(tree, mesh), cfg, jnp.asarray(inp["feats"]),
+        jnp.asarray(inp["lengths"]), hw_emb=jnp.asarray(inp["hw_emb"]),
+        hw_mask=jnp.asarray(inp["hw_mask"]),
+        max_tokens=inp["feats"].shape[1] // 2 + 8)
+
+
+def test_heads_tp_forward_matches_jax(para):
+    """2 heads over tp 4 (JAX: make_mesh(8, tp=4)): token_num equal, the
+    logits, upsampled alphas and peaks within RANGE_TOL of their range,
+    on every rank."""
+    ref = _jax_sharded_forward(para, "tp2", jsharding.make_mesh(8, tp=4))
+    want_n = np.asarray(ref.token_num)
+    for o in para["outs"]:
+        np.testing.assert_array_equal(o["heads/tp/token_num"], want_n)
+        for k, n in enumerate(want_n):
+            _within_range(o["heads/tp/logits"][k, :n],
+                          np.asarray(ref.logits)[k, :n])
+        _within_range(o["heads/tp/us_alphas"], ref.us_alphas)
+        _within_range(o["heads/tp/us_cif_peak"], ref.us_cif_peak)
+
+
+def test_heads_tp_keeps_attention_whole(para):
+    """Every attention module (the encoder's, the decoder's cross and the
+    hotword block's) stays whole on each rank with no collective; the
+    FFNs and the vocab head are sliced: one all-reduce per FFN, one
+    all-gather for the vocab."""
+    js = para["outs"][0]["json"]
+    assert js["heads/shapes"] == {"qkv": [560, 96], "w1": [32, 32],
+                                  "vocab": [32, 16]}
+    assert js["heads/whole_units"] == [
+        "decoder.blocks.0.cross", "decoder.blocks.1.cross",
+        "decoder.hotword.cross", "encoder.first.att", "encoder.rest.0.att"]
+    assert js["heads/collectives"] == {"all_reduce": 2 + 2 + 1,
+                                       "all_gather": 1, "halo": 0,
+                                       "broadcast": 0}
+
+
+def test_heads_tp_recognizer_matches_jax(para):
+    """The dp 1 x tp 4 recognizer over a 2-head model: JAX's recognizer on
+    make_mesh(8, tp=4), texts and timestamps, on every rank."""
+    cfg, tree = para["trees"]["rec"]
+    want = _as_result(JOffline(tree, cfg, make_test_vocab(cfg.vocab_size),
+                               tp_mesh=jsharding.make_mesh(8, tp=4)
+                               ).recognize_batch(para["segs"]))
+    assert all(t for t, _ in want)
+    for o in para["outs"]:
+        assert _as_result(o["json"]["rec/heads"]) == want
+
+
+# -- an int8 tree under tp: every unit whole -------------------------------
+
+INT8_FORMS = {"w8a16": True, "w8a8": False}
+
+
+@pytest.mark.parametrize("form", INT8_FORMS)
+def test_int8_tp_forward_equals_unsharded(para, form):
+    """shard_params of an int8 tree at tp 2 slices nothing, and its
+    forward is bit-equal to the unsharded int8 forward."""
+    o = para["outs"][0]
+    assert o["json"][f"int8/{form}/sliced"] == 0
+    for what in ("logits", "token_num"):
+        np.testing.assert_array_equal(o[f"int8/{form}/tp/{what}"],
+                                      o[f"int8/{form}/whole/{what}"])
+
+
+@pytest.mark.parametrize("form", INT8_FORMS)
+def test_int8_tp_recognizer_matches_jax(para, form):
+    """The dp 2 x tp 2 recognizer on the int8 tree: JAX's TP recognizer
+    on its quantized tree (make_mesh(8, tp=2), its int8 leaves whole)."""
+    from asr2pass_tpu.utils import quantize_params as jquantize
+
+    cfg, tree = para["trees"]["tp4"]
+    jtree = jquantize(tree, weight_only=INT8_FORMS[form])
+    want = _as_result(JOffline(jtree, cfg, make_test_vocab(cfg.vocab_size),
+                               tp_mesh=jsharding.make_mesh(8, tp=2)
+                               ).recognize_batch(para["segs"]))
+    assert all(t for t, _ in want)
+    for o in para["outs"]:
+        assert _as_result(o["json"][f"rec/int8/{form}"]) == want
+
+
+# -- tp with sp ----------------------------------------------------------------
+
+def _jax_tpsp(para, tp, sp):
+    """JAX's recognizer with tp_mesh over its first `tp` devices and/or an
+    sp_mesh over its first `sp` (0: without)."""
+    from jax.sharding import Mesh
+
+    cfg, tree = para["trees"]["rec"]
+    kw = {}
+    if tp:
+        kw["tp_mesh"] = jsharding.make_mesh(tp, tp=tp)
+    if sp:
+        kw.update(sp_mesh=Mesh(np.array(jax.devices()[:sp]), ("sp",)),
+                  sp_threshold=SP_THRESHOLD)
+    return JOffline(tree, cfg, make_test_vocab(cfg.vocab_size), **kw)
+
+
+def _tpsp_segs(para):
+    return [para["segs"][0], para["inputs"]["long"]]
+
+
+@pytest.mark.parametrize("sp", [2, 4])
+def test_tp_sp_recognizer_matches_jax(para, sp):
+    """tp 2 with sp 2 and sp 4, sp_threshold lowered to 64: the 1 s
+    segment through the TP path and the 6 s one through SP give JAX's
+    recognizer given both meshes (2 x 2); at 2 x 4, which JAX refuses
+    (test_jax_tp_sp_on_other_devices_fails), JAX's tp 2 and sp 4
+    recognizers, each alone. With and without hotwords on the short
+    segment; texts and timestamps, on every rank."""
+    segs = _tpsp_segs(para)
+    hw = [para["inputs"]["hw_emb"][0, :3], None]
+    refs = ([_jax_tpsp(para, 2, 2)] if sp == 2 else
+            [_jax_tpsp(para, 2, 0), _jax_tpsp(para, 0, 4)])
+    for ref in refs:
+        want = _as_result(ref.recognize_batch(segs))
+        want_hw = _as_result(ref.recognize_batch(segs, hw_embs=hw))
+        assert all(t for t, _ in want)
+        for o in para["outs"]:
+            assert _as_result(o["json"][f"rec/tpsp{sp}"]) == want
+            assert _as_result(o["json"][f"rec/tpsp{sp}/hotword"]) == want_hw
+    assert _as_result(para["outs"][0]["json"]["rec/whole/tpsp"]) == want
+
+
+@pytest.mark.parametrize("sp", [2, 4])
+def test_tp_sp_call_runs_both_paths(para, sp):
+    """One recognize_batch call of tp with sp ran the sequence-parallel
+    encoder (a halo exchange a block) on the encoder gathered whole from
+    the tp shards (7 sliced keys a block), and the TP forward and
+    decoder (all-reduces), the same on every rank."""
+    got = [o["json"][f"rec/tpsp{sp}/collectives"] for o in para["outs"]]
+    assert all(g == got[0] for g in got)
+    assert got[0]["halo"] == 2
+    assert got[0]["all_gather"] >= 2 * 7 + 2 * 2 + 1
+    assert got[0]["all_reduce"] > 0
+
+
+def test_jax_tp_sp_on_other_devices_fails():
+    """A fault of the reference: JAX's recognizer given a tp_mesh over 2
+    devices and an sp_mesh over 4 places the params on the first and the
+    encoder's input on the second, and the SP jit refuses them."""
+    from jax.sharding import Mesh
+
+    cfg = _jcfg(2)
+    tree = _tree(cfg, 0)
+    rec = JOffline(tree, cfg, make_test_vocab(cfg.vocab_size),
+                   tp_mesh=jsharding.make_mesh(2, tp=2),
+                   sp_mesh=Mesh(np.array(jax.devices()[:4]), ("sp",)),
+                   sp_threshold=SP_THRESHOLD)
+    with pytest.raises(ValueError, match="incompatible devices"):
+        rec.recognize_batch([speechy(6.0, 40)])
 
 
 # ---------------------------------------------------------------------------

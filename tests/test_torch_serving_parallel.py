@@ -289,6 +289,40 @@ def test_sp_upload_matches_jax(dirs, tmp_path_factory):
     assert got["collectives"] == outs[1]["json"]["collectives"]
 
 
+def test_tp_sp_server_matches_jax(dirs, tmp_path_factory):
+    """--tp-devices 2 --sp-devices 2 --sp-threshold 64 through the
+    launcher's build_models (ServerModels with both meshes): the uploads
+    past and below the threshold and an engine (the 6 s segment through
+    the SP path from the lane, the short one through TP from the ring)
+    equal JAX's ServerModels given tp_mesh=make_mesh(2, tp=2) and an
+    sp_mesh over the same 2 devices."""
+    from jax.sharding import Mesh
+
+    waves = _waves()
+    outs = spawn("serving_tpsp", tmp_path_factory.mktemp("tpsp"), TP, waves,
+                 {"argv": dirs["argv"], "tp": TP, "sp": TP,
+                  "sp_threshold": SP_THRESHOLD, "max_len": 60000})
+    jm = _jax_models(dirs, "asr", tp_mesh=jmake_mesh(TP, tp=TP),
+                     sp_mesh=Mesh(np.array(jax.devices()[:TP]), ("sp",)),
+                     sp_threshold=SP_THRESHOLD)
+    rec = jm.create_offline_recognizer(vad_max_len=60000)
+    got = outs[0]["json"]
+    assert got["meshes"] == [[1, TP], [1, TP]]
+    assert got["long"] == upload_result(rec, waves["long"])
+    assert got["short"] == upload_result(rec, waves["wave2"])
+    assert got["long"][0] and got["short"][0]
+    eng = jengine.StreamEngine(jm, capacity=2, fused_fetch=True,
+                               pass2_async=True)
+    eng.warmup()
+    eng.warm_pass2_ring()
+    assert got["engine"] == engine_results(eng, [waves["long"],
+                                                 waves["wave2"]])
+    assert all(_nonempty(r) for r in got["engine"])
+    c = got["collectives"]
+    assert c["halo"] > 0 and c["all_reduce"] > 0 and c["broadcast"] > 0
+    assert c == outs[1]["json"]["collectives"]
+
+
 def test_two_process_serving_dp(dirs, tmp_path_factory):
     """Two gloo processes, each its own StreamEngine on its own audio
     (tests/test_multihost.py:157): each text equals a fresh engine's in
@@ -452,16 +486,51 @@ def _running_with(needle: str) -> list:
     return found
 
 
-def test_launcher_refuses_tp_with_sp():
-    """--tp-devices with --sp-devices is refused, as the recognizer
-    refuses the two meshes together."""
+def test_launcher_tp_with_sp_serves_like_one_process(tmp_path):
+    """run_server --demo --device cpu --tp-devices 4 --sp-devices 2
+    --sp-threshold 64 (4 ranks: tp 4 over the demo model's 2 heads, so
+    its attention whole; sp over ranks 0-1 and over 2-3) answers an
+    upload past the threshold and one below it as the --tp-devices 0
+    server does; the worker ranks are gone after SIGTERM."""
+    waves = _waves()
+    flags = {"0": ["--tp-devices", "0"],
+             "4x2": ["--tp-devices", "4", "--sp-devices", "2",
+                     "--sp-threshold", str(SP_THRESHOLD)]}
+    got = {}
+    with spawn_lock(tmp_path):
+        servers = {k: _launch(tmp_path, f"s{k}", f) for k, f in flags.items()}
+        try:
+            for k, (proc, port, log_path) in servers.items():
+                _wait_listening(proc, port, log_path)
+                got[k] = [asyncio.run(_request(port, "offline", waves[w]))
+                          for w in ("long", "wave2")]
+                got[k + "stats"] = asyncio.run(_stats(port))
+        finally:
+            for proc, _, _ in servers.values():
+                proc.send_signal(signal.SIGTERM)
+            rcs = {k: proc.wait(timeout=60)
+                   for k, (proc, _, _) in servers.items()}
+    for k, (_, port, log_path) in servers.items():
+        assert rcs[k] == 0, open(log_path).read()[-3000:]
+        assert not _running_with(f"--port\0{port}\0")
+    assert got["4x2"] == got["0"]
+    assert all(r[0]["text"] for r in got["0"])
+    fan = got["4x2stats"]["fanout"]
+    assert fan["world"] == 4 and fan["calls"] >= 2
+
+
+@pytest.mark.parametrize("tp,sp", [("3", "2"), ("2", "3")])
+def test_launcher_refuses_a_tp_sp_pair_that_does_not_divide(tp, sp):
+    """--tp-devices and --sp-devices where neither count divides the
+    other are refused, both counts named, before any rank starts (the
+    JAX launcher takes any pair: ROADMAP, "Differences recorded")."""
     res = subprocess.run(
         [sys.executable, "-m", "asr2pass_tpu_torch.server.run_server",
-         "--demo", "--device", "cpu", "--tp-devices", "2", "--sp-devices",
-         "2"], cwd=REPO, env=_env(), capture_output=True, text=True,
+         "--demo", "--device", "cpu", "--tp-devices", tp, "--sp-devices",
+         sp], cwd=REPO, env=_env(), capture_output=True, text=True,
         timeout=SERVER_TIMEOUT_S)
     assert res.returncode != 0
-    assert "do not combine" in res.stderr
+    assert f"--tp-devices {tp} with --sp-devices {sp}" in res.stderr
 
 
 def test_launcher_tp_on_cuda_without_a_card_raises():
@@ -532,6 +601,25 @@ def test_build_cmd_devices():
     assert _flags(cmd)["--device"] == "cpu"
     assert "CUDA_VISIBLE_DEVICES" not in env or \
         env["CUDA_VISIBLE_DEVICES"] == os.environ.get("CUDA_VISIBLE_DEVICES")
+
+
+def test_build_cmd_passes_tp_with_sp():
+    """A fleet entry holding tp_devices and sp_devices: both flags reach
+    the port's launcher as JAX's build_cmd passes them, and the launcher
+    takes them as 4 ranks."""
+    from asr2pass_tpu_torch.server.run_server import parallel_world, parser
+
+    entry = {"name": "x", "port": 1, "model_dir": "m", "device": "0,1,2,3",
+             "tp_devices": 2, "sp_devices": 4}
+    cmd, env = ras.build_cmd(entry)
+    jcmd, _ = jras.build_cmd(entry)
+    flags = _flags(cmd)
+    assert flags["--tp-devices"] == "2" and flags["--sp-devices"] == "4"
+    assert {k: flags[k] for k in ("--tp-devices", "--sp-devices")} == {
+        k: _flags(jcmd[2:])[k] for k in ("--tp-devices", "--sp-devices")}
+    assert env["CUDA_VISIBLE_DEVICES"] == "0,1,2,3"
+    args = parser().parse_args(cmd[3:])
+    assert parallel_world(args) == 4
 
 
 def test_supervisor_restarts_a_killed_child(tmp_path):

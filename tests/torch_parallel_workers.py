@@ -120,25 +120,21 @@ def weights(data, name: str) -> dict:
             if k.startswith(pre)}
 
 
-def gather_whole(local, mesh, axis: str = "tp") -> dict:
+def gather_whole(local, tensors=None) -> dict:
     """The whole state dict from each rank's shard (the inverse of
-    sharding.shard_params), as numpy."""
-    import torch
+    sharding.shard_params), as numpy; with `tensors` ({key: tensor} of
+    the shard's shapes, its gradients), those gathered the same way."""
+    from asr2pass_tpu_torch.parallel import sharding
 
-    from asr2pass_tpu_torch.parallel import comm, sharding
-
-    group = mesh.get_group(axis)
-    n = sharding.axis_size(mesh, axis)
-    sd = {k: v.detach() for k, v in local.state_dict().items()}
+    sliced = sharding.sliced_params(local)
+    if tensors is None:
+        tensors = local.state_dict()
     out = {}
-    for key, dim in sharding.param_specs(sd).items():
-        v = sd[key]
-        if dim is not None:
-            blocks = sharding._FUSED.get(key.rsplit(".", 2)[-2], 1)
-            parts = comm.all_gather(v, dim, group).chunk(n * blocks, dim)
-            # rank-major [q_0 k_0 v_0 q_1 ...] -> block-major
-            v = torch.cat([parts[r * blocks + blk] for blk in range(blocks)
-                           for r in range(n)], dim)
+    for key, v in tensors.items():
+        v = v.detach()
+        if key in sliced:
+            dim, group = sliced[key]
+            v = sharding.gather_param(v, key, dim, group)
         out[key] = v.numpy().copy()
     return out
 
@@ -180,7 +176,8 @@ def _lm_decoder(vocab):
 def case_paraformer_tp(data, spec, rank, world):
     """TP forwards (each case's mesh, every rank the whole batch) and the
     dp x tp recognizer, each beside the port's unsharded run; the
-    collectives of one forward; the refusals."""
+    collectives of one forward; tp 4 over 2 heads; int8 trees at tp 2;
+    tp with sp; the refusals."""
     import torch
 
     from asr2pass_tpu_torch.models import paraformer
@@ -230,19 +227,74 @@ def case_paraformer_tp(data, spec, rank, world):
         js[f"rec/{name}/lm"] = rec.recognize_batch(
             segs, lm_decoders=[lm] * len(segs))
 
-    # refusals: heads % tp, a vocab tp does not divide, an int8 model
-    refusals = {}
+    # tp 4 over 2 heads: the attention modules whole, the FFNs and the
+    # vocab head sliced; the forward and the dp 1 x tp 4 recognizer
     mesh4 = sharding.make_mesh(world, tp=4)
-    for label, model in [
-            ("heads", _paraformer(weights(data, "tp2"),
-                                  tp_cfg(2, True, True))),
-            ("vocab", paraformer.init(tp_cfg(4, vocab=66),
-                                      torch.Generator().manual_seed(0),
-                                      "cpu")),
-            ("int8", quantize_params(_paraformer(weights(data, "tp4"),
-                                                 tp_cfg(4))))]:
+    heads_cfg = tp_cfg(2, True, True)
+    whole = _paraformer(weights(data, "tp2"), heads_cfg)
+    local = sharding.shard_params(whole, mesh4)
+    with torch.inference_mode():
+        comm.reset_collective_counts()
+        out = paraformer.apply(local, heads_cfg, feats, lengths, hw_emb=hw,
+                               hw_mask=hw_mask,
+                               max_tokens=feats.shape[1] // 2 + 8)
+        js["heads/collectives"] = comm.collective_counts()
+    res.update(_forward_arrays(out, "heads/tp/"))
+    js["heads/shapes"] = {
+        "qkv": list(local.encoder.first.att.qkv.w.shape),
+        "w1": list(local.encoder.first.ffn.w1.w.shape),
+        "vocab": list(local.decoder.out.w.shape)}
+    js["heads/whole_units"] = sorted(sharding.whole_units(whole, 4))
+    js["rec/heads"] = ParaformerOffline(sd, cfg, vocab, device="cpu",
+                                        tp_mesh=mesh4).recognize_batch(segs)
+
+    # an int8 tree at dp 2 x tp 2: every unit whole
+    int8_cfg = tp_cfg(4)
+    for form, weight_only in (("w8a16", True), ("w8a8", False)):
+        q = quantize_params(_paraformer(weights(data, "tp4"), int8_cfg),
+                            weight_only=weight_only)
+        local = sharding.shard_params(q, mesh)
+        js[f"int8/{form}/sliced"] = len(sharding.sliced_params(local))
+        with torch.inference_mode():
+            for name, model in (("tp", local), ("whole", q)):
+                res.update(_forward_arrays(paraformer.apply(
+                    model, int8_cfg, feats, lengths,
+                    max_tokens=feats.shape[1] // 2 + 8),
+                    f"int8/{form}/{name}/"))
+        js[f"rec/int8/{form}"] = ParaformerOffline(
+            q, int8_cfg, vocab, device="cpu",
+            tp_mesh=mesh).recognize_batch(segs)
+
+    # tp 2 with sp 2 (both over a 2 x 2 mesh's inner axis) and sp 4: a
+    # short segment takes the TP path, a long one the SP path
+    from torch.distributed.device_mesh import init_device_mesh
+
+    sp_meshes = {2: init_device_mesh("cpu", (world // 2, 2),
+                                     mesh_dim_names=("dp", "sp")),
+                 4: init_device_mesh("cpu", (world,),
+                                     mesh_dim_names=("sp",))}
+    tpsp = [segs[0], data["long"]]
+    js["rec/whole/tpsp"] = recs["whole"].recognize_batch(tpsp)
+    for n, sp_mesh in sp_meshes.items():
+        rec = ParaformerOffline(sd, cfg, vocab, device="cpu", tp_mesh=mesh,
+                                sp_mesh=sp_mesh,
+                                sp_threshold=spec["sp_threshold"])
+        comm.reset_collective_counts()
+        js[f"rec/tpsp{n}"] = rec.recognize_batch(tpsp)
+        js[f"rec/tpsp{n}/collectives"] = comm.collective_counts()
+        js[f"rec/tpsp{n}/hotword"] = rec.recognize_batch(
+            tpsp, hw_embs=[data["hw_emb"][0, :3], None])
+
+    # refusals: a vocab tp does not divide, quantizing a shard
+    refusals = {}
+    for label, make in [
+            ("vocab", lambda: sharding.shard_params(paraformer.init(
+                tp_cfg(4, vocab=66), torch.Generator().manual_seed(0),
+                "cpu"), mesh4)),
+            ("quantize_after", lambda: quantize_params(sharding.shard_params(
+                _paraformer(weights(data, "tp4"), tp_cfg(4)), mesh)))]:
         try:
-            sharding.shard_params(model, mesh4)
+            make()
             refusals[label] = None
         except ValueError as e:
             refusals[label] = str(e)
@@ -386,7 +438,8 @@ def case_train(data, spec, rank, world):
     """make_sharded_train_step at dp x tp = (world/tp) x tp, `steps` steps
     with each optimizer (make_optimizer's AdamW, and plain SGD at
     spec["sgd_lr"]), beside train_step on the whole batch; the whole
-    params and gradients after each step."""
+    params and gradients after each step. Then one step at tp = world
+    over the model's 2 heads: its loss and gradient norms."""
     import dataclasses
 
     import torch
@@ -424,7 +477,7 @@ def case_train(data, spec, rank, world):
             js[kind]["metrics"].append({k: float(v) for k, v in m.items()})
             js[kind]["whole_loss"].append(float(train.train_step(
                 whole, ref_opt, batch, cfg)["loss"]))
-            for k, v in gather_whole(local, mesh).items():
+            for k, v in gather_whole(local).items():
                 res[f"{kind}/step{i}/sharded/{k}"] = v
             grads = {k: p.grad for k, p in whole.named_parameters()}
             for k, v in whole.state_dict().items():
@@ -433,6 +486,24 @@ def case_train(data, spec, rank, world):
                 res[f"{kind}/step{i}/grad/{k}"] = (
                     np.zeros(v.shape, np.float32) if g is None
                     else g.numpy().copy())
+
+    # tp 4 over the model's 2 heads (dp 1): the attention modules whole;
+    # one AdamW step's loss and gradient norms beside train_step's
+    mesh4 = sharding.make_mesh(world, tp=4)
+    whole = _paraformer(weights(data, "model"), cfg)
+    local = sharding.shard_params(whole, mesh4)
+    js["heads/whole_units"] = len(sharding.whole_units(whole, 4))
+    m = train.make_sharded_train_step(cfg, mesh4)(
+        local, train.make_optimizer(local), batch)
+    js["heads/loss"] = float(m["loss"])
+    js["heads/whole_loss"] = float(train.train_step(
+        whole, train.make_optimizer(whole), batch, cfg)["loss"])
+    grads = gather_whole(local, {k: p.grad for k, p in
+                                 local.named_parameters()})
+    js["heads/grad_norms"] = {k: float(np.linalg.norm(g))
+                              for k, g in grads.items()}
+    js["heads/whole_grad_norms"] = {
+        k: float(p.grad.norm()) for k, p in whole.named_parameters()}
     return res, js
 
 
@@ -662,6 +733,35 @@ def case_serving_sp(data, spec, rank, world):
     return {}, _serve_rank0(models, work)
 
 
+def case_serving_tpsp(data, spec, rank, world):
+    """A server with --tp-devices and --sp-devices together: an upload
+    past --sp-threshold, one below it, and an engine whose lane takes a
+    segment past it (the call carries its samples beside the broadcast
+    ring features) and a short one."""
+    extra = ["--tp-devices", str(spec["tp"]), "--sp-devices",
+             str(spec["sp"]), "--sp-threshold", str(spec["sp_threshold"])]
+    models = _server_models(spec, "asr", extra)
+    if rank > 0:
+        return {}, _serve_worker(models)
+
+    def work(models):
+        from asr2pass_tpu_torch.runtime.engine import StreamEngine
+
+        rec = models.create_offline_recognizer(vad_max_len=spec["max_len"])
+        js = {"long": upload_result(rec, data["long"]),
+              "short": upload_result(rec, data["wave2"]),
+              "meshes": [list(models.tp_mesh.mesh.shape),
+                         list(models.sp_mesh.mesh.shape)]}
+        eng = StreamEngine(models, capacity=2, fused_fetch=True,
+                           pass2_async=True)
+        eng.warmup()
+        eng.warm_pass2_ring()
+        js["engine"] = engine_results(eng, [data["long"], data["wave2"]])
+        return js
+
+    return {}, _serve_rank0(models, work)
+
+
 def case_serving_dp(data, spec, rank, world):
     """Serving dp: every process its own StreamEngine on its own audio in
     one gloo group; a fresh engine on the same audio in the same process
@@ -702,7 +802,8 @@ CASES = {"paraformer_tp": case_paraformer_tp,
          "sensevoice_tp": case_sensevoice_tp,
          "sequence": case_sequence, "train": case_train,
          "multihost": case_multihost, "serving_tp": case_serving_tp,
-         "serving_sp": case_serving_sp, "serving_dp": case_serving_dp,
+         "serving_sp": case_serving_sp, "serving_tpsp": case_serving_tpsp,
+         "serving_dp": case_serving_dp,
          "serving_fault": case_serving_fault}
 
 
