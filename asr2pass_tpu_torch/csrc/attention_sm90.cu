@@ -532,25 +532,33 @@ int launch(const void* q, const void* k, const void* v, const float* kv_mask,
 }  // namespace
 
 // Same C signature as asr2pass_attention_f32 (csrc/attention_f32_sm90.cu).
-// strides: 12 element strides, (batch, head, row) for q, k, v and out;
-// d_head: a multiple of 8 up to 256, every stride a multiple of 8 and
-// q, k, v 16-byte aligned (TMA's rules), out 4-byte aligned.
-// kv_mask: float32 [batch, tk]; q_mask: float32 [batch, tq] or null.
-// scale: the softmax scale, 1/sqrt(the caller's head dim).
-// Returns a cudaError_t (0 on success).
-extern "C" int asr2pass_attention_bf16(const void* q, const void* k,
-                                       const void* v, const void* kv_mask,
-                                       const void* q_mask, void* out,
-                                       int batch, int heads, int tq, int tk,
-                                       int d_head, const long long* st,
-                                       float scale, void* stream) {
-  const Strides sq{st[0], st[1], st[2]}, sk{st[3], st[4], st[5]},
-      sv{st[6], st[7], st[8]}, so{st[9], st[10], st[11]};
+// plan: the packed block (tma.cuh PlanSlot) that ops/attention.py writes
+// once per shape: strides of q, k, v and out as (batch, head, row)
+// element strides (multiples of 8; q, k, v 16-byte aligned: TMA's rules;
+// out 4-byte aligned), the head dim (a multiple of 8 up to 256), the
+// caller's head dim for the scale 1/sqrt(it), the device. kv_mask:
+// float32 [batch, tk]; q_mask: float32 [batch, tq] or null. scratch: not
+// used (null). Returns a cudaError_t (0 on success).
+extern "C" int asr2pass_attention_bf16(const long long* plan, const void* q,
+                                       const void* k, const void* v,
+                                       const void* kv_mask, const void* q_mask,
+                                       void* out, void* scratch, void* stream) {
+  (void)scratch;
+  const int batch = static_cast<int>(plan[kSlotBatch]);
+  const int heads = static_cast<int>(plan[kSlotHeads]);
+  const int tq = static_cast<int>(plan[kSlotTq]);
+  const int tk = static_cast<int>(plan[kSlotTk]);
+  const int d_head = static_cast<int>(plan[kSlotD]);
+  const Strides sq = plan_strides(plan, 0), sk = plan_strides(plan, 1),
+                sv = plan_strides(plan, 2), so = plan_strides(plan, 3);
+  const float scale =
+      static_cast<float>(1.0 / sqrt(static_cast<double>(plan[kSlotDScale])));
   const float* km = static_cast<const float*>(kv_mask);
   const float* qm = static_cast<const float*>(q_mask);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (d_head < 8 || d_head > 256 || d_head % 8 != 0)
     return static_cast<int>(cudaErrorInvalidValue);
+  DeviceGuard guard(static_cast<int>(plan[kSlotDevice]));
   if (d_head <= 32)
     return launch<32>(q, k, v, km, qm, out, batch, heads, tq, tk, d_head, sq, sk, sv, so, scale, s);
   if (d_head <= 64)

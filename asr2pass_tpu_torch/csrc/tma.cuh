@@ -1,7 +1,10 @@
-// TMA tensor maps, mbarriers and wgmma descriptors shared by the attention
-// kernels of this directory (attention_sm90.cu for bf16,
-// attention_f32_sm90.cu for fp32). Header-only: each kernel source includes
-// it, and each gets its own copy of the map cache.
+// What the attention kernels of this directory share (attention_sm90.cu
+// for bf16, attention_f32_sm90.cu for fp32): the packed argument block of
+// a launch (PlanSlot) and the device switch around it, mbarriers, TMA
+// tensor-map loads (bf16) and plain bulk copies (fp32), wgmma descriptors
+// and fences, and the bf16 kernel's tensor maps with their cache.
+// Header-only: each kernel source includes it, and each gets its own copy
+// of the map cache.
 #pragma once
 
 #include <cuda.h>
@@ -15,6 +18,49 @@ namespace {
 
 struct Strides {
   long long b, h, t;  // elements between batches, heads and rows
+};
+
+// The packed argument block of one launch: int64 slots that
+// ops/attention.py fills once per shape, strides and schedule (in the
+// order of its PLAN_SLOTS), so that a call hands the C side one pointer
+// beside its data pointers. Both kernels' entry points read it.
+enum PlanSlot : int {
+  kSlotBatch = 0,
+  kSlotHeads,
+  kSlotTq,
+  kSlotTk,
+  kSlotD,          // the head dim the kernel reads (padded to 16 bytes)
+  kSlotDScale,     // the caller's head dim: scale = 1 / sqrt(it)
+  kSlotDevice,     // CUDA device index of the operands
+  kSlotSplits,     // fp32: key splits of the schedule (1: none)
+  kSlotTiles,      // fp32: key tiles of Tk, ceil(Tk / the tile's keys)
+  kSlotStrides,    // 12 slots: (batch, head, row) of q, k, v and out
+  kSlotOffTiles = kSlotStrides + 12,  // fp32 scratch byte offsets
+  kSlotOffImages,
+  kSlotOffPartO,
+  kSlotOffPartMl,
+  kSlotCount
+};
+
+inline Strides plan_strides(const long long* plan, int which) {
+  const long long* s = plan + kSlotStrides + 3 * which;
+  return Strides{s[0], s[1], s[2]};
+}
+
+// Runs the launches of one call on the plan's device: switches the
+// calling thread's current device only where it differs, and back.
+struct DeviceGuard {
+  int prev = -1;
+  explicit DeviceGuard(int dev) {
+    int cur = 0;
+    if (cudaGetDevice(&cur) == cudaSuccess && cur != dev) {
+      prev = cur;
+      cudaSetDevice(dev);
+    }
+  }
+  ~DeviceGuard() {
+    if (prev >= 0) cudaSetDevice(prev);
+  }
 };
 
 // where the row, head and batch coordinates sit in a tensor map's dims
@@ -73,6 +119,18 @@ __device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
       "bytes [%0], [%1, {%2, %3, %4, %5}], [%6];" ::"r"(dst),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(col), "r"(c1), "r"(c2),
       "r"(c3), "r"(bar)
+      : "memory");
+}
+
+// one bulk copy of `bytes` (a multiple of 16) contiguous bytes from
+// device memory into shared memory, completion reported to `bar` as
+// transaction bytes; no tensor map
+__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src,
+                                          uint32_t bytes, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes), "r"(bar)
       : "memory");
 }
 

@@ -18,16 +18,23 @@ Pallas TPU kernels there; each entry point below keeps its JAX signature:
       (attention.py:158-189,295-337): split-head, T > MAX_T_SS_SPLIT,
       fully masked rows come out as 0.
 
-On a CUDA tensor all three launch one tensor-core kernel (wgmma fed by
-TMA) per dtype: float32 the 3xTF32 kernel of csrc/attention_f32_sm90.cu,
-bfloat16 the kernel of csrc/attention_sm90.cu; both take their tensor
-maps from csrc/tma.cuh. Both read Q, K, V and write the output through
-(batch, head, row) strides, so the unsplit layout needs no head split,
-merge or copy (a view that TMA cannot address is copied, see plan_tma).
-What bounds each and how it is designed is described at the top of its
+On a CUDA tensor all three call one hand-written tensor-core kernel
+(wgmma) per dtype: float32 the 3xTF32 kernel of
+csrc/attention_f32_sm90.cu (a pre-pass that splits K and V once per
+(batch, head) into tile images, the main kernel fed from them by bulk
+copies, and, where f32_schedule splits the keys over blocks to fill the
+card, a combine), bfloat16 the TMA-fed kernel of csrc/attention_sm90.cu.
+Both read Q, K, V and write the output through (batch, head, row)
+strides, so the unsplit layout needs no head split, merge or copy (a view
+that the kernels' 16-byte rules cannot address is copied, see plan_tma).
+A call looks up the plan of its layout (_Launch: the packed argument
+block, made once with every check) and makes one ctypes call. What
+bounds each kernel and how it is designed is described at the top of its
 source. On a CPU tensor each entry point runs its plain version (einsum,
 masked fp32 softmax, einsum: the XLA-path semantics of the JAX
-package's models/layers.py:258-267).
+package's models/layers.py:258-267); the fp32 kernel's steps have plain
+versions too (f32_presplit_plain, f32_partials_plain, f32_combine_plain),
+for the tests and the card's checks.
 A CUDA tensor launches the kernel or raises; nothing falls back. The
 kernels have no backward: a CUDA entry point refuses operands that need
 a gradient while autograd is on (refuse_autograd).
@@ -144,14 +151,18 @@ def _library():
     if _lib is None:
         lib = ctypes.CDLL(str(build()))
         for name, _ in KERNELS.values():
+            # (plan block, q, k, v, kv_mask, q_mask, out, scratch, stream)
             fn = getattr(lib, name)
-            fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 5
-                           + [ctypes.POINTER(ctypes.c_longlong),
-                              ctypes.c_float, ctypes.c_void_p])
+            fn.argtypes = [ctypes.c_void_p] * 9
             fn.restype = ctypes.c_int
             smem = getattr(lib, f"{name}_smem")
             smem.argtypes = [ctypes.c_int]
             smem.restype = ctypes.c_int
+        steps = lib.asr2pass_attention_f32_steps
+        steps.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int]
+        steps.restype = ctypes.c_int
+        lib.asr2pass_attention_f32_image.argtypes = [ctypes.c_int] * 2
+        lib.asr2pass_attention_f32_image.restype = ctypes.c_int
         _lib = lib
     return _lib
 
@@ -273,34 +284,147 @@ def _strides(x) -> tuple:
     return tuple(s if n > 1 else span for n, s in zip(shape[:3], st[:3]))
 
 
-def _attend(q, k, v, kv_mask, q_mask, out) -> None:
-    """One launch of the kernel for q's dtype, writing out. q/k/v/out are
-    [B,H,T,d] views (the unsplit layout is a view too: head stride d_k,
-    row stride D or 2D)."""
-    check_operands(q, k, v, out, kv_mask, q_mask)
-    fn = getattr(_library(), kernel_symbol(q.dtype))
+class _Launch(NamedTuple):
+    """What one shape, layout and dtype needs at every call, made once:
+    the kernel's C entry, its packed argument block (csrc/tma.cuh
+    PlanSlot), the output's shape and the scratch's size."""
+    fn: object              # the ctypes entry of the dtype's kernel
+    block: object           # the packed argument block (ctypes int64 array)
+    args: int               # its address
+    device: torch.device
+    index: int              # CUDA device index
+    out_shape: tuple
+    scratch: int            # scratch bytes (0: none)
+    v_offset: int           # bytes from k's pointer to v's (unsplit layout)
+    schedule: object        # F32Schedule, or None (bf16)
+
+
+# the slots of the packed argument block, in csrc/tma.cuh's PlanSlot order
+PLAN_SLOTS = ("batch", "heads", "tq", "tk", "d", "d_scale", "device",
+              "splits", "tiles",
+              *(f"stride_{x}_{y}" for x in "qkvo" for y in "bht"),
+              "off_tiles", "off_images", "off_part_o", "off_part_ml")
+# plans by layout; a model's layers repeat a few shapes, so this stays
+# small, and it is emptied if it ever grows past _PLANS_MAX
+_PLANS: dict = {}
+_PLANS_MAX = 4096
+_SMS: dict = {}
+
+
+def _sm_count(index: int) -> int:
+    if index not in _SMS:
+        _SMS[index] = torch.cuda.get_device_properties(
+            index).multi_processor_count
+    return _SMS[index]
+
+
+def _current_stream(index: int) -> int:
+    """The raw handle of the current CUDA stream of device `index` (no
+    Stream object made)."""
+    return torch._C._cuda_getCurrentRawStream(index)
+
+
+def _make_launch(q, k, v, out, d_scale: int, out_shape: tuple,
+                 v_offset: int = 0) -> _Launch:
+    """The launch of q's dtype's kernel on ready [B,H,T,d] views (plan_tma
+    passes them), their strides and, in fp32, f32_schedule's schedule
+    for this card's SM count."""
     b, h, tq, d = q.shape
-    scale = 1.0 / math.sqrt(d)
+    tk = k.shape[2]
+    index = q.get_device()
+    lib = _library()
+    fn = getattr(lib, kernel_symbol(q.dtype))
+    sched = (f32_schedule(b, h, tq, tk, d, _sm_count(index),
+                          bk=lib.asr2pass_attention_f32_image(d, 2),
+                          image=lib.asr2pass_attention_f32_image(d, 0))
+             if q.dtype == torch.float32 else None)
+    vals = {"batch": b, "heads": h, "tq": tq, "tk": tk, "d": d,
+            "d_scale": d_scale, "device": index,
+            "splits": sched.splits if sched else 1,
+            "tiles": sched.tiles if sched else 0,
+            "off_tiles": sched.off_tiles if sched else 0,
+            "off_images": sched.off_images if sched else 0,
+            "off_part_o": sched.off_part_o if sched else 0,
+            "off_part_ml": sched.off_part_ml if sched else 0}
+    for x, t in zip("qkvo", (q, k, v, out)):
+        for y, st in zip("bht", _strides(t)):
+            vals[f"stride_{x}_{y}"] = st
+    block = (ctypes.c_longlong * len(PLAN_SLOTS))(
+        *[vals[name] for name in PLAN_SLOTS])
+    return _Launch(fn, block, ctypes.addressof(block), q.device, index,
+                   tuple(out_shape), sched.scratch_bytes if sched else 0,
+                   v_offset, sched)
+
+
+def _remember(key, plan):
+    if len(_PLANS) >= _PLANS_MAX:
+        _PLANS.clear()
+    _PLANS[key] = plan
+    return plan
+
+
+def _run(plan: _Launch, qp: int, kp: int, vp: int, kv_mask, q_mask,
+         out) -> None:
+    """One ctypes call: the kernel's launches on the current stream of
+    the operands' device, with a fresh scratch buffer (stream-ordered, as
+    every temporary of the caching allocator)."""
+    scratch = (torch.empty(plan.scratch, dtype=torch.uint8,
+                           device=plan.device) if plan.scratch else None)
+    err = plan.fn(plan.args, qp, kp, vp, kv_mask.data_ptr(),
+                  None if q_mask is None else q_mask.data_ptr(),
+                  out.data_ptr(),
+                  None if scratch is None else scratch.data_ptr(),
+                  _current_stream(plan.index))
+    if err != 0:
+        raise RuntimeError(f"attention kernel launch failed: CUDA error "
+                           f"{err}")
+
+
+def _attend(q, k, v, kv_mask, q_mask, out) -> None:
+    """One call of the kernel for q's dtype, writing out. q/k/v/out are
+    [B,H,T,d] views (the unsplit layout is a view too: head stride d_k,
+    row stride D or 2D). Checks them, copies what TMA's rules do not
+    take (plan_tma), and launches through the plan of the ready layout."""
+    check_operands(q, k, v, out, kv_mask, q_mask)
+    d = q.shape[-1]
+    tq = q.shape[2]
     q, k, v, target, _ = plan_tma(q, k, v, out)
     kv_mask = _f32_on(kv_mask, q.device)
     if q_mask is not None:
         q_mask = _f32_on(q_mask if q_mask.shape[1] == tq else q_mask[:, :tq],
                          q.device)
-    st = (ctypes.c_longlong * 12)(*_strides(q), *_strides(k), *_strides(v),
-                                  *_strides(target))
-    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), kv_mask.data_ptr(),
-            None if q_mask is None else q_mask.data_ptr(), target.data_ptr(),
-            b, h, tq, k.shape[2], q.shape[-1], st, scale)
-    if q.device.index == torch.cuda.current_device():
-        err = fn(*args, torch.cuda.current_stream().cuda_stream)
-    else:   # the kernel launches on the current device
-        with torch.cuda.device(q.device):
-            err = fn(*args, torch.cuda.current_stream().cuda_stream)
+    key = ("views", q.dtype, d, q.shape, k.shape, q.stride(), k.stride(),
+           v.stride(), target.stride(), q.get_device())
+    plan = _PLANS.get(key) or _remember(
+        key, _make_launch(q, k, v, target, d, target.shape))
+    _run(plan, q.data_ptr(), k.data_ptr(), v.data_ptr(), kv_mask, q_mask,
+         target)
+    if target is not out:
+        out.copy_(target[..., :d])
+
+
+def f32_run_steps(q, k, v, kv_mask, q_mask, steps: int):
+    """The fp32 kernel's launches named by `steps` (1 the pre-pass, 2 the
+    main kernel, 4 the combine) on ready split-head views: (out, the
+    scratch's parts as f32_scratch_views gives them). For the card's
+    tests, which hold each step's scratch against its plain version."""
+    if q.dtype != torch.float32 or not q.is_cuda:
+        raise TypeError("f32_run_steps takes float32 CUDA tensors")
+    check_operands(q, k, v, q, kv_mask, q_mask)
+    out = torch.zeros(q.shape, dtype=q.dtype, device=q.device)
+    plan = _make_launch(q, k, v, out, q.shape[-1], q.shape)
+    sched = plan.schedule
+    scratch = torch.zeros(sched.scratch_bytes, dtype=torch.uint8,
+                          device=q.device)
+    err = _library().asr2pass_attention_f32_steps(
+        plan.args, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+        kv_mask.data_ptr(), None if q_mask is None else q_mask.data_ptr(),
+        out.data_ptr(), scratch.data_ptr(), _current_stream(plan.index),
+        steps)
     if err != 0:
         raise RuntimeError(f"attention kernel launch failed: CUDA error "
                            f"{err}")
-    if target is not out:
-        out.copy_(target[..., :d])
+    return out, f32_scratch_views(sched, *q.shape[:3], q.shape[-1], scratch)
 
 
 def _unit_cols(x):
@@ -450,6 +574,239 @@ def tf32_split(x):
 
 
 # ---------------------------------------------------------------------------
+# the fp32 kernel's schedule and the plain versions of its device steps
+# (csrc/attention_f32_sm90.cu: pre-pass, main kernel, combine). The
+# schedule is a pure function of the shape; the plain versions are for
+# the tests and chip_smoke.py, which hold each step's output on the card
+# against them. The main path never calls them.
+# ---------------------------------------------------------------------------
+
+F32_MAX_SPLITS = 16      # (kMaxSplits)
+F32_SMS = 132            # SMs of an H100 SXM; a launch passes its card's count
+# the split planner's costs, in keys of one block's loop: a block's fixed
+# work (its Q rows, the rings' first loads) and the combine's launch
+F32_BLOCK_COST = 32
+F32_COMBINE_COST = 64
+_SCRATCH_ALIGN = 256
+
+
+def f32_instance(d: int) -> int:
+    """The head-dim instantiation (32, 64, 128 or 256 columns) that runs
+    a head dim d <= 256."""
+    return next(n for n in (32, 64, 128, 256) if d <= n)
+
+
+def f32_bk(d: int) -> int:
+    """Keys of one tile at head dim d (Cfg<D>::BK): 64, or 32 at the
+    256-column instantiation, whose tile images fill shared memory."""
+    return 64 if f32_instance(d) <= 128 else 32
+
+
+def f32_image_bytes(d: int) -> int:
+    """Bytes of one key tile's image in the scratch at head dim d: K hi,
+    K lo (BK x the instantiation's width each, fp32), the BK key states,
+    V^T hi, V^T lo."""
+    return 4 * f32_bk(d) * f32_instance(d) * 4 + f32_bk(d) * 4
+
+
+def f32_splits(blocks: int, tiles: int, sms: int = F32_SMS,
+               bk: int = 64) -> int:
+    """Key splits for `blocks` main-kernel blocks (one an SM) whose rows
+    attend to `tiles` key tiles of bk keys: the S in 1..min(16, tiles)
+    that minimises waves x (keys a split + a block's fixed cost), plus
+    the combine's cost where S > 1; the smallest S on a tie."""
+    best, best_cost = 1, None
+    for s in range(1, min(F32_MAX_SPLITS, max(tiles, 1)) + 1):
+        waves = -(-blocks * s // sms)
+        cost = (waves * (-(-tiles // s) * bk + F32_BLOCK_COST)
+                + (F32_COMBINE_COST if s > 1 else 0))
+        if best_cost is None or cost < best_cost:
+            best, best_cost = s, cost
+    return best
+
+
+class F32Schedule(NamedTuple):
+    d_inst: int            # head-dim instantiation
+    rows: int              # query rows of a main-kernel block
+    bk: int                # keys of a tile
+    qblocks: int           # ceil(Tq / rows)
+    tiles: int             # key tiles of Tk, ceil(Tk / bk)
+    splits: int            # key splits (1: no partials, no combine)
+    grid_presplit: tuple   # () where Tk = 0
+    grid_main: tuple
+    grid_combine: tuple    # () where splits == 1
+    image_bytes: int       # one tile's image
+    off_tiles: int         # byte offsets into the scratch: int32 [B]
+    off_images: int        # [B, H, tiles] images
+    off_part_o: int        # float32 [S, B, H, Tq, d]
+    off_part_ml: int       # float32 [S, B, H, Tq, 2] (m, l)
+    scratch_bytes: int
+
+
+def _aligned(n: int) -> int:
+    return -(-n // _SCRATCH_ALIGN) * _SCRATCH_ALIGN
+
+
+def f32_schedule(b: int, h: int, tq: int, tk: int, d: int,
+                 sms: int = F32_SMS, bk: int = None,
+                 image: int = None) -> F32Schedule:
+    """The fp32 kernel's grids, key splits and scratch layout for q
+    [b,h,tq,d] against tk keys (d: the head dim the kernel reads, a
+    multiple of 4), as csrc/attention_f32_sm90.cu's launch takes them.
+    bk and image (a tile's keys and bytes) default to f32_bk and
+    f32_image_bytes; a launch passes the built kernel's own."""
+    n = f32_instance(d)
+    rows = 128 if n <= 128 else 64
+    bk = bk or f32_bk(d)
+    image = image or f32_image_bytes(d)
+    qblocks = -(-tq // rows)
+    tiles = -(-tk // bk)
+    splits = f32_splits(qblocks * h * b, tiles, sms, bk) if tk > 0 else 1
+    off_images = _aligned(4 * b)
+    off_part_o = off_images + _aligned(b * h * tiles * image)
+    part = splits > 1
+    off_part_ml = off_part_o + (_aligned(splits * b * h * tq * d * 4)
+                                if part else 0)
+    scratch = off_part_ml + (_aligned(splits * b * h * tq * 8) if part
+                             else 0)
+    return F32Schedule(
+        n, rows, bk, qblocks, tiles, splits,
+        (tiles, h, b) if tk > 0 else (), (qblocks * splits, h, b),
+        (-(-tq * (d // 4) // 256), h, b) if part else (),
+        image, 0, off_images, off_part_o, off_part_ml, scratch)
+
+
+def f32_scratch_views(sched: F32Schedule, b: int, h: int, tq: int, d: int,
+                      scratch) -> dict:
+    """The parts of a scratch buffer (uint8) as tensors: tiles int32
+    [B], images float32 [B, H, tiles, image_bytes / 4], part_o
+    [S, B, H, Tq, d] and part_ml [S, B, H, Tq, 2] (splits > 1)."""
+    def part(off, nbytes, dtype, shape):
+        return scratch[off:off + nbytes].view(dtype).view(shape)
+    s = sched.splits
+    views = {"tiles": part(sched.off_tiles, 4 * b, torch.int32, (b,)),
+             "images": part(sched.off_images,
+                            b * h * sched.tiles * sched.image_bytes,
+                            torch.float32, (b, h, sched.tiles,
+                                            sched.image_bytes // 4))}
+    if s > 1:
+        views["part_o"] = part(sched.off_part_o, s * b * h * tq * d * 4,
+                               torch.float32, (s, b, h, tq, d))
+        views["part_ml"] = part(sched.off_part_ml, s * b * h * tq * 8,
+                                torch.float32, (s, b, h, tq, 2))
+    return views
+
+
+def f32_tiles_plain(kv_mask, bk: int):
+    """Plain version of the pre-pass's tile count: the tiles of bk keys a
+    batch row is read over, up to its last valid key, or all ceil(Tk/bk)
+    for a row with no valid key. int32 [B]."""
+    b, tk = kv_mask.shape
+    idx = torch.arange(tk, device=kv_mask.device)
+    last = torch.where(kv_mask > 0, idx, -1).amax(dim=1) if tk else \
+        torch.full((b,), -1, device=kv_mask.device)
+    return torch.where(last >= 0, last // bk + 1,
+                       -(-tk // bk)).to(torch.int32)
+
+
+# V^T holds the keys of each 8-group in the order 0,2,4,6,1,3,5,7: the key
+# at position p of a tile
+F32_VT_KEYS = tuple(8 * (p // 8) + (2 * (p % 8) if p % 8 < 4
+                                    else 2 * (p % 8 - 4) + 1)
+                    for p in range(64))
+
+
+def _swizzled(rows: int, cols: int):
+    """Element index of (row, col) in a tile of 128-byte-swizzled
+    32-column fp32 panels of `rows` rows: the kernel's swz / 4."""
+    r = torch.arange(rows)[:, None]
+    c = torch.arange(cols)[None, :]
+    cc = c % 32
+    return ((c // 32) * rows * 32 + r * 32 + ((cc // 4) ^ (r % 8)) * 4
+            + cc % 4)
+
+
+def f32_presplit_plain(k, v, kv_mask):
+    """Plain version of the pre-pass: every tile's image, float32
+    [B, H, tiles, image_bytes / 4] (the kernel writes the tiles below
+    f32_tiles_plain of each batch row). k, v [B,H,Tk,d] float32; K hi and
+    lo in the swizzled K-major panels of the S product, the key states
+    (1 valid, 0 masked, -1 past Tk), then V^T hi and lo ([d, keys] in
+    panels of 32 keys, the keys in F32_VT_KEYS order); hi and lo from
+    tf32_split, zero past Tk and past d."""
+    b, h, tk, d = k.shape
+    n, bk = f32_instance(d), f32_bk(d)
+    tiles = -(-tk // bk)
+    plane = bk * n
+
+    def tiled(x):
+        y = x.new_zeros(b, h, tiles * bk, n)
+        y[:, :, :tk, :d] = x
+        return y.view(b, h, tiles, bk, n)
+    img = k.new_zeros(b, h, tiles, 4 * plane + bk)
+    idx_k = _swizzled(bk, n).flatten().to(k.device)
+    idx_v = _swizzled(n, bk).flatten().to(k.device)
+    vt = tiled(v)[:, :, :, list(F32_VT_KEYS[:bk]), :].transpose(-1, -2)
+    for at, x, idx in ((0, tiled(k), idx_k), (2 * plane + bk, vt, idx_v)):
+        hi, lo = tf32_split(x.reshape(b, h, tiles, plane))
+        img[..., at + idx] = hi
+        img[..., at + plane + idx] = lo
+    state = torch.full((b, tiles * bk), -1.0, device=k.device)
+    state[:, :tk] = (kv_mask > 0).float()
+    img[..., 2 * plane:2 * plane + bk] = state.view(b, 1, tiles, bk)
+    return img
+
+
+def f32_partials_plain(q, k, v, kv_mask, splits: int, bk: int):
+    """Plain version of the main kernel's split partials: for each split
+    s of a batch row's tiles of bk keys (f32_tiles_plain, ceil(n/S) tiles
+    a split), over the keys of its tiles, m = max(-1e30, max_j s_j) with
+    s_j = q.k_j / sqrt(d) * log2(e) (-1e30 masked, keys past Tk left
+    out), l = sum_j 2^(s_j - m) and O = sum_j 2^(s_j - m) v_j. Returns
+    (m [S,B,H,Tq], l [S,B,H,Tq], O [S,B,H,Tq,d]); a split that holds no
+    tile has m = -inf, l = 0, O = 0 (the kernel writes nothing for it,
+    and the combine skips it)."""
+    b, h, tq, d = q.shape
+    tk = k.shape[2]
+    s = torch.einsum("bhtd,bhsd->bhts", q.float(), k.float()) \
+        * (math.log2(math.e) / math.sqrt(d))
+    s = torch.where(kv_mask[:, None, None, :] > 0, s,
+                    torch.tensor(_NEG, device=s.device))
+    n_tiles = f32_tiles_plain(kv_mask, bk).tolist()
+    m = torch.full((splits, b, h, tq), -math.inf, device=q.device)
+    l = torch.zeros((splits, b, h, tq), device=q.device)
+    o = torch.zeros((splits, b, h, tq, d), device=q.device)
+    for bi in range(b):
+        per = -(-n_tiles[bi] // splits)
+        for si in range(splits):
+            lo_key = si * per * bk
+            hi_key = min(tk, min(n_tiles[bi], (si + 1) * per) * bk)
+            if hi_key <= lo_key:
+                continue
+            part = s[bi, :, :, lo_key:hi_key]
+            mi = part.amax(dim=-1).clamp(min=_NEG)
+            p = torch.exp2(part - mi[..., None])
+            m[si, bi], l[si, bi] = mi, p.sum(dim=-1)
+            o[si, bi] = torch.einsum("hts,hsd->htd", p,
+                                     v[bi, :, lo_key:hi_key].float())
+    return m, l, o
+
+
+def f32_combine_plain(m, l, o, q_mask=None):
+    """Plain version of the combine: M = max_s m_s, out = sum_s
+    2^(m_s - M) O_s / max(sum_s 2^(m_s - M) l_s, 1e-30); rows whose
+    q_mask is 0 are exact zeros. m, l [S,B,H,Tq]; O [S,B,H,Tq,d]."""
+    mm = m.amax(dim=0)
+    w = torch.exp2(m - mm)
+    out = (w[..., None] * o).sum(dim=0) / (w * l).sum(dim=0).clamp(
+        min=1e-30)[..., None]
+    if q_mask is not None:
+        keep = q_mask[:, None, :out.shape[2], None] > 0
+        out = torch.where(keep, out, torch.zeros((), device=out.device))
+    return out
+
+
+# ---------------------------------------------------------------------------
 # entry points
 # ---------------------------------------------------------------------------
 
@@ -479,26 +836,68 @@ def refuse_autograd(name: str, *operands) -> None:
             "under torch.no_grad()")
 
 
-def mh_flash_attention(q, kv, kv_mask, heads: int):
-    """q [B,Tq,D]; kv [B,Tk,2D] (K then V columns); kv_mask [B,Tk] (>0
-    valid). Returns context [B,Tq,D] in merged-head layout. Tq may differ
-    from Tk (cross-attention). Views with unit column stride (e.g. the
-    q/kv slices of a fused qkv projection) are read in place."""
-    if not q.is_cuda:
-        return mh_attention_plain(q, kv, kv_mask, heads)
-    refuse_autograd("mh_flash_attention", q, kv)
+# a plan that says: this layout needs _attend's checks and copies each call
+_VIA_ATTEND = "via _attend"
+
+
+def _mh_plan(q, kv, kv_mask, heads: int):
+    """The launch of mh_flash_attention for this layout, made once: the
+    checks of check_operands on the head views, and whether the kernel
+    reads q, kv and the mask in place. Raises on what it does not take."""
     b, tq, d = q.shape
     if d % heads or kv.shape[0] != b or kv.shape[2] != 2 * d:
         raise ValueError(f"q {tuple(q.shape)} and kv {tuple(kv.shape)} "
                          f"are not [B,Tq,D] and [B,Tk,2D] with {heads} "
                          "heads")
-    q, kv = _unit_cols(q), _unit_cols(kv)
-    out = torch.empty((b, tq, d), dtype=q.dtype, device=q.device)
     if b == 0 or tq == 0:
-        return out
-    _attend(_head_view(q, heads, d), _head_view(kv, heads, d),
-            _head_view(kv, heads, d, d), kv_mask, None,
-            _head_view(out, heads, d))
+        return (b, tq, d)
+    if q.stride(-1) != 1 or kv.stride(-1) != 1:
+        return _VIA_ATTEND
+    out = torch.empty((b, tq, d), dtype=q.dtype, device=q.device)
+    qh, kh, vh, oh = (_head_view(q, heads, d), _head_view(kv, heads, d),
+                      _head_view(kv, heads, d, d), _head_view(out, heads, d))
+    check_operands(qh, kh, vh, oh, kv_mask, None)
+    if not (all(map(tma_ready, (qh, kh, vh, oh)))
+            and kv_mask.dtype == torch.float32 and kv_mask.is_contiguous()
+            and kv_mask.device == q.device):
+        return _VIA_ATTEND
+    return _make_launch(qh, kh, vh, oh, d // heads, (b, tq, d),
+                        vh.data_ptr() - kh.data_ptr())
+
+
+def mh_flash_attention(q, kv, kv_mask, heads: int):
+    """q [B,Tq,D]; kv [B,Tk,2D] (K then V columns); kv_mask [B,Tk] (>0
+    valid). Returns context [B,Tq,D] in merged-head layout. Tq may differ
+    from Tk (cross-attention). Views with unit column stride (e.g. the
+    q/kv slices of a fused qkv projection) are read in place.
+
+    On the card a call looks up the plan of its layout (shape, strides,
+    dtype, device, 16-byte alignment of each pointer, the mask's layout)
+    and makes one ctypes call; the checks ran when the plan was made."""
+    if not q.is_cuda:
+        return mh_attention_plain(q, kv, kv_mask, heads)
+    if torch.is_grad_enabled() and (q.requires_grad or kv.requires_grad):
+        refuse_autograd("mh_flash_attention", q, kv)
+    qp, kp = q.data_ptr(), kv.data_ptr()
+    key = ("mh", heads, q.dtype, kv.dtype, q.shape, kv.shape, q.stride(),
+           kv.stride(), q.get_device(), kv.get_device(), qp % TMA_ALIGN,
+           kp % TMA_ALIGN, kv_mask.dtype, kv_mask.shape, kv_mask.stride(),
+           kv_mask.get_device())
+    plan = _PLANS.get(key)
+    if plan is None:
+        plan = _remember(key, _mh_plan(q, kv, kv_mask, heads))
+    if type(plan) is tuple:     # no rows: nothing to launch
+        return torch.empty(plan, dtype=q.dtype, device=q.device)
+    if plan is _VIA_ATTEND:
+        q, kv = _unit_cols(q), _unit_cols(kv)
+        b, tq, d = q.shape
+        out = torch.empty((b, tq, d), dtype=q.dtype, device=q.device)
+        _attend(_head_view(q, heads, d), _head_view(kv, heads, d),
+                _head_view(kv, heads, d, d), kv_mask, None,
+                _head_view(out, heads, d))
+    else:
+        out = torch.empty(plan.out_shape, dtype=q.dtype, device=plan.device)
+        _run(plan, qp, kp, kp + plan.v_offset, kv_mask, None, out)
     _count(mh_flash_attention, q.dtype)
     return out
 

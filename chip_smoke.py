@@ -6,10 +6,12 @@
 Phases, each of which fails the run if it fails:
   1. build    compile the attention kernels from asr2pass_tpu_torch/csrc
               with nvcc (at first use, into asr2pass_tpu_torch/_build):
-              csrc/attention_f32_sm90.cu (fp32, 3xTF32 wgmma + TMA) and
-              csrc/attention_sm90.cu (bf16, wgmma + TMA), both including
-              csrc/tma.cuh; print each instantiation's registers, spills
-              and shared memory. Beside them, g++ builds the native host
+              csrc/attention_f32_sm90.cu (fp32, 3xTF32 wgmma: a K/V
+              pre-pass, the main kernel fed by bulk copies, a combine of
+              key splits) and csrc/attention_sm90.cu (bf16, wgmma + TMA),
+              both including csrc/tma.cuh; print each instantiation's
+              registers, spills and shared memory, and ptxas's wgmma
+              warnings. Beside them, g++ builds the native host
               library from asr2pass_tpu_torch/native/src (the resampler,
               the VAD automaton, the CTC prefix beam); its seconds are
               printed. Then the native resampler against its numpy
@@ -24,7 +26,12 @@ Phases, each of which fails the run if it fails:
               scaled_dot_product_attention on the same work, each as
               back-to-back calls (ms), on the device alone (device_ms) and
               on the host's clock (host_ms); print which kernel SDPA runs
-              in fp32
+              in fp32. Each fp32 case prints its schedule (f32_schedule's
+              key splits and grid) and its device ms split into pre-pass,
+              main kernel and combine; the engine lane's shape (B=16,
+              T=256) is a case, and one case runs each schedule the
+              planner picks past the main path's (16 key splits; head
+              dims 32, 64, 256), with the same gates
   3. main     build paraformer_large (timestamp head) from a seeded
               generator, save it as a model dir, load it with
               load_offline_bundle and answer three OfflineRecognizer.
@@ -574,6 +581,37 @@ def device_time_ms(fn, iters: int) -> tuple:
     return start.elapsed_time(end) / iters, host * 1e3 / iters
 
 
+F32_STEPS = (("pre-pass", "attention_kernel_f32_presplit"),
+             ("main", "attention_kernel_f32_sm90"),
+             ("combine", "attention_kernel_f32_combine"))
+
+
+def f32_step_ms(fn, iters: int = 10) -> dict:
+    """Device ms a call of fn in each launch of the fp32 kernel (its
+    pre-pass, main kernel and combine), from a profiler trace of `iters`
+    calls; None where the trace holds no kernel."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    times = {label: 0.0 for label, _ in F32_STEPS}
+    seen = False
+    for e in prof.key_averages():
+        if e.device_type != DeviceType.CUDA or e.device_time_total <= 0:
+            continue
+        for label, name in F32_STEPS:
+            if name in e.key:
+                times[label] += e.device_time_total / 1e3 / iters
+                seen = True
+    return times if seen else None
+
+
 def ptxas_usage(log: str) -> list:
     """Registers, stack and spills of each compiled kernel from nvcc's
     ptxas report, with its dynamic shared memory per block (from the
@@ -588,17 +626,26 @@ def ptxas_usage(log: str) -> list:
     for ln in log.splitlines():
         m = re.search(r"Function properties for \S*?(attention_kernel"
                       r"(_f32)?_sm90)ILi(\d+)E", ln)
+        other = re.search(r"Function properties for \S*?(attention_kernel"
+                          r"_f32_(presplit|combine))(ILi(\d+)E)?", ln)
         if m:
             kernel, fp32, d = m.group(1), m.group(2), int(m.group(3))
             smem = att.smem_bytes(torch.float32 if fp32 else torch.bfloat16,
                                   d)
             name = f"{kernel}<{d}> smem {smem} B"
             stats = []
+        elif other:   # the fp32 kernel's pre-pass and combine
+            name = other.group(1) + (f"<{other.group(4)}>"
+                                     if other.group(4) else "")
+            stats = []
         elif name and ("spill" in ln or "registers" in ln):
             stats.append(ln.split(":", 1)[-1].strip())
             if "registers" in ln:
                 out.append(f"{name}, {'; '.join(stats)}")
                 name = None
+    # ptxas's performance warnings (C7512/C7513: wgmma serialised)
+    out += [ln.split("ptxas info    : ")[-1][:160] for ln in log.splitlines()
+            if "(C75" in ln]
     return out
 
 
@@ -953,7 +1000,18 @@ def kernel_case(name, shape, dtype, gen, meta: int = 0):
         times[f"{key}ms"] = time_ms(call, iters)
         times[f"{key}device_ms"], times[f"{key}host_ms"] = \
             device_time_ms(call, iters)
+    sched = steps = None
+    if dtype == "float32":
+        # the fp32 kernel's schedule at this shape, and where its device
+        # time goes: pre-pass, main kernel, combine
+        s = att.f32_schedule(qh.shape[0], qh.shape[1], qh.shape[2],
+                             kh.shape[2], qh.shape[3],
+                             att._sm_count(torch.cuda.current_device()))
+        sched = {"splits": s.splits, "grid_main": list(s.grid_main),
+                 "d_inst": s.d_inst, "scratch_bytes": s.scratch_bytes}
+        steps = f32_step_ms(run)
     return {
+        "schedule": sched, "steps_ms": steps,
         "shape": list(shape), "dtype": dtype,
         "max_abs_err": err,
         "tolerance": tol,
@@ -979,6 +1037,13 @@ def print_case(name, r, tag: str = "") -> None:
     simt = r["bound_simt_ms"]
     simt = "" if simt is None else \
         f" (at the CUDA cores' fp32 rate {simt:.4f})"
+    if r.get("schedule"):
+        steps = r["steps_ms"]
+        simt += (f"; schedule: {r['schedule']['splits']} key splits, grid "
+                 f"{r['schedule']['grid_main']}, d {r['schedule']['d_inst']}"
+                 "; device ms pre-pass / main / combine: " + (
+                     " / ".join(f"{v:.4f}" for v in steps.values())
+                     if steps else "not measured"))
     print(f"kernel {name} {r['shape']} {r['dtype']}{tag}: "
           f"max_abs_err {r['max_abs_err']:.3e} "
           f"({r['tol_ratio']:.3f} of tolerance, fp32 result "
@@ -1007,6 +1072,17 @@ SVS_KERNEL_CASES = [("mh_flash_attention", (16, 260, 260, 512, 4)),
                     ("_attention_flash", (1, 4, 5124, 128))]
 
 
+# the fp32 kernel's schedules that the main path's shapes do not reach
+# (f32_schedule at 132 SMs): 16 key splits (a cross-attention of 128 rows
+# over 2048 keys), and the head-dim instantiations 64 (2-stage rings), 32
+# (4 stages) and 256 (32-key tiles, 64-row blocks); B = 2, so each has a
+# row of no valid key (length 0)
+SCHEDULE_CASES = [("mh_flash_attention", (2, 128, 2048, 128, 1)),
+                  ("_attention_ss", (2, 4, 1024, 64)),
+                  ("_attention_ss", (2, 4, 1024, 32)),
+                  ("_attention_ss", (2, 2, 1024, 256))]
+
+
 def kernel_phase(gen):
     """Returns ({entry point: [runs]}, [SenseVoice runs]); a SenseVoice
     run carries its entry point as "name"."""
@@ -1017,7 +1093,8 @@ def kernel_phase(gen):
         # path: pass 2's encoder on one segment of bucket 256.
         "mh_flash_attention": [(16, 1024, 1024, 512, 4),
                                (16, 520, 1024, 512, 4),
-                               (1, 256, 256, 512, 4)],
+                               (1, 256, 256, 512, 4),
+                               (16, 256, 256, 512, 4)],
         "_attention_ss": [(2, 4, 3072, 128)],
         "_attention_flash": [(2, 4, 5120, 128)],
     }
@@ -1033,6 +1110,11 @@ def kernel_phase(gen):
         r = dict(kernel_case(name, shape, "float32", gen, meta=4),
                  name=name, path="sensevoice")
         print_case(name, r, " (SenseVoice: 4 meta rows)")
+        svs.append(r)
+    for name, shape in SCHEDULE_CASES:
+        r = dict(kernel_case(name, shape, "float32", gen), name=name,
+                 path="schedule")
+        print_case(name, r, " (a schedule off the main path)")
         svs.append(r)
     sdpa_route()
     return results, svs
@@ -5319,7 +5401,12 @@ def p13_forward_gate(label: str, ref: list, got: list,
                      exact: bool) -> dict:
     """Forwards `got` against `ref` (the same chunks in the same order),
     row by row on the valid frames: encodings within CPU_TOL of their
-    range (at least 1), alphas within CPU_TOL, token_num equal; where
+    range (at least 1), alphas within CPU_TOL, token_num equal up to the
+    smaller of the two token buffers (the forwards' max_tokens, T//2 + 8
+    of each one's padded T, as in the JAX package: the sequence-parallel
+    forward pads 5000 frames to 5056 where the bucketed one pads to 5120,
+    and a model that fires on more than half the frames fills both;
+    such rows are counted in `token_num_capped`); where
     `exact`, also the logits within CPU_TOL of their range and the greedy
     ids equal. Otherwise the logits are measured, not gated: CIF carries
     each frame's remainder into the next token, so the alphas' rounding
@@ -5333,7 +5420,8 @@ def p13_forward_gate(label: str, ref: list, got: list,
         fail(f"{label}: {len(got)} forwards against {len(ref)}")
     n_out = {"rows": 0, "tokens": 0, "tol_ratio": 0.0, "enc_tol_ratio": 0.0,
              "alphas_max_abs_err": 0.0, "tokens_within_limit": 0,
-             "first_token_past_limit": [], "ids_differing": 0}
+             "first_token_past_limit": [], "ids_differing": 0,
+             "token_num_capped": 0}
     for r_fwd, g_fwd in zip(ref, got):
         _, r_lens, r_n, r_lg, r_enc, r_al = r_fwd
         start, g_lens, g_n, g_lg, g_enc, g_al = g_fwd
@@ -5355,10 +5443,14 @@ def p13_forward_gate(label: str, ref: list, got: list,
             if e_err > e_lim or a_err > CPU_TOL:
                 fail(f"{label}: row {row} encodings differ by {e_err:.3e} "
                      f"(limit {e_lim:.3e}), alphas by {a_err:.3e}")
-            n = int(r_n[row])
-            if int(g_n[j]) != n:
+            cap = min(r_lg.shape[1], g_lg.shape[1])
+            n = min(int(r_n[row]), cap)
+            if min(int(g_n[j]), cap) != n:
                 fail(f"{label}: row {row} token_num {int(g_n[j])}, "
-                     f"reference {n}")
+                     f"reference {int(r_n[row])} (token buffers "
+                     f"{g_lg.shape[1]}, {r_lg.shape[1]})")
+            n_out["token_num_capped"] += int(max(int(r_n[row]),
+                                                 int(g_n[j])) >= cap)
             if n == 0:
                 continue
             n_out["rows"] += 1
@@ -7424,7 +7516,7 @@ def main() -> int:
             "library_ms", "device_ms", "host_ms", "plain_device_ms",
             "plain_host_ms", "library_device_ms", "library_host_ms",
             "bound_simt_ms", "tf32_control_tol_ratio",
-            "tf32_rna_control_tol_ratio")
+            "tf32_rna_control_tol_ratio", "schedule", "steps_ms")
     for dt, (_, source) in att.KERNELS.items():
         dtype = str(dt).removeprefix("torch.")
         source = f"asr2pass_tpu_torch/{source}"

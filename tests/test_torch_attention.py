@@ -324,6 +324,36 @@ def test_3xtf32_holds_fp32_tol_and_one_tf32_product_does_not():
     assert one_share > 1.0, one_share
 
 
+def _truncated_tf32_split(x):
+    """hi rounded as tf32_split's, lo the remainder cut to TF32 (its low
+    13 bits dropped), as wgmma reads a lo fed as it is."""
+    hi = tatt.tf32_split(x)[0]
+    lo = ((x - hi).view(torch.int32) & ~0x1FFF).view(torch.float32)
+    return hi, lo
+
+
+def test_3xtf32_with_truncated_lo_holds_fp32_tol():
+    """The kernel's product loop feeds Q's and P's lo parts as they are
+    (wgmma truncates them), against K's and V's rounded planes: at the
+    main-path-like size of the test above this reads at most 0.1 of
+    FP32_TOL, as the rounded split does."""
+    rng = np.random.default_rng(12)
+    b, h, t_len, d = 2, 2, 1024, 128
+    q, k, v = (t(_rand(rng, b, h, t_len, d)) for _ in range(3))
+    mask = t(ragged_mask([t_len, 0], t_len))
+
+    def product(a, c):   # a's lo truncated, c's rounded
+        (ah, al), (ch, cl) = _truncated_tf32_split(a), tatt.tf32_split(c)
+        return al @ ch + ah @ cl + ah @ ch
+    s = product(q, k.transpose(-1, -2)) / np.sqrt(d)
+    s = torch.where(mask[:, None, None, :] > 0, s, torch.tensor(-1e30))
+    got = product(torch.softmax(s, dim=-1), v) * (mask[:, None, :, None] > 0)
+    ref = tatt.attention_plain(q, k, v, mask, mask)
+    atol, rtol = tatt.FP32_TOL
+    share = ((got - ref).abs() / (atol + rtol * ref.abs())).max()
+    assert share <= 0.1, share
+
+
 def test_tma_ready_fp32_counts_16_bytes_as_4_elements():
     """In fp32 TMA's 16-byte rules are 4 elements: d and the strides
     multiples of 4, the base 16-byte aligned."""
@@ -506,3 +536,258 @@ def test_head_view_is_the_split_of_the_column_blocks():
                       (tatt._head_view(kv, 2, 8, 8), kv[..., 8:])]:
         assert torch.equal(view, tatt._split_heads(ref, 2))
         assert view.data_ptr() == ref.data_ptr()
+
+
+# ---------------------------------------------------------------------------
+# the fp32 kernel's device steps (csrc/attention_f32_sm90.cu: pre-pass, main
+# kernel with key splits, combine) as their plain versions, and its
+# schedule, on the CPU; tests/test_torch_cuda.py holds the kernel's own
+# steps to the same plain versions on the card
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("d,tk", [(128, 150), (96, 33), (32, 64), (256, 40)])
+def test_f32_presplit_plain_planes_and_key_order(d, tk):
+    """Each tile's image (BK = 64 keys, 32 at d 256): K hi and lo are
+    tf32_split of K in the swizzled 32-column panels (element (r, c) at
+    byte (c/32)*BK*128 + r*128 + ((c%32/4) ^ (r%8))*16 + (c%4)*4), the
+    key states follow, then V^T hi and lo: tf32_split of V transposed, in
+    panels of 32 keys, with the keys of each 8-group in the order
+    0,2,4,6,1,3,5,7 (so that position t and t+4 hold the keys 2t and
+    2t+1 that a thread's S columns carry); zeros past Tk and past d."""
+    rng = np.random.default_rng(21)
+    b, h = 2, 2
+    k, v = (t(_rand(rng, b, h, tk, d)) for _ in range(2))
+    mask = t(ragged_mask([tk, tk // 2], tk))
+    img = tatt.f32_presplit_plain(k, v, mask)
+    n = tatt.f32_instance(d)
+    bk = tatt.f32_bk(d)
+    assert bk == (32 if d > 128 else 64)
+    plane = bk * n
+    vt0 = 2 * plane + bk
+    tiles = -(-tk // bk)
+    assert img.shape == (b, h, tiles, tatt.f32_image_bytes(d) // 4)
+    khi, klo = tatt.tf32_split(k)
+    vhi, vlo = tatt.tf32_split(v)
+    for j in range(bk // 8):
+        for t4 in range(4):
+            assert tatt.F32_VT_KEYS[8 * j + t4] == 8 * j + 2 * t4
+            assert tatt.F32_VT_KEYS[8 * j + t4 + 4] == 8 * j + 2 * t4 + 1
+
+    def k_at(r, c):   # element index of (key r, column c) in a K plane
+        return ((c // 32) * bk * 128 + r * 128
+                + (((c % 32) // 4) ^ (r % 8)) * 16 + (c % 4) * 4) // 4
+
+    def vt_at(c, p):  # element index of (column c, position p) in V^T
+        return ((p // 32) * n * 128 + c * 128
+                + (((p % 32) // 4) ^ (c % 8)) * 16 + (p % 4) * 4) // 4
+
+    for key in sorted({0, 1, 9, 40 % tk, tk - 1}):
+        ti, r = divmod(key, bk)
+        for c in (0, 5, 37 % n, d - 1):
+            if c >= d:
+                continue
+            assert img[0, 1, ti, k_at(r, c)] == khi[0, 1, key, c]
+            assert img[0, 1, ti, plane + k_at(r, c)] == klo[0, 1, key, c]
+            p = tatt.F32_VT_KEYS.index(r)
+            assert img[1, 0, ti, vt0 + vt_at(c, p)] == vhi[1, 0, key, c]
+            assert img[1, 0, ti, vt0 + plane + vt_at(c, p)] == \
+                vlo[1, 0, key, c]
+    # zeros past d and past Tk, hi + lo = x to 2^-21
+    last = img[:, :, -1]
+    if tk % bk:
+        r = tk % bk
+        assert (last[..., k_at(r, 0)] == 0).all()
+        assert (last[..., vt0 + vt_at(0, tatt.F32_VT_KEYS.index(r))]
+                == 0).all()
+    if d < n:
+        assert (img[..., k_at(3, d)] == 0).all()
+        assert (img[..., vt0 + vt_at(d, 3)] == 0).all()
+    states = img[..., 2 * plane:vt0].reshape(b, h, tiles * bk)
+    want = torch.full((b, tiles * bk), -1.0)
+    want[:, :tk] = mask
+    assert torch.equal(states, want[:, None].expand(b, h, -1))
+
+
+def _holes(tk, pattern):
+    """kv_mask rows for the split cases: 'first_last' keeps tile 0 and
+    the last tile valid, every tile between them masked."""
+    if pattern == "first_last":
+        m = np.zeros(tk, np.float32)
+        m[:5] = 1
+        m[-3:] = 1
+        return m
+    rng = np.random.default_rng(tk)
+    return (rng.random(tk) > 0.4).astype(np.float32)
+
+
+@pytest.mark.parametrize("splits,tk,rows,bk", [
+    (1, 200, ["len:200", "len:0"], 64),
+    (3, 200, ["len:130", "len:0"], 32),   # a row with no valid key
+    (4, 160, ["first_last", "len:33"], 32),   # splits of masked keys only
+    (3, 260, ["first_last", "len:260"], 64),
+    (5, 150, ["holes", "len:150"], 32),
+    (16, 96, ["len:1", "holes"], 64),     # more splits than tiles
+])
+def test_f32_split_partials_combine_match_plain(splits, tk, rows, bk):
+    """The main kernel's split partials (m, l, unnormalised O over each
+    split's share of the tiles up to the last valid key) merged by the
+    combine equal the plain version within FP32_TOL, with the masking
+    contract kept: a split of masked keys only carries m = -1e30 and
+    drops out, a row with no valid key averages V over its Tk keys, rows
+    whose q_mask is 0 are exact zeros, an empty split holds m = -inf."""
+    rng = np.random.default_rng(splits)
+    b, h, tq, d = 2, 2, 40, 32
+    q = t(_rand(rng, b, h, tq, d))
+    k, v = (t(_rand(rng, b, h, tk, d)) for _ in range(2))
+    mask = np.stack([ragged_mask([int(r[4:])], tk)[0]
+                     if r.startswith("len:") else _holes(tk, r)
+                     for r in rows])
+    mask = t(mask)
+    q_mask = t(ragged_mask([tq, tq // 3], tq))
+    m, l, o = tatt.f32_partials_plain(q, k, v, mask, splits, bk)
+    got = tatt.f32_combine_plain(m, l, o, q_mask)
+    ref = tatt.attention_plain(q, k, v, mask, q_mask)
+    atol, rtol = tatt.FP32_TOL
+    assert ((got - ref).abs() <= atol + rtol * ref.abs()).all()
+    assert (got[1, :, tq // 3:] == 0).all()
+    tiles = tatt.f32_tiles_plain(mask, bk).tolist()
+    for bi, n_t in enumerate(tiles):
+        per = -(-n_t // splits)
+        used = -(-n_t // per)
+        assert torch.isinf(m[used:, bi]).all() and (l[used:, bi] == 0).all()
+        assert torch.isfinite(m[:used, bi]).all()
+        if rows[bi] == "first_last":
+            assert n_t == -(-tk // bk)
+            assert (m[1:used - 1, bi] == -1e30).all()
+            assert (m[0, bi] > -1e30).all()
+    if "len:0" in rows:
+        bi = rows.index("len:0")
+        assert tiles[bi] == -(-tk // bk)
+        avg = v[bi].mean(dim=1, keepdim=True).expand(h, tq, d)
+        nz = q_mask[bi] > 0
+        assert torch.allclose(got[bi][:, nz], avg[:, nz], atol=1e-5)
+
+
+_SCHEDULES = [
+    # (b, h, tq, tk, d): splits and the main grid, as the H100's 132 SMs
+    # give them
+    ((1, 4, 256, 256, 128), 4, (8, 4, 1)),        # the 2pass session
+    ((16, 4, 256, 256, 128), 1, (2, 4, 16)),      # the engine lane
+    ((16, 4, 260, 260, 128), 1, (3, 4, 16)),      # SenseVoice's lane
+    ((1, 4, 1028, 1028, 128), 3, (27, 4, 1)),     # SenseVoice 60 s
+    ((16, 4, 1024, 1024, 128), 1, (8, 4, 16)),    # #1 self
+    ((16, 4, 520, 1024, 128), 2, (10, 4, 16)),    # #1 cross
+    ((2, 4, 3072, 3072, 128), 2, (48, 4, 2)),     # #2
+    ((1, 4, 3076, 3076, 128), 5, (125, 4, 1)),    # SenseVoice 150 s
+    ((2, 4, 5120, 5120, 128), 2, (80, 4, 2)),     # #3
+    ((1, 4, 5124, 5124, 128), 4, (164, 4, 1)),    # SenseVoice 270 s
+    ((2, 2, 300, 300, 256), 5, (25, 2, 2)),       # d 256: 64-row blocks
+    ((2, 1, 128, 2048, 128), 16, (16, 1, 2)),     # the most splits
+]
+
+
+@pytest.mark.parametrize("shape,splits,grid", _SCHEDULES)
+def test_f32_schedule_is_a_function_of_the_shape(shape, splits, grid):
+    """f32_schedule: the key splits and grids for a shape, and a scratch
+    that holds int32 tile counts, every tile's image and, where split,
+    the partials, each at a 256-byte-aligned offset."""
+    b, h, tq, tk, d = shape
+    s = tatt.f32_schedule(*shape)
+    assert (s.splits, s.grid_main) == (splits, grid)
+    assert s == tatt.f32_schedule(*shape, sms=tatt.F32_SMS)
+    assert s.bk == tatt.f32_bk(d) and s.tiles == -(-tk // s.bk)
+    assert s.grid_presplit == (s.tiles, h, b)
+    assert s.rows == (64 if d > 128 else 128)
+    assert s.qblocks * s.rows >= tq > (s.qblocks - 1) * s.rows
+    assert 1 <= s.splits <= min(tatt.F32_MAX_SPLITS, s.tiles)
+    assert s.image_bytes == tatt.f32_image_bytes(d)
+    offs = (s.off_tiles, s.off_images, s.off_part_o, s.off_part_ml,
+            s.scratch_bytes)
+    assert all(x % 256 == 0 for x in offs) and list(offs) == sorted(offs)
+    assert s.off_images >= 4 * b
+    assert s.off_part_o - s.off_images >= b * h * s.tiles * s.image_bytes
+    if s.splits == 1:
+        assert s.grid_combine == () and s.scratch_bytes == s.off_part_o
+    else:
+        assert s.off_part_ml - s.off_part_o >= s.splits * b * h * tq * d * 4
+        assert s.scratch_bytes - s.off_part_ml >= s.splits * b * h * tq * 8
+        assert s.grid_combine[0] * 256 >= tq * d // 4
+    # a grid of many waves is not split
+    assert tatt.f32_splits(16 * tatt.F32_SMS, s.tiles) == 1
+
+
+def test_plan_slots_follow_the_c_block():
+    """PLAN_SLOTS is csrc/tma.cuh's PlanSlot enum, slot for slot, and the
+    fp32 source's tile and split constants are the planner's."""
+    import re
+    src = (tatt.CSRC / "tma.cuh").read_text()
+    body = src[src.index("enum PlanSlot"):src.index("kSlotCount")]
+    names = re.findall(r"kSlot(\w+)", body)
+    assert names[:9] == ["Batch", "Heads", "Tq", "Tk", "D", "DScale",
+                         "Device", "Splits", "Tiles"]
+    assert names[9:] == ["Strides", "OffTiles", "Strides", "OffImages",
+                         "OffPartO", "OffPartMl"]
+    assert "kSlotOffTiles = kSlotStrides + 12" in body
+    assert len(tatt.PLAN_SLOTS) == 9 + 12 + 4
+    assert tatt.PLAN_SLOTS.index("off_tiles") == 21
+    f32 = (tatt.CSRC / "attention_f32_sm90.cu").read_text()
+    assert "static constexpr int BK = D <= 128 ? 64 : 32;" in f32
+    assert [tatt.f32_bk(d) for d in (32, 64, 128, 256)] == [64, 64, 64, 32]
+    assert f"constexpr int kMaxSplits = {tatt.F32_MAX_SPLITS};" in f32
+    assert "cp.async.bulk.shared" in src and "bulk_load(" in f32
+
+
+class _FakeLib:
+    """Stands in for the kernels' library on the CPU: records the packed
+    block of each call."""
+    def __init__(self):
+        self.calls = []
+
+    def __getattr__(self, name):
+        def fn(block, *ptrs):
+            self.calls.append((name, block, ptrs))
+            return 0
+        return fn
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_mh_plan_packs_the_launch_once(monkeypatch, dtype):
+    """The thin launch path's plan: made once per layout from the head
+    views (check_operands' checks), its packed block holds the shape, the
+    (batch, head, row) strides of the four views, the caller's head dim,
+    and in fp32 f32_schedule's splits and scratch offsets; a kv that TMA
+    cannot read in place goes through _attend's copies; a wrong shape
+    raises."""
+    monkeypatch.setattr(tatt, "_library", lambda: _FakeLib())
+    monkeypatch.setattr(tatt, "_sm_count", lambda index: tatt.F32_SMS)
+    b, tq, tk, d, heads = 2, 300, 256, 512, 4
+    qkv = torch.zeros(b, tq, 3 * d, dtype=dtype)
+    q, kv = qkv[..., :d], torch.zeros(b, tk, 2 * d, dtype=dtype)
+    mask = torch.ones(b, tk)
+    plan = tatt._mh_plan(q, kv, mask, heads)
+    slots = dict(zip(tatt.PLAN_SLOTS, plan.block))
+    assert (slots["batch"], slots["heads"], slots["tq"], slots["tk"],
+            slots["d"], slots["d_scale"]) == (b, heads, tq, tk, 128, 128)
+    views = (tatt._head_view(q, heads, d), tatt._head_view(kv, heads, d),
+             tatt._head_view(kv, heads, d, d),
+             tatt._head_view(torch.empty(b, tq, d), heads, d))
+    for x, view in zip("qkvo", views):
+        assert tuple(slots[f"stride_{x}_{y}"] for y in "bht") == \
+            tatt._strides(view)
+    assert plan.v_offset == d * qkv.element_size()
+    assert plan.out_shape == (b, tq, d)
+    if dtype == torch.float32:
+        s = tatt.f32_schedule(b, heads, tq, tk, 128)
+        assert plan.schedule == s and plan.scratch == s.scratch_bytes
+        assert (slots["splits"], slots["tiles"], slots["off_images"],
+                slots["off_part_o"], slots["off_part_ml"]) == (
+            s.splits, s.tiles, s.off_images, s.off_part_o, s.off_part_ml)
+    else:
+        assert plan.schedule is None and plan.scratch == 0
+    odd = torch.zeros(b, tk, 2 * d + 1, dtype=dtype)[..., 1:]
+    assert tatt._mh_plan(q, odd, mask, heads) is tatt._VIA_ATTEND
+    assert tatt._mh_plan(q, kv, mask.double(), heads) is tatt._VIA_ATTEND
+    with pytest.raises(ValueError, match="heads"):
+        tatt._mh_plan(q, kv[..., :d], mask, heads)
+    with pytest.raises(ValueError, match="kv_mask"):
+        tatt._mh_plan(q, kv, mask[:, :7], heads)

@@ -782,17 +782,19 @@ def test_tp_forward_world_one_on_the_card(nccl_world_one, dev):
 
 
 @pytest.mark.parametrize("tp", [2, 4])
-def test_kernel_on_a_ranks_heads(dev, tp):
+def test_kernel_on_a_ranks_heads(dev, tp, monkeypatch):
     """The attention of rank 0's shard at tp 2 and 4 (its fused qkv cut by
     head, [q_0 | k_0 | v_0], as shard_params cuts it) through the unsplit
-    kernel: the first H/tp heads of the whole layer's context."""
+    kernel: the first H/tp heads of the whole layer's context. The fp32
+    kernel's key splits follow the grid (f32_schedule), and a rank's
+    heads make a smaller grid, so the two calls are held bit for bit at
+    each split count that either takes (both forced to it)."""
     from asr2pass_tpu_torch.parallel.sharding import local_slice
 
     heads, d, t = 4, 512, 300
     g = torch.Generator(device=dev).manual_seed(tp)
     qkv = torch.randn(2, t, 3 * d, generator=g, device=dev)
     mask = _mask([t, 201], t, dev)
-    whole = att.mh_flash_attention(qkv[..., :d], qkv[..., d:], mask, heads)
     part = local_slice("att.qkv.w", qkv, 2, tp, 0)
     dl = d // tp
     att.reset_launch_counts()
@@ -802,7 +804,20 @@ def test_kernel_on_a_ranks_heads(dev, tp):
     ref, limit = _reference("mh", part[..., :dl], part[..., dl:], mask,
                             heads // tp)
     assert _share(mine, ref, limit) <= 1
-    torch.testing.assert_close(mine, whole[..., :dl], rtol=0, atol=0)
+    sms = att._sm_count(dev.index or 0)
+    taken = {att.f32_schedule(2, h, t, t, 128, sms).splits
+             for h in (heads, heads // tp)}
+    try:
+        for splits in sorted(taken):
+            monkeypatch.setattr(att, "f32_splits", lambda *a, s=splits: s)
+            att._PLANS.clear()
+            whole = att.mh_flash_attention(qkv[..., :d], qkv[..., d:], mask,
+                                           heads)
+            mine = att.mh_flash_attention(part[..., :dl], part[..., dl:],
+                                          mask, heads // tp)
+            torch.testing.assert_close(mine, whole[..., :dl], rtol=0, atol=0)
+    finally:
+        att._PLANS.clear()
 
 
 def test_sharded_prune_world_one_on_the_card(nccl_world_one, dev):
@@ -859,3 +874,109 @@ def test_server_models_tp_world_one_on_the_card(nccl_world_one, dev):
     assert got["tp"][2]["broadcast"] == tp.fanout.broadcasts > 0
     assert list(tp._tp_shard_cache) == ["asr"]
     tp.fanout.stop()
+
+
+# ---------------------------------------------------------------------------
+# the fp32 kernel's schedules and its device steps (pre-pass, main kernel
+# with key splits, combine) against their plain versions
+# ---------------------------------------------------------------------------
+
+# (entry, b, h, t, d, splits f32_schedule picks at 132 SMs): every split
+# count the main path's shapes reach, and each ring depth (d 32 and 64: 4
+# stages, 128: 2, 256: 1)
+_F32_SCHEDULES = [
+    ("mh", 1, 4, 256, 128, 4),      # the 2pass session's pass 2
+    ("mh", 16, 4, 256, 128, 1),     # the engine lane
+    ("mh", 1, 4, 1028, 128, 3),     # SenseVoice, 60 s
+    ("ss", 2, 4, 3072, 128, 2),     # #2
+    ("ss", 1, 4, 3076, 128, 5),     # SenseVoice, 150 s
+    ("ss", 2, 2, 300, 256, 5),      # d 256: one stage, 64-row blocks
+    ("ss", 2, 4, 300, 64, 5),
+    ("ss", 2, 4, 300, 32, 5),
+    ("ss", 1, 1, 1024, 128, 16),    # the most splits
+    ("ss", 1, 1, 96, 128, 1),       # a tie keeps one split
+]
+
+
+@pytest.mark.parametrize("entry,b,h,t_len,d,splits", _F32_SCHEDULES)
+def test_fp32_schedule_on_the_card(dev, entry, b, h, t_len, d, splits):
+    """Each schedule of the fp32 kernel holds FP32_TOL against the plain
+    version, with masks that have holes, a row with no valid key (V
+    averaged over its Tk keys) and, in the split-head layout, q_mask rows
+    that come out exactly 0."""
+    gen = torch.Generator(device=dev).manual_seed(b * t_len + d)
+    sched = att.f32_schedule(b, h, t_len, t_len, d,
+                             att._sm_count(dev.index or 0))
+    assert sched.splits == splits
+    mask = (torch.rand(b, t_len, generator=gen, device=dev) > 0.3).float()
+    mask[0, t_len // 3:] = 0           # the last valid key mid-row
+    if b > 1:
+        mask[-1] = 0                   # no valid key
+    if entry == "mh":
+        qkv = torch.randn(b, t_len, 3 * h * d, generator=gen, device=dev)
+        q, kv = qkv[..., :h * d], qkv[..., h * d:]
+        got = att.mh_flash_attention(q, kv, mask, h)
+        _check(got, _reference("mh", q, kv, mask, h), torch.float32)
+        return
+    qh, kh, vh = _fused(b, t_len, h, d, gen, dev, torch.float32)
+    got = att._attention_ss(qh, kh, vh, mask, mask)
+    _check(got, _reference("split", qh, kh, vh, mask, mask), torch.float32)
+    assert (got.transpose(1, 2)[mask == 0] == 0).all()
+
+
+def test_fp32_image_layout_matches_the_planner(dev):
+    """The kernel's tile image and ring depth, as its source computes
+    them, are the planner's."""
+    lib = att._library()
+    for d, stages in ((32, 4), (64, 2), (96, 1), (128, 1), (256, 1)):
+        assert lib.asr2pass_attention_f32_image(d, 0) == \
+            att.f32_image_bytes(d)
+        assert lib.asr2pass_attention_f32_image(d, 1) == stages
+        assert lib.asr2pass_attention_f32_image(d, 2) == att.f32_bk(d)
+
+
+@pytest.mark.parametrize("t_len,d", [(256, 128), (200, 96), (100, 256)])
+def test_fp32_steps_match_their_plain_versions(dev, t_len, d):
+    """The pre-pass's images equal f32_presplit_plain bit for bit on every
+    tile the main kernel reads, and its tile counts f32_tiles_plain; the
+    split partials match f32_partials_plain (m in log2 units within 1e-3,
+    a split of masked keys only at exactly -1e30), and the combine of the
+    kernel's own partials, its output."""
+    gen = torch.Generator(device=dev).manual_seed(t_len)
+    b, h = 3, 2
+    q, k, v = (torch.randn(b, h, t_len, d, generator=gen, device=dev)
+               for _ in range(3))
+    mask = (torch.rand(b, t_len, generator=gen, device=dev) > 0.5).float()
+    mask[0, 40:t_len - 20] = 0          # splits of masked keys only
+    mask[1] = 0                         # no valid key
+    _, parts = att.f32_run_steps(q, k, v, mask, mask, 1)
+    torch.cuda.synchronize()
+    tiles = att.f32_tiles_plain(mask, att.f32_bk(d))
+    assert torch.equal(parts["tiles"], tiles)
+    plain = att.f32_presplit_plain(k, v, mask)
+    for bi, n in enumerate(tiles.tolist()):
+        assert torch.equal(parts["images"][bi, :, :n].view(torch.int32),
+                           plain[bi, :, :n].view(torch.int32))
+    sched = att.f32_schedule(b, h, t_len, t_len, d,
+                             att._sm_count(dev.index or 0))
+    assert sched.splits > 1
+    out, parts = att.f32_run_steps(q, k, v, mask, mask, 3)
+    full = att._attention_ss(q, k, v, mask, mask)
+    torch.cuda.synchronize()
+    m, l, o = att.f32_partials_plain(q, k, v, mask, sched.splits, sched.bk)
+    km, kl = parts["part_ml"][..., 0], parts["part_ml"][..., 1]
+    for bi, n in enumerate(tiles.tolist()):
+        per = -(-n // sched.splits)
+        used = -(-n // per)
+        assert ((km[:used, bi] - m[:used, bi]).abs() <= 1e-3).all()
+        assert torch.equal(km[:used, bi] == -1e30, m[:used, bi] == -1e30)
+        limit = 1e-4 + 1e-4 * l[:used, bi].abs()
+        assert ((kl[:used, bi] - l[:used, bi]).abs() <= limit).all()
+        ko = parts["part_o"][:used, bi]
+        assert ((ko - o[:used, bi]).abs()
+                <= 1e-4 + 1e-4 * o[:used, bi].abs()).all()
+        mine = att.f32_combine_plain(km[:used, bi:bi + 1],
+                                     kl[:used, bi:bi + 1],
+                                     ko[:, None], mask[bi:bi + 1])
+        assert torch.allclose(mine[0], full[bi], rtol=1e-5, atol=1e-6)
+    assert (out == 0).all()            # the combine did not run
