@@ -21,6 +21,7 @@ from asr2pass_tpu_torch.models import cif, sanm_decoder, sanm_encoder
 from asr2pass_tpu_torch.models.layers import length_mask, quantized_like
 from asr2pass_tpu_torch.parallel.sequence import encode_sequence_parallel
 from asr2pass_tpu_torch.parallel.sharding import gather_whole
+from asr2pass_tpu_torch.runtime.metrics import GLOBAL as METRICS
 from asr2pass_tpu_torch.utils import resolve_device
 
 
@@ -83,7 +84,8 @@ def apply(params, cfg: ParaformerConfig, feats, lengths, hw_emb=None,
     mask = length_mask(lengths, feats.shape[1])
     enc = sanm_encoder.apply(params.encoder, feats, mask,
                              d_model=cfg.encoder.output_size,
-                             heads=cfg.encoder.attention_heads)
+                             heads=cfg.encoder.attention_heads,
+                             block_span="asr.block")
     return _predict_and_decode(params, cfg, enc, mask, lengths, hw_emb,
                                hw_mask, max_tokens)
 
@@ -93,13 +95,16 @@ def _predict_and_decode(params, cfg: ParaformerConfig, enc, mask, lengths,
                         ) -> ParaformerOutput:
     """CIF, the decoder and the timestamp head on the encodings."""
     alphas = cif.alphas_head(params.predictor, enc, cfg.predictor, mask)
-    ac_embeds, token_num, _ = cif.fire_offline(
-        enc, alphas, cfg.predictor.threshold, cfg.predictor.tail_threshold,
-        max_tokens=max_tokens, lengths=lengths)
+    with METRICS.stage("asr.cif"):     # CIF's host loop over frames
+        ac_embeds, token_num, _ = cif.fire_offline(
+            enc, alphas, cfg.predictor.threshold,
+            cfg.predictor.tail_threshold, max_tokens=max_tokens,
+            lengths=lengths)
     tok_mask = length_mask(token_num, ac_embeds.shape[1])
     logits = sanm_decoder.apply(
         params.decoder, ac_embeds, enc, enc_mask=mask, mask=tok_mask,
-        hw_emb=hw_emb, hw_mask=hw_mask, cfg=cfg.decoder)
+        hw_emb=hw_emb, hw_mask=hw_mask, cfg=cfg.decoder,
+        block_span="asr.block")
     us_alphas = us_peak = None
     if cfg.predictor.use_timestamp:
         us_alphas = cif.upsampled_alphas(params.predictor, enc,

@@ -37,6 +37,7 @@ from asr2pass_tpu_torch.models.layers import (
     layer_norm,
     vocab_head,
 )
+from asr2pass_tpu_torch.runtime.metrics import GLOBAL as METRICS
 
 
 class DecoderBlock(nn.Module):
@@ -121,15 +122,19 @@ def _tail_and_head(params, x, mask, hw_emb, hw_mask, heads):
 
 def apply(params, ac_embeds, enc, enc_mask=None, mask=None, hw_emb=None,
           hw_mask=None, heads: int = 4,
-          cfg: Optional[DecoderConfig] = None):
+          cfg: Optional[DecoderConfig] = None,
+          block_span: Optional[str] = None):
     """Offline pass. ac_embeds: [B, U, D] CIF embeddings; enc: [B, T, D].
-    Returns logits [B, U, vocab]."""
+    Returns logits [B, U, vocab]. block_span: the runtime/metrics span
+    around each block (None: none)."""
     if cfg is not None:
         heads = cfg.attention_heads
     left = _fsmn_left(params, cfg)
     x = ac_embeds
     for layer in params.blocks:
-        x, _ = _block(layer, x, enc, enc_mask, mask, heads, fsmn_left=left)
+        with METRICS.stage(block_span):
+            x, _ = _block(layer, x, enc, enc_mask, mask, heads,
+                          fsmn_left=left)
     return _tail_and_head(params, x, mask, hw_emb, hw_mask, heads)
 
 

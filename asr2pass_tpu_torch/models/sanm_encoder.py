@@ -25,6 +25,7 @@ from asr2pass_tpu_torch.models.layers import (
     sanm_attention,
     sinusoidal_posenc,
 )
+from asr2pass_tpu_torch.runtime.metrics import GLOBAL as METRICS
 
 
 class EncoderLayer(nn.Module):
@@ -67,8 +68,9 @@ def _block(layer, x, mask, heads, residual: bool, att_mask=None):
 
 def apply(params, feats, mask=None, pos_start: int = 0,
           add_posenc: bool = True, d_model: Optional[int] = None,
-          heads: int = 4, att_mask=None):
-    """feats: [B, T, input_size] LFR+CMVN features -> [B, T, d]."""
+          heads: int = 4, att_mask=None, block_span: Optional[str] = None):
+    """feats: [B, T, input_size] LFR+CMVN features -> [B, T, d].
+    block_span: the runtime/metrics span around each block (None: none)."""
     b, t, d_in = feats.shape
     if d_model is None:
         d_model = params.after_norm.g.shape[0]
@@ -77,10 +79,13 @@ def apply(params, feats, mask=None, pos_start: int = 0,
         x = x + sinusoidal_posenc(pos_start, t, d_in,
                                   device=feats.device)[None].to(x.dtype)
     # the first block adds its residual only when it keeps the width
-    x = _block(params.first, x, mask, heads, residual=(d_in == d_model),
-               att_mask=att_mask)
+    with METRICS.stage(block_span):
+        x = _block(params.first, x, mask, heads,
+                   residual=(d_in == d_model), att_mask=att_mask)
     for layer in params.rest:
-        x = _block(layer, x, mask, heads, residual=True, att_mask=att_mask)
+        with METRICS.stage(block_span):
+            x = _block(layer, x, mask, heads, residual=True,
+                       att_mask=att_mask)
     return layer_norm(params.after_norm, x)
 
 

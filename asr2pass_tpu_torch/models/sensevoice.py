@@ -35,6 +35,7 @@ from asr2pass_tpu_torch.models.layers import (Dense, LayerNorm, layer_norm,
                                               length_mask, vocab_head)
 from asr2pass_tpu_torch.parallel.comm import (all_gather, gather_from_tp,
                                               group_rank, tp_group)
+from asr2pass_tpu_torch.runtime.metrics import GLOBAL as METRICS
 from asr2pass_tpu_torch.utils import resolve_device
 
 NUM_META = 4  # lid, emotion, event, textnorm prefix positions
@@ -128,10 +129,13 @@ def encode(params: SenseVoice, cfg: SenseVoiceConfig, feats, lengths,
     mask = length_mask(full_len, t + NUM_META)
     heads = cfg.encoder.attention_heads
     enc = sanm_encoder.apply(params.encoder, x, mask,
-                             d_model=cfg.encoder.output_size, heads=heads)
+                             d_model=cfg.encoder.output_size, heads=heads,
+                             block_span="asr.block")
     if params.tp is not None:
         for layer in params.tp.rest:
-            enc = sanm_encoder._block(layer, enc, mask, heads, residual=True)
+            with METRICS.stage("asr.block"):
+                enc = sanm_encoder._block(layer, enc, mask, heads,
+                                          residual=True)
         enc = layer_norm(params.tp.norm, enc)
     return enc, full_len
 

@@ -46,6 +46,12 @@ bound the number of XLA programs. Here they decide the T that the
 attention gates see and max_tokens = T//2 + 8, so the port and the JAX
 recognizer compute on the same shapes; whether eager PyTorch needs them
 at all is left to a later measurement.
+
+Spans (runtime/metrics): asr.frontend, asr.forward (CIF's loop inside it
+as asr.cif, models/paraformer.py), asr.fetch around each blocking copy
+to the host and asr.finish; the counters asr.frames and
+asr.frames_padded add each forward chunk's true LFR frames and its rows
+times its bucket.
 """
 from __future__ import annotations
 
@@ -63,6 +69,7 @@ from asr2pass_tpu_torch.models import paraformer
 from asr2pass_tpu_torch.parallel.comm import all_gather
 from asr2pass_tpu_torch.parallel.sharding import (axis_size, check_sharded,
                                                   shard_params)
+from asr2pass_tpu_torch.runtime.metrics import GLOBAL as METRICS
 from asr2pass_tpu_torch.runtime.streaming_frontend import offline_frontend_device
 from asr2pass_tpu_torch.text import timestamps as ts_mod
 from asr2pass_tpu_torch.text.vocab import Vocab
@@ -200,7 +207,10 @@ class ParaformerOffline:
         pending, handles = self.dispatch_batch(
             segments, hw_emb=hw_emb, hw_embs=hw_embs,
             lm_decoders=lm_decoders, feats_override=feats_override)
-        return self.finish_batch(pending, to_host(handles))
+        if handles:
+            with METRICS.stage("asr.fetch"):
+                handles = to_host(handles)
+        return self.finish_batch(pending, handles)
 
     def dispatch_batch(self, segments: List[np.ndarray],
                        hw_emb: Optional[np.ndarray] = None,
@@ -267,11 +277,15 @@ class ParaformerOffline:
         records = []
         handles: list = []
         for t_pad, idxs in sp_groups.items():
-            feats = offline_frontend_device(
-                [bufs[i] for i in idxs], [ns[i] for i in idxs], t_pad, fcfg,
-                means, vars_, device=self.device)
+            with METRICS.stage("asr.frontend"):
+                feats = offline_frontend_device(
+                    [bufs[i] for i in idxs], [ns[i] for i in idxs], t_pad,
+                    fcfg, means, vars_, device=self.device)
             lens = [t_lfrs[i] for i in idxs]
-            out = self._forward_sp(feats, lens)
+            METRICS.count("asr.frames", sum(lens))
+            METRICS.count("asr.frames_padded", len(idxs) * t_pad)
+            with METRICS.stage("asr.forward"):
+                out = self._forward_sp(feats, lens)
             self._record(out, idxs, lens, lms, has_lm, records, handles)
         for bucket, hw_key, idxs in chunks:
             # the rows split evenly over dp
@@ -290,15 +304,21 @@ class ParaformerOffline:
             feats = (feats_override(idxs, bucket, bb)
                      if feats_override is not None else None)
             if feats is None:
-                feats = offline_frontend_device(
-                    [bufs[i] for i in idxs], [ns[i] for i in idxs], bucket,
-                    fcfg, means, vars_, batch_b=bb, device=self.device)
+                with METRICS.stage("asr.frontend"):
+                    feats = offline_frontend_device(
+                        [bufs[i] for i in idxs], [ns[i] for i in idxs],
+                        bucket, fcfg, means, vars_, batch_b=bb,
+                        device=self.device)
+            METRICS.count("asr.frames", sum(lens))
+            METRICS.count("asr.frames_padded", bb * bucket)
             # this dp rank's share of the rows (all of them without dp)
             per = bb // self.dp
             mine = slice(per * self.dp_rank, per * (self.dp_rank + 1))
             if hw_key:
                 hw_batch, hw_lens = hw_batch[mine], hw_lens[mine]
-            out = self._forward(feats[mine], lens[mine], hw_batch, hw_lens)
+            with METRICS.stage("asr.forward"):
+                out = self._forward(feats[mine], lens[mine], hw_batch,
+                                    hw_lens)
             self._record(out, idxs, lens, lms, has_lm, records, handles,
                          self.dp_group)
         return {"records": records, "results": results, "lms": lms}, handles
@@ -328,6 +348,10 @@ class ParaformerOffline:
                      ) -> List[Tuple[str, List[List[float]]]]:
         """Phase B: host post-processing of the fetched (numpy) handles:
         detokenization, LM decoding and timestamps."""
+        with METRICS.stage("asr.finish"):
+            return self._finish(pending, fetched)
+
+    def _finish(self, pending, fetched):
         results, lms = pending["results"], pending["lms"]
         for rec in pending["records"]:
             idxs, lens = rec["idxs"], rec["lens"]
@@ -369,7 +393,9 @@ class ParaformerOffline:
         if not keep:
             return {}
         parts = [lm_rows[k][: int(counts[k])] for k in keep]
-        flat = torch.cat([x.reshape(-1) for x in parts]).cpu().numpy()
+        flat = torch.cat([x.reshape(-1) for x in parts])
+        with METRICS.stage("asr.fetch"):
+            flat = flat.cpu().numpy()
         self.lm_bytes_copied += flat.nbytes
         out, at = {}, 0
         for k, x in zip(keep, parts):

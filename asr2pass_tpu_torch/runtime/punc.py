@@ -13,6 +13,8 @@ CT-Transformer model:
     cached tokens, re-caches text after the last sentence end, and drops a
     trailing punctuation so partial sentences keep growing
     (ct-transformer-online.cpp:40-152)
+Spans (runtime/metrics): punc.window around each window's model call,
+punc.fetch around its one copy to the host.
 """
 from __future__ import annotations
 
@@ -24,6 +26,7 @@ from torch import nn
 
 from asr2pass_tpu_torch.config import PuncConfig
 from asr2pass_tpu_torch.models import ct_transformer
+from asr2pass_tpu_torch.runtime.metrics import GLOBAL as METRICS
 from asr2pass_tpu_torch.text.punc_tokenizer import (
     COMMA_INDEX,
     DUN_INDEX,
@@ -62,16 +65,19 @@ class Punctuator:
         n = len(ids)
         if n == 0:
             return []
-        bucket = -(-n // _BUCKET) * _BUCKET
-        arr = np.zeros((1, bucket), np.int64)
-        arr[0, :n] = ids
-        am = np.ones((bucket, bucket), np.float32)
-        am[:n, :n] = ct_transformer.vad_mask(n, cache_size)
-        dev = self.device
-        logits = ct_transformer.apply(
-            self.params, self.cfg, torch.from_numpy(arr).to(dev),
-            torch.tensor([n], device=dev), torch.from_numpy(am).to(dev))
-        return logits[0, :n].argmax(dim=-1).cpu().tolist()
+        with METRICS.stage("punc.window"):
+            bucket = -(-n // _BUCKET) * _BUCKET
+            arr = np.zeros((1, bucket), np.int64)
+            arr[0, :n] = ids
+            am = np.ones((bucket, bucket), np.float32)
+            am[:n, :n] = ct_transformer.vad_mask(n, cache_size)
+            dev = self.device
+            logits = ct_transformer.apply(
+                self.params, self.cfg, torch.from_numpy(arr).to(dev),
+                torch.tensor([n], device=dev), torch.from_numpy(am).to(dev))
+            classes = logits[0, :n].argmax(dim=-1)
+            with METRICS.stage("punc.fetch"):
+                return classes.cpu().tolist()
 
     # -- shared window loop ----------------------------------------------
     def _windows(self, tokens: List[str], ids: List[int],

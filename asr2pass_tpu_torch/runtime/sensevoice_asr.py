@@ -38,6 +38,10 @@ The TLG search is frame-synchronous over CTC rows, so it needs a graph
 with the CTC topology (tools/build_tlg.py --ctc-blank): a decoder of any
 other kind, or over a graph without the blank unit, raises ValueError
 instead of decoding garbage.
+
+Spans and counters (runtime/metrics) as in ParaformerOffline:
+asr.frontend, asr.forward, asr.fetch, asr.finish; asr.frames and
+asr.frames_padded.
 """
 from __future__ import annotations
 
@@ -59,6 +63,7 @@ from asr2pass_tpu_torch.parallel.ctc_shard import (
     ctc_first_prune, ctc_first_prune_gather, ctc_first_prune_sharded,
     ctc_first_prune_sharded_gather)
 from asr2pass_tpu_torch.parallel.sharding import check_sharded, shard_params
+from asr2pass_tpu_torch.runtime.metrics import GLOBAL as METRICS
 from asr2pass_tpu_torch.runtime.offline_asr import (_MAX_BATCH,
                                                     _batch_bucket, _bucket)
 from asr2pass_tpu_torch.runtime.streaming_frontend import offline_frontend_device
@@ -248,9 +253,13 @@ class SenseVoiceOffline:
             feats = (feats_override(idxs, bucket, bb)
                      if feats_override is not None else None)
             if feats is None:
-                feats = offline_frontend_device(
-                    [bufs[i] for i in idxs], [ns[i] for i in idxs], bucket,
-                    fcfg, means, vars_, batch_b=bb, device=self.device)
+                with METRICS.stage("asr.frontend"):
+                    feats = offline_frontend_device(
+                        [bufs[i] for i in idxs], [ns[i] for i in idxs],
+                        bucket, fcfg, means, vars_, batch_b=bb,
+                        device=self.device)
+            METRICS.count("asr.frames", sum(lens))
+            METRICS.count("asr.frames_padded", bb * bucket)
             lid, tn = self._meta_ids(bb)
             for k, i in enumerate(idxs):
                 if langs is not None and langs[i] is not None:
@@ -260,7 +269,8 @@ class SenseVoiceOffline:
                     tn[k] = (self.cfg.textnorm_dict["withitn"]
                              if itn_flags[i]
                              else self.cfg.textnorm_dict["woitn"])
-            out = self._forward(feats, lens, lid, tn)
+            with METRICS.stage("asr.forward"):
+                out = self._forward(feats, lens, lid, tn)
             ids, counts, meta = sensevoice.greedy_ids(
                 out, blank_id=self.cfg.blank_id)
             hlist = [ids, counts, meta, out.lengths]
@@ -317,6 +327,10 @@ class SenseVoiceOffline:
         """Phase B: host decode over the fetched (numpy) arrays: greedy
         straight from the device-collapsed ids; beam items run the pruned
         prefix beam with their context graph."""
+        with METRICS.stage("asr.finish"):
+            return self._finish(pending, fetched, with_meta)
+
+    def _finish(self, pending, fetched, with_meta):
         results = pending["results"]
         metas = pending["metas"]
         contexts = pending["contexts"]
@@ -389,8 +403,10 @@ class SenseVoiceOffline:
             segments, hw_emb=hw_emb, langs=langs, itn_flags=itn_flags,
             contexts=contexts, lm_decoders=lm_decoders,
             feats_override=feats_override)
-        return self.finish_batch(pending, to_host(handles),
-                                 with_meta=with_meta)
+        if handles:
+            with METRICS.stage("asr.fetch"):
+                handles = to_host(handles)
+        return self.finish_batch(pending, handles, with_meta=with_meta)
 
     def recognize(self, samples: np.ndarray, hw_emb=None
                   ) -> Tuple[str, list]:

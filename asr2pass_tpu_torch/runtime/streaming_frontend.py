@@ -26,6 +26,7 @@ from asr2pass_tpu_torch.config import FrontendConfig
 from asr2pass_tpu_torch.frontend.audio import quantize_pcm
 from asr2pass_tpu_torch.frontend.fbank import get_extractor, num_frames
 from asr2pass_tpu_torch.frontend.lfr import apply_cmvn, apply_lfr
+from asr2pass_tpu_torch.runtime.metrics import GLOBAL as METRICS
 from asr2pass_tpu_torch.utils import resolve_device, to_device
 
 
@@ -33,9 +34,13 @@ _BUCKET = 25  # fbank frames per chunk bucket (250 ms)
 
 
 class StreamingFrontend:
+    """fetch_span: the runtime/metrics span around the copy of each
+    chunk's mel rows to the host (None: no span)."""
+
     def __init__(self, cfg: FrontendConfig, cmvn_means=None, cmvn_vars=None,
-                 device="cuda"):
+                 device="cuda", fetch_span: Optional[str] = None):
         self.cfg = cfg
+        self.fetch_span = fetch_span
         self.device = resolve_device(device)
         self.extractor = get_extractor(cfg)
         d = cfg.lfr_dim
@@ -63,7 +68,8 @@ class StreamingFrontend:
         if len(samples) < need:
             samples = np.pad(samples, (0, need - len(samples)))
         mel = self.extractor(samples[:need], self.device)
-        return mel[:n].cpu().numpy()
+        with METRICS.stage(self.fetch_span):
+            return mel[:n].cpu().numpy()
 
     def _emit_windows(self, upto: int) -> np.ndarray:
         """Emit LFR windows [_next_window, upto); taps past the last mel

@@ -5,6 +5,11 @@ device over chunks padded to 25-frame buckets with its caches there; the
 posteriors come back to the host once a chunk for the automaton. The
 offline variant streams 1 s windows through the same path and joins the
 events into closed segments.
+
+Spans (runtime/metrics): vad.setup (the stream's construction in
+vad_segments_offline), vad.frontend, vad.net and vad.automaton (one
+each a chunk), and vad.fetch around each of the chunk's two blocking
+copies to the host (the front-end's mel rows, the net's posteriors).
 """
 from __future__ import annotations
 
@@ -16,6 +21,7 @@ from torch import nn
 
 from asr2pass_tpu_torch.config import VadConfig
 from asr2pass_tpu_torch.models import fsmn_vad
+from asr2pass_tpu_torch.runtime.metrics import GLOBAL as METRICS
 from asr2pass_tpu_torch.runtime.streaming_frontend import StreamingFrontend
 from asr2pass_tpu_torch.utils import fp32_products, resolve_device
 from asr2pass_tpu_torch.vad.e2e_vad import E2EVadStateMachine, VadOptions
@@ -71,7 +77,8 @@ class FsmnVadStream:
         self.online = online
         means, vars_ = (cmvn if cmvn is not None else (None, None))
         self.frontend = StreamingFrontend(cfg.frontend, means, vars_,
-                                          device=self.device)
+                                          device=self.device,
+                                          fetch_span="vad.fetch")
         self.caches = fsmn_vad.init_caches(cfg, 1, self.device)
         self.sm = E2EVadStateMachine(vad_options(cfg))
         self.max_end_sil = (max_end_sil if max_end_sil is not None
@@ -98,29 +105,33 @@ class FsmnVadStream:
 
     @torch.inference_mode()
     def _nn_step(self, feats: np.ndarray) -> np.ndarray:
-        t = feats.shape[0]
-        bucket = -(-t // _BUCKET) * _BUCKET
-        padded = np.zeros((1, bucket, feats.shape[1]), np.float32)
-        padded[0, :t] = feats
-        probs, self.caches = fsmn_vad.apply(
-            self.params, torch.from_numpy(padded).to(self.device),
-            self.caches, torch.tensor([t], device=self.device))
-        return probs[0, :t].cpu().numpy()
+        with METRICS.stage("vad.net"):
+            t = feats.shape[0]
+            bucket = -(-t // _BUCKET) * _BUCKET
+            padded = np.zeros((1, bucket, feats.shape[1]), np.float32)
+            padded[0, :t] = feats
+            probs, self.caches = fsmn_vad.apply(
+                self.params, torch.from_numpy(padded).to(self.device),
+                self.caches, torch.tensor([t], device=self.device))
+            with METRICS.stage("vad.fetch"):
+                return probs[0, :t].cpu().numpy()
 
     def accept(self, samples: np.ndarray, is_final: bool = False
                ) -> List[List[int]]:
-        feats = self.frontend.accept(samples, is_final)
+        with METRICS.stage("vad.frontend"):
+            feats = self.frontend.accept(samples, is_final)
         probs = np.zeros((0, self.cfg.output_dim), np.float32)
         if feats.shape[0] > 0:
             probs = self._nn_step(feats)
         if probs.shape[0] == 0 and not is_final:
             return []
-        segs = self.sm(
-            probs, samples, is_final=is_final, online=self.online,
-            max_end_sil=self.max_end_sil,
-            max_single_segment_time=self.max_single_segment,
-            speech_noise_thres=self.speech_noise_thres,
-        )
+        with METRICS.stage("vad.automaton"):
+            segs = self.sm(
+                probs, samples, is_final=is_final, online=self.online,
+                max_end_sil=self.max_end_sil,
+                max_single_segment_time=self.max_single_segment,
+                speech_noise_thres=self.speech_noise_thres,
+            )
         if is_final:
             self.reset()
         return segs
@@ -132,8 +143,9 @@ def vad_segments_offline(params, cfg: VadConfig, samples, cmvn=None,
     """Offline long-audio segmentation: stream fixed windows through an
     online VAD and join the [s,-1]/[-1,e] events into closed [s,e]
     segments."""
-    stream = FsmnVadStream(params, cfg, cmvn=cmvn, online=True,
-                           device=device, **kw)
+    with METRICS.stage("vad.setup"):
+        stream = FsmnVadStream(params, cfg, cmvn=cmvn, online=True,
+                               device=device, **kw)
     samples = np.asarray(samples, np.float32)
     step = int(cfg.sample_rate * window_s)
     events: List[List[int]] = []
