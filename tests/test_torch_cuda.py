@@ -378,6 +378,56 @@ def test_fsmn_vad_card_matches_cpu(dev):
         torch.testing.assert_close(a.cpu(), r, rtol=1e-5, atol=1e-5)
 
 
+def test_offline_vad_a_file_at_a_time_on_the_card(dev):
+    """One transcription of a 130.5 s file (sensevoice_tiny behind
+    fsmn-vad at its widths, the silence pdf held low so that the energy
+    gate segments): the VAD copies to the host once, calls the net once
+    a 6000-row block and feeds the automaton a window a second, and its
+    segments equal those of the 1 s FsmnVadStream loop on the card."""
+    import dataclasses
+
+    from asr2pass_tpu_torch import config
+    from asr2pass_tpu_torch.models import fsmn_vad, sensevoice
+    from asr2pass_tpu_torch.runtime.offline_api import OfflineRecognizer
+    from asr2pass_tpu_torch.runtime.sensevoice_asr import SenseVoiceOffline
+    from asr2pass_tpu_torch.runtime.vad_stream import (FsmnVadStream,
+                                                       window_rows)
+    from asr2pass_tpu_torch.text.vocab import Vocab
+
+    tokens = ["<blank>", "<s>", "</s>", "<unk>"] + [
+        chr(0x4E00 + i) for i in range(60)]
+    g = torch.Generator().manual_seed(5)
+    cfg = config.sensevoice_tiny(len(tokens))
+    asr = SenseVoiceOffline(sensevoice.init(cfg, g, "cpu"), cfg,
+                            Vocab(tokens), device=dev)
+    vcfg = dataclasses.replace(config.vad_default(), decibel_thres=-30.0)
+    vsd = fsmn_vad.init(vcfg, g, "cpu").state_dict()
+    vsd["out2.b"][list(vcfg.sil_pdf_ids)] = -20.0
+    rng = np.random.default_rng(5)
+    wave = np.zeros(int(16000 * 130.5), np.float32)
+    t = np.arange(16000 * 2) / 16000
+    for start in range(1, 129, 4):
+        a = 16000 * start
+        wave[a: a + len(t)] = 0.3 * np.sin(
+            2 * np.pi * 220 * t) + 0.02 * rng.standard_normal(len(t))
+    res = OfflineRecognizer(asr, vad_params=vsd, vad_cfg=vcfg).transcribe(
+        wave)
+    rec = res.trace
+    rows = sum(window_rows(len(wave), vcfg.frontend, 16000))
+    assert rec["spans"]["vad.fetch"]["n"] == 1
+    assert rec["counts"]["vad.net_calls"] == -(-rows // 6000) == 3
+    assert rec["counts"]["vad.windows"] == -(-len(wave) // 16000) == 131
+    stream = FsmnVadStream(vsd, vcfg, online=True, max_end_sil=800,
+                           max_single_segment=60000, device=dev)
+    events = []
+    for off in range(0, len(wave), 16000):
+        events += stream.accept(wave[off: off + 16000],
+                                off + 16000 >= len(wave))
+    closed = [[s, e] for s, e in zip(
+        [s for s, _ in events if s != -1], [e for _, e in events if e != -1])]
+    assert res.segments == closed and len(closed) == 32
+
+
 def test_two_pass_session_lives_on_the_card(dev):
     """A TwoPassSession built with the default device: every model and
     state tensor on the card, before and after a few messages."""

@@ -262,16 +262,19 @@ def paraformer_rec():
 
 def test_transcribe_returns_its_span_record(paraformer_rec):
     """Every span of the offline path, each fetch span once a blocking
-    copy: two a 1 s VAD window, one a recognize_batch, one a punctuation
-    window; the counters hold the chunks' true and padded frames."""
+    copy: one a file's VAD, one a recognize_batch, one a punctuation
+    window; the counters hold the VAD's 1 s windows and net calls and
+    the chunks' true and padded frames."""
     seconds = 4
     res = paraformer_rec.transcribe(_bursts(seconds, 7), use_itn=False)
     assert len(res.segments) == 2 and res.text
     rec = res.trace
     spans = rec["spans"]
     assert set(spans) == OFFLINE_SPANS
-    assert spans["vad.fetch"]["n"] == 2 * seconds
-    assert spans["vad.frontend"]["n"] == seconds
+    assert spans["vad.fetch"]["n"] == spans["vad.frontend"]["n"] == 1
+    assert spans["vad.net"]["n"] == spans["vad.automaton"]["n"] == 1
+    assert rec["counts"]["vad.windows"] == seconds
+    assert rec["counts"]["vad.net_calls"] == 1
     assert spans["vad.setup"]["n"] == 1
     assert spans["asr.fetch"]["n"] == 1 and spans["asr.forward"]["n"] == 1
     # each block of the encoder (2) and of the decoder (2)
@@ -296,7 +299,7 @@ def test_sensevoice_transcribe_record():
     spans = res.trace["spans"]
     assert set(spans) == OFFLINE_SPANS - {"asr.cif", "offline.punc",
                                           "punc.window", "punc.fetch"}
-    assert spans["vad.fetch"]["n"] == 8 and spans["asr.fetch"]["n"] == 1
+    assert spans["vad.fetch"]["n"] == 1 and spans["asr.fetch"]["n"] == 1
     assert res.trace["counts"]["asr.frames_padded"] == 2 * 64
 
 
@@ -325,5 +328,6 @@ def test_stats_show_the_offline_stages(paraformer_rec):
     paraformer_rec.transcribe(_bursts(4, 10), use_itn=False)
     rep = metrics.GLOBAL.report()
     assert {"offline.vad", "vad.automaton", "asr.cif"} <= set(rep["stages"])
-    assert rep["stages"]["vad.fetch"]["count"] >= 8
-    assert set(rep["counts"]) == {"asr.frames", "asr.frames_padded"}
+    assert rep["stages"]["vad.fetch"]["count"] == 1
+    assert set(rep["counts"]) == {"vad.windows", "vad.net_calls",
+                                  "asr.frames", "asr.frames_padded"}

@@ -9,7 +9,9 @@ is compared with both of the JAX package's paths: its Python automaton
 native library is built; and both of the port's: its default, its own
 build of the C++ automaton, and its plain Python frame loop
 (native=False). Events must be equal; the net is held to rtol/atol
-1e-5.
+1e-5. The offline segmenter, which runs the front-end and the net once a
+file, is also held to the 1 s FsmnVadStream loop it replaced: equal
+segments, and equal automaton inputs window by window.
 """
 import dataclasses
 
@@ -28,9 +30,10 @@ from asr2pass_tpu.vad import e2e_vad as je2e
 from asr2pass_tpu_torch import config as tconfig
 from asr2pass_tpu_torch.models import fsmn_vad as tvad
 from asr2pass_tpu_torch.runtime.model_zoo import params_from_jax
+from asr2pass_tpu_torch.runtime.streaming_frontend import StreamingFrontend
 from asr2pass_tpu_torch.runtime.vad_stream import FsmnVadStream as TVadStream
 from asr2pass_tpu_torch.runtime.vad_stream import (
-    vad_segments_offline as tsegments)
+    vad_segments_offline as tsegments, window_rows)
 from asr2pass_tpu_torch.vad import e2e_vad as te2e
 from torch_parity import bursty, t
 
@@ -225,6 +228,131 @@ def test_vad_segments_offline(vad):
         got = tsegments(sd, tcfg, wave, device="cpu", **kw)
         assert got == ref
         assert len(got) >= 3
+
+
+def _long_wave(seconds: float, seed: int) -> np.ndarray:
+    """bursty() audio of 0.5-3 s pauses and 1-8 s bursts, cut to
+    `seconds`."""
+    rng = np.random.default_rng(seed)
+    pattern, total = [], 0.0
+    while total < seconds:
+        pause, burst = rng.uniform(0.5, 3.0), rng.uniform(1.0, 8.0)
+        pattern += [(pause, 0), (burst, 1)]
+        total += pause + burst
+    return bursty(pattern, seed)[: int(seconds * 16000)]
+
+
+def _windowed_segments(sd, cfg, wave, cmvn, step, **kw):
+    """The offline segmenter as a FsmnVadStream.accept loop over windows
+    of `step` samples: every window through the streaming front-end, the
+    net and the automaton, the events joined into closed segments."""
+    stream = TVadStream(sd, cfg, cmvn=cmvn, online=True, device="cpu", **kw)
+    events = []
+    for off in range(0, len(wave), step):
+        events += stream.accept(wave[off: off + step],
+                                off + step >= len(wave))
+    out, start = [], -1
+    for s, e in events:
+        if s != -1:
+            start = s
+        if e != -1 and start != -1:
+            out.append([start, e])
+            start = -1
+    return out
+
+
+def _equal_to_the_windowed_stream(monkeypatch, sd, cfg, wave, cmvn,
+                                  window_s, **kw):
+    """Runs the offline segmenter and the windowed stream it replaces:
+    equal segments, and the automaton called with the same windows of
+    samples, the same options and the same silence posteriors row for
+    row. Returns the segments."""
+    calls = []
+    automaton = te2e.E2EVadStateMachine.__call__
+
+    def record(self, scores, waveform, **a):
+        ids = list(self.opts.sil_pdf_ids)
+        calls.append((np.asarray(scores)[:, ids].sum(-1, dtype=np.float32),
+                      np.asarray(waveform).copy(), a))
+        return automaton(self, scores, waveform, **a)
+
+    monkeypatch.setattr(te2e.E2EVadStateMachine, "__call__", record)
+    step = int(16000 * window_s)
+    ref = _windowed_segments(sd, cfg, wave, cmvn, step, **kw)
+    ref_calls, calls[:] = list(calls), []
+    got = tsegments(sd, cfg, wave, cmvn=cmvn, window_s=window_s,
+                    device="cpu", **kw)
+    assert got == ref
+    assert len(calls) == len(ref_calls)
+    for (sil, w, a), (rsil, rw, ra) in zip(calls, ref_calls):
+        np.testing.assert_array_equal(w, rw)
+        assert a == ra
+        # relative: the silence posterior is held near e^-20
+        np.testing.assert_allclose(sil, rsil, rtol=1e-4, atol=0)
+    return got
+
+
+def _held_silence(sd, sil_ids):
+    """The net's weights with the silence pdfs' bias at -20, so that the
+    energy gate segments."""
+    sd = dict(sd, **{"out2.b": sd["out2.b"].clone()})
+    sd["out2.b"][list(sil_ids)] = -20.0
+    return sd
+
+
+@pytest.mark.parametrize("variant", ["plain", "cmvn", "cmvn_of_nones",
+                                     "two_sil_pdfs"])
+@pytest.mark.parametrize("overrides", [False, True])
+@pytest.mark.parametrize("seconds", [0.02, 0.5, 3.0, 3.37, 75.3, 130.0])
+def test_offline_segments_equal_the_windowed_stream(vad, monkeypatch,
+                                                    seconds, overrides,
+                                                    variant):
+    """The file-at-a-time segmenter against the 1 s stream it replaces
+    (130 s crosses two 6000-row net blocks, its caches carried)."""
+    sil_ids = (0, 3) if variant == "two_sil_pdfs" else (0,)
+    _, cfg = _cfgs(decibel_thres=DECIBEL_THRES, sil_pdf_ids=sil_ids)
+    # a VAD dir without am.mvn loads as (None, None)
+    cmvn = (None, None) if variant == "cmvn_of_nones" else None
+    if variant == "cmvn":
+        rng = np.random.default_rng(4)
+        cmvn = (rng.uniform(-12, -8, 400).astype(np.float32),
+                rng.uniform(0.2, 0.4, 400).astype(np.float32))
+    kw = {"max_end_sil": 500, "max_single_segment": 1000} if overrides else {}
+    wave = _long_wave(seconds, 9)
+    got = _equal_to_the_windowed_stream(
+        monkeypatch, _held_silence(vad[2], sil_ids), cfg, wave, cmvn, 1.0,
+        **kw)
+    if seconds > 60:
+        assert len(got) >= 10
+
+
+@pytest.mark.parametrize("seconds", [3.37, 6.0])
+def test_offline_segments_short_windows(vad, monkeypatch, seconds):
+    """30 ms windows, the first of which emits no rows (the automaton
+    skips it, as FsmnVadStream.accept does)."""
+    _, cfg = _cfgs(decibel_thres=DECIBEL_THRES)
+    wave = _long_wave(seconds, 10)
+    assert window_rows(len(wave), cfg.frontend, 480)[0] == 0
+    assert _equal_to_the_windowed_stream(
+        monkeypatch, _held_silence(vad[2], (0,)), cfg, wave, None, 0.03,
+        max_end_sil=200, max_single_segment=1000)
+
+
+@pytest.mark.parametrize("frontend", ["vad", "asr"])
+@pytest.mark.parametrize("n", [0, 150, 399, 400, 560, 8000, 15999, 16000,
+                               16001, 16240, 33337, 48399])
+def test_window_rows_match_the_streaming_frontend(frontend, n):
+    """window_rows against the rows StreamingFrontend.accept emits for
+    each 1 s window, the last final: the VAD's LFR(5,1) and the
+    recognizer's LFR(7,6) front-ends, files under one frame and at
+    window edges."""
+    fcfg = (tconfig.vad_default().frontend if frontend == "vad"
+            else tconfig.FrontendConfig())
+    fe = StreamingFrontend(fcfg, device="cpu")
+    wave = np.random.default_rng(n).standard_normal(n).astype(np.float32)
+    emitted = [fe.accept(wave[off: off + 16000], off + 16000 >= n).shape[0]
+               for off in range(0, n, 16000)]
+    assert window_rows(n, fcfg, 16000) == emitted
 
 
 def test_vad_dir_round_trip(vad, tmp_path):
