@@ -288,6 +288,12 @@ class _Slot:
     p1_ring_w: int = 0                 # pending-ring windows written (monotonic)
     p1_ring_r: int = 0                 # pending-ring windows consumed
     p1_flush_at: Any = None            # ring_w at utterance final, or None
+    # the utterance pass 1 is in: its first staged sample and its end
+    # (absolute), and the LFR rows consumed of it; they give each partial
+    # the sample count it waited for (the result's "end_sample")
+    p1_utt_start: int = 0
+    p1_utt_end: int = 0
+    p1_utt_rows: int = 0
 
 
 class StreamEngine:
@@ -495,7 +501,8 @@ class StreamEngine:
         if self._pipeline:
             with self._results_lock:
                 self._p1_outstanding += 1
-            self._p1_queue.put(([], np.zeros(c, bool), ids, nums))
+            self._p1_queue.put(([], np.zeros(c, bool), ids, nums,
+                                np.zeros(c, np.int64)))
         dummy = None
         if self._p2_thread is not None and self.offline is not None:
             # one segment through the pass-2 lane off the serving path
@@ -742,9 +749,9 @@ class StreamEngine:
                         self._decide_counted(fetched[0], ctx[1], overlap)
                 i = 1
             with METRICS.stage("tick_p1_detok"):
-                for refs, finals, _, _ in batches:
+                for refs, finals, _, _, ends in batches:
                     self._finish_asr_batch(
-                        (refs, finals, fetched[i], fetched[i + 1]),
+                        (refs, finals, fetched[i], fetched[i + 1], ends),
                         inflight_counted=False)
                     i += 2
             with METRICS.stage("tick_pass2_handoff"):
@@ -1052,6 +1059,9 @@ class StreamEngine:
         shift, flen = fcfg.frame_shift, fcfg.frame_length
         lfr_m, lfr_n = fcfg.lfr_m, fcfg.lfr_n
         left = (lfr_m - 1) // 2
+        # the samples an LFR row needs past its first frame's start: its
+        # last tap's frame, (lfr_m - 1 - left) frames on, whole
+        row_reach = (lfr_m - 1 - left) * shift + flen
         ring_n = self._p1_ring_n
         # stage at most one VAD-tick's worth of samples per slot per round
         # so k_emit stays within the step's k_max window budget
@@ -1062,6 +1072,9 @@ class StreamEngine:
             ints = np.zeros((10, cap), np.int64)
             (start_off, n_new, win_start, total_new, k_emit, fe_finals,
              ring_woff, consume_start, consume_count, finals) = ints
+            # per consumed slot, the stream's sample count the chunk's
+            # audio ends at (the last row's taps, or the utterance's end)
+            ends = np.zeros(cap, np.int64)
             todo = []
             quarantined = []
             more = False
@@ -1094,12 +1107,16 @@ class StreamEngine:
                                 # fresh utterance (or stream start): the
                                 # staged range begins at this group
                                 slot.p1_cursor = g_start
+                                slot.p1_utt_start = g_start
+                                slot.p1_utt_rows = 0
                             total += g_n
                             fe_fin = fe_fin or f
                         lbuf = slot.p1_residual + total
                         n = ((lbuf - flen) // shift + 1
                              if lbuf >= flen else 0)
                         start_off[sid] = slot.p1_cursor % self._ring_samples
+                        if fe_fin:
+                            slot.p1_utt_end = slot.p1_cursor + lbuf
                         slot.p1_cursor += n * shift
                         slot.p1_residual = 0 if fe_fin else lbuf - n * shift
                         n_new[sid] = n
@@ -1156,6 +1173,10 @@ class StreamEngine:
                         consume_start[sid] = slot.p1_ring_r % ring_n
                         consume_count[sid] = cnt
                         slot.p1_ring_r += cnt
+                        slot.p1_utt_rows += cnt
+                        ends[sid] = (slot.p1_utt_end if finals[sid] else
+                                     slot.p1_utt_start + row_reach
+                                     + (slot.p1_utt_rows - 1) * lfr_n * shift)
                         todo.append(sid)
                     if (slot.p1_groups or slot.p1_flush_at is not None
                             or slot.p1_ring_w - slot.p1_ring_r >= c):
@@ -1168,9 +1189,13 @@ class StreamEngine:
                 self.oparams, self._asr_means, self._asr_vars,
                 self.online_state, self._audio_ring,
                 *to_device(self.device, ints), self._p1_hist, self._p1_ring)
+            # the step computes every slot's row; `active` of them advance
+            METRICS.count("engine.p1_steps")
+            METRICS.count("engine.p1_rows", cap)
+            METRICS.count("engine.p1_active", len(todo))
             if todo:
                 batch = ([(sid, self.slots[sid]) for sid in todo],
-                         finals.astype(bool), ids, nums)
+                         finals.astype(bool), ids, nums, ends)
                 if defer:
                     deferred.append(batch)
                 elif self._pipeline:
@@ -1262,7 +1287,7 @@ class StreamEngine:
                     self._p1_outstanding -= 1
 
     def _finish_asr_batch(self, batch, inflight_counted: bool):
-        slot_refs, finals, ids, nums = batch
+        slot_refs, finals, ids, nums, ends = batch
         if isinstance(ids, torch.Tensor):
             ids, nums = to_host([ids, nums])  # one fetch, not two
         for sid, slot in slot_refs:
@@ -1278,7 +1303,8 @@ class StreamEngine:
                             slot.results.append(
                                 {"mode": "2pass-online"
                                  if slot.mode == "2pass" else "online",
-                                 "text": text})
+                                 "text": text,
+                                 "end_sample": int(ends[sid])})
             if finals[sid]:
                 # the front-end already reset itself on the final commit;
                 # only detok state resets here
@@ -1419,6 +1445,9 @@ class StreamEngine:
             kw["hw_embs"] = [s.hw_emb for s in slots]
         if any(s.lm_decoder is not None for s in slots):
             kw["lm_decoders"] = [s.lm_decoder for s in slots]
+        METRICS.count("engine.p2_segments", len(pairs))
+        METRICS.count("engine.p2_audio_ms", sum(
+            len(s) for s in segs) * 1000 // self.models.vad_cfg.sample_rate)
         with METRICS.stage("p2_recognize"):
             outs = self.offline.asr.recognize_batch(segs, **kw)
         t_post = time.perf_counter()
@@ -1439,7 +1468,9 @@ class StreamEngine:
                         if sm:
                             stamps = sm
                     text = text_itn
-                res = {"mode": "2pass-offline", "text": text}
+                # the stream's sample count at the segment's end point
+                res = {"mode": "2pass-offline", "text": text,
+                       "end_sample": fr.samp_end}
                 if stamps:
                     res["timestamp"] = stamps
                     res["stamp_sents"] = ts_mod.timestamp_sentence(text,

@@ -21,12 +21,22 @@ per-connection ordering falls out of one asyncio task per connection.
 With use_engine, one StreamEngine batches every 2pass and online
 connection, ticked by a background task, and offline uploads decode on
 their own executor. `websockets` is imported in serve() only.
+
+Every connection gets an id and a record (connection_records()): when
+each audio message arrived with the stream's sample count after it, and,
+on the engine path, when each partial and final was sent and how long it
+waited: from the arrival of the message that completed the audio it
+answers (a partial's chunk, a final's segment end point) to its send.
+The waits also go to the stages ws.partial_wait and ws.final_wait.
 """
 from __future__ import annotations
 
 import asyncio
+import bisect
 import json
 import logging
+import time
+from collections import OrderedDict
 from concurrent.futures import ThreadPoolExecutor
 from typing import Optional
 
@@ -41,6 +51,9 @@ from asr2pass_tpu_torch.runtime.metrics import GLOBAL as METRICS
 from asr2pass_tpu_torch.server.engine import ServerModels
 
 log = logging.getLogger("asr2pass.server")
+
+# the newest connections whose records the server keeps
+MAX_RECORDS = 4096
 
 
 def _parse_hotwords(msg) -> dict:
@@ -70,7 +83,15 @@ def _parse_hotwords(msg) -> dict:
 
 
 class ConnectionState:
-    def __init__(self):
+    def __init__(self, conn_id: int = 0):
+        # the connection's record (AsrWsServer.connection_records): times
+        # are time.perf_counter() seconds; samples[i] is the stream's
+        # sample count after the audio message that arrived at arrived[i]
+        self.record = {"id": conn_id, "wav_name": None, "mode": None,
+                       "opened": time.perf_counter(), "closed": None,
+                       "engine_slot": None, "engine_gen": None,
+                       "arrived": [], "samples": [], "partials": [],
+                       "finals": []}
         self.mode = "2pass"
         self.wav_name = "demo"
         self.wav_format = "pcm"
@@ -138,12 +159,42 @@ class AsrWsServer:
         self.decide_async = decide_async
         self._engine_lock = None
         self._engine_conns = {}   # sid -> (ws, ConnectionState)
+        self._opened = 0          # connections so far; the newest's id
+        self._records: "OrderedDict[int, dict]" = OrderedDict()
+
+    def connection_records(self) -> list:
+        """The records of the newest MAX_RECORDS connections, oldest first
+        (see the module's docstring; the lists of an open connection
+        still grow)."""
+        return list(self._records.values())
+
+    def _note_sent(self, st: ConnectionState, r: dict):
+        """Record an engine result's send and its wait (the time since the
+        message holding its audio's last sample arrived)."""
+        end = r.get("end_sample", -1)
+        rec = st.record
+        i = bisect.bisect_left(rec["samples"], end)
+        if end <= 0 or i == len(rec["samples"]):
+            return
+        now = time.perf_counter()
+        wait = now - rec["arrived"][i]
+        if r["mode"] == "2pass-offline":
+            rec["finals"].append([now, wait, end])
+            METRICS.add_stage("ws.final_wait", wait)
+        else:
+            rec["partials"].append([now, wait])
+            METRICS.add_stage("ws.partial_wait", wait)
 
     def stats(self) -> dict:
-        """The "stats" action's report: the stage metrics; on the card,
-        the attention kernels' launches and the memory allocated; with a
-        fan-out, its numbers and the shards held."""
+        """The "stats" action's report: the stage metrics and counters,
+        the connections opened and still open; on the card, the attention
+        kernels' launches and the memory allocated; with a fan-out, its
+        numbers and the shards held."""
         report = METRICS.report()
+        report["connections"] = {
+            "opened": self._opened,
+            "open": sum(r["closed"] is None
+                        for r in self._records.values())}
         dev = self.models.device
         if dev.type == "cuda":
             import torch
@@ -226,6 +277,7 @@ class AsrWsServer:
             elif "mode" in obj:
                 bad.append("mode")
             st.wav_name = str(obj.get("wav_name", st.wav_name))
+            st.record["wav_name"], st.record["mode"] = st.wav_name, st.mode
             st.wav_format = str(obj.get("wav_format", st.wav_format))
             if "audio_fs" in obj:
                 try:
@@ -386,7 +438,8 @@ class AsrWsServer:
                 "is_final": True,
             })
 
-    async def _handle_binary(self, ws, st: ConnectionState, data: bytes):
+    async def _handle_binary(self, ws, st: ConnectionState, data: bytes,
+                             arrived: float = 0.0):
         if st.mode == "offline":
             if st.upload_rejected:
                 return
@@ -416,6 +469,10 @@ class AsrWsServer:
             samples = linear_resample(samples, st.audio_fs,
                                       self.models.asr_cfg.frontend.fs)
         if self.use_engine:
+            rec = st.record
+            rec["samples"].append((rec["samples"][-1] if rec["samples"]
+                                   else 0) + len(samples))
+            rec["arrived"].append(arrived)
             await self._engine_feed(ws, st, samples, False)
             return
         if st.session is None:
@@ -453,6 +510,8 @@ class AsrWsServer:
                 })
                 return
             self._engine_conns[st.engine_sid] = (ws, st)
+            st.record["engine_slot"] = st.engine_sid
+            st.record["engine_gen"] = self.engine.slots[st.engine_sid].gen
         self.engine.feed(st.engine_sid, samples, is_final)
         if is_final:
             st.engine_final = True
@@ -514,6 +573,7 @@ class AsrWsServer:
                     if "timestamp" in r:
                         payload["timestamp"] = json.dumps(r["timestamp"])
                         payload["stamp_sents"] = r.get("stamp_sents", [])
+                    self._note_sent(st, r)
                     try:
                         await self._send(ws, payload)
                     except Exception:
@@ -543,11 +603,16 @@ class AsrWsServer:
                     pass
 
     async def handler(self, ws):
-        st = ConnectionState()
+        self._opened += 1
+        st = ConnectionState(self._opened)
+        self._records[self._opened] = st.record
+        while len(self._records) > MAX_RECORDS:
+            self._records.popitem(last=False)
         try:
             async for message in ws:
                 if isinstance(message, (bytes, bytearray)):
-                    await self._handle_binary(ws, st, bytes(message))
+                    await self._handle_binary(ws, st, bytes(message),
+                                              time.perf_counter())
                 else:
                     try:
                         obj = json.loads(message)
@@ -558,6 +623,7 @@ class AsrWsServer:
         except Exception as e:  # connection teardown
             log.info("connection closed: %s", e)
         finally:
+            st.record["closed"] = time.perf_counter()
             sid = getattr(st, "engine_sid", None)
             if sid is not None:
                 self._engine_conns.pop(sid, None)

@@ -570,6 +570,57 @@ def test_stats_protocol_extension(models):
     assert "stats" in msg and "uptime_s" in msg["stats"]
 
 
+def test_connection_records(models):
+    """Each connection's record: its id and name, its engine slot, every
+    audio message's arrival with the stream's sample count after it, and
+    a send with its wait (>= 0, from the arrival of the message holding
+    the audio it answers) for every partial and final the client got;
+    the waits are stages and the engine's counters count, in stats."""
+    pcm = _pcm(2.5, seed=4)
+
+    async def run(server, port):
+        import websockets
+
+        from asr2pass_tpu_torch.runtime.metrics import GLOBAL
+
+        GLOBAL.reset()      # the process's metrics: this connection's only
+        got = await _run_client(port, "2pass", pcm, chunk_ms=60)
+        for _ in range(500):        # the server sees the close
+            if server.connection_records()[0]["closed"] is not None:
+                break
+            await asyncio.sleep(0.01)
+        async with websockets.connect(f"ws://127.0.0.1:{port}") as ws:
+            await ws.send(json.dumps({"action": "stats"}))
+            stats = json.loads(await asyncio.wait_for(ws.recv(), 30))
+        return got, server.connection_records(), stats["stats"]
+
+    msgs, records, stats = _serve(models, run, use_engine=True,
+                                  engine_capacity=4)
+    rec = records[0]
+    assert [r["id"] for r in records] == [1, 2]
+    assert rec["wav_name"] == "t" and rec["engine_slot"] is not None
+    n = len(pcm) // 2
+    assert rec["samples"] == [min(k, n) for k in range(960, n + 960, 960)]
+    assert rec["arrived"] == sorted(rec["arrived"])
+    assert rec["opened"] <= rec["arrived"][0] <= rec["closed"]
+    n_partial = sum(m["mode"] == "2pass-online" for m in msgs)
+    n_final = sum(m["mode"] == "2pass-offline" for m in msgs)
+    assert n_partial and n_final
+    assert len(rec["partials"]) == n_partial
+    assert len(rec["finals"]) == n_final
+    for sent, wait, *end in rec["partials"] + rec["finals"]:
+        assert 0 <= wait and sent <= rec["closed"]
+    assert 0 < rec["finals"][-1][2] <= n
+    assert stats["connections"] == {"opened": 2, "open": 1}
+    assert stats["stages"]["ws.partial_wait"]["count"] == n_partial
+    assert stats["stages"]["ws.final_wait"]["count"] == n_final
+    counts = stats["counts"]
+    assert counts["engine.p1_rows"] == 4 * counts["engine.p1_steps"]
+    assert 0 < counts["engine.p1_active"] <= counts["engine.p1_rows"]
+    assert counts["engine.p2_segments"] == n_final
+    assert 0 < counts["engine.p2_audio_ms"] <= 2500
+
+
 async def _offline_upload(port, pcm, step, wav_name="big"):
     import websockets
 
